@@ -1,11 +1,11 @@
 """nblic_tpu_torch: the PyTorch / CUDA port of nblic_tpu.
 
-It writes and reads the same NBTC profile-1 (lossless) containers as
-``nblic_tpu``, which stays the reference.  Plain tensor code is PyTorch; the
-two kernels of the main path are hand-written CUDA for Hopper (``csrc/``):
-the rANS encode fold (``ops/fold.py``) and the lockstep group decode
-(``ops/decode.py``).  It never imports JAX: of ``nblic_tpu`` it uses only
-``constants``, ``utils.container`` and ``utils.imageio``.
+It writes and reads the same lossless NBTC profile-1 and profile-2
+containers as ``nblic_tpu``, which stays the reference.  Plain tensor code
+is PyTorch; the kernels are hand-written CUDA for Hopper (``csrc/``): the
+rANS encode fold (``ops/fold.py``) and the lockstep group decoders
+(``ops/decode.py``).  It imports neither JAX nor anything of ``nblic_tpu``:
+it keeps its own ``constants``, ``utils.container`` and ``utils.imageio``.
 
 Public API: :mod:`nblic_tpu_torch.api`.
 """

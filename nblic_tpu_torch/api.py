@@ -1,7 +1,9 @@
 """Public API of nblic_tpu_torch, the PyTorch / CUDA port of nblic_tpu.
 
 ``compress_tiled`` / ``decompress_tiled`` write and read the tile-parallel
-``NBTC`` container (profile 1, lossless), byte-identical to ``nblic_tpu``.
+``NBTC`` container (lossless profile 1 at effort 0-1, profile 2 at effort
+2), the same format as ``nblic_tpu`` (see ``models/tiled.py`` for where
+the bytes may differ at effort 2).
 ``decompress`` sniffs the container magic.  Every entry takes ``device``,
 "cuda" by default; asking for CUDA where there is none raises.
 """
@@ -10,13 +12,13 @@ from __future__ import annotations
 
 import numpy as np
 
-from nblic_tpu.utils.container import sniff_format
-
 from .models import tiled
+from .utils.container import sniff_format
 
 
 def compress_tiled(img: np.ndarray, near: int = 0, device="cuda", **kwargs) -> bytes:
-    """Encode with the tile-parallel engine (NBTC container)."""
+    """Encode with the tile-parallel engine (NBTC container); ``effort=2``
+    selects profile 2 (per-tile least-squares predictors)."""
     return tiled.encode(img, near=near, device=device, **kwargs)
 
 

@@ -5,8 +5,8 @@ Usage:
     python -m nblic_tpu_torch -d [--device=cuda] in.nbtc out.{bmp,pgm,pnm}
 
 Switches: ``-v`` verbose, ``-n<int>`` near (0 so far), ``-e<digit>`` effort
-(0 or 1 so far),
-``--tile-h=N`` / ``--tile-w=N`` tile geometry (default 64x64).
+(0-1 profile 1, 2 profile 2; 3 is not ported yet), ``--tile-h=N`` /
+``--tile-w=N`` tile geometry (default 64x64).
 """
 
 from __future__ import annotations
@@ -15,9 +15,8 @@ import re
 import sys
 import time
 
-from nblic_tpu.utils import imageio
-
 from . import api
+from .utils import imageio
 
 USAGE = """\
 nblic_tpu_torch: the PyTorch / CUDA port of the NBTC tiled codec
@@ -26,7 +25,7 @@ nblic_tpu_torch: the PyTorch / CUDA port of the NBTC tiled codec
   switches:
     -v           verbose
     -n<number>   near: 0 (lossless; near-lossless encode is not ported yet)
-    -e<number>   effort: 0 or 1 (profile 1)
+    -e<number>   effort: 0 or 1 (profile 1), 2 (profile 2: per-tile least squares)
     --tiled      the tile-parallel NBTC container (the only one ported)
     --device=D   torch device, default cuda
     --tile-h=N / --tile-w=N   NBTC tile geometry (default 64x64)

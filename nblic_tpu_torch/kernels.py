@@ -79,11 +79,13 @@ def library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.nbt_rans_fold.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.nbt_rans_fold.restype = i32
-    lib.nbt_group_decode.argtypes = [
-        ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, i32, ptr,
-    ]
-    lib.nbt_group_decode.restype = i32
-    lib.nbt_group_decode_smem.argtypes = [i32, i32]
+    for decode in (lib.nbt_group_decode, lib.nbt_group_decode8):
+        decode.argtypes = [
+            ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+            ptr, i32, ptr,
+        ]
+        decode.restype = i32
+    lib.nbt_group_decode_smem.argtypes = [i32, i32, i32]
     lib.nbt_group_decode_smem.restype = ctypes.c_longlong
     lib.nbt_error_string.argtypes = [i32]
     lib.nbt_error_string.restype = ctypes.c_char_p

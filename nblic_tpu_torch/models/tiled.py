@@ -1,18 +1,26 @@
-"""NBTC profile 1, lossless: the tile-parallel codec on PyTorch.
+"""NBTC profiles 1 and 2, lossless: the tile-parallel codec on PyTorch.
 
 Counterpart of ``nblic_tpu/models/tiled.py``; writes and reads the same
-``NBTC0001`` containers, byte for byte.
+``NBTC0001`` containers, byte for byte at profile 1 and, at profile 2, given
+the same per-tile (weights, flags).  Profile 2's fit is exact, but its race
+sums float32 code lengths, whose order differs between the card, the CPU
+and XLA: on large tiles a near-tie may pick another flag for a tile.  Such
+a container still decodes exactly in both packages.
 
 - Encode is one whole-plane modeling pass (blend predictor, 12-bin
   activity, a 3072-context static bias table, residual fold, a 12 x 256
   histogram per image), then a coding tail: normalize the histograms, look
   up each pixel's (freq, cum), fold one rANS stream per tile (kernel K1 on
   CUDA) and interleave the streams of each group of 128 tiles into one.
+- Effort 2 writes profile 2: each tile also fits a least-squares predictor
+  over its causal taps (``ops/lsq.py``) and keeps the best of the blend,
+  the learned predictor and their mean; the weights ride the container.
 - Decode runs the 128 tile lanes of each group in lockstep against one
-  shared stream cursor (kernel K2 on CUDA).
+  shared stream cursor (kernel K2 on CUDA), and decodes near-lossless
+  containers of either profile that the JAX package wrote.
 
 Every entry point takes ``device`` ("cuda" by default); a CUDA device on a
-machine without CUDA raises.  Near-lossless encode and profiles 0, 2 and 3
+machine without CUDA raises.  Near-lossless encode and profiles 0 and 3
 are not ported yet and raise ``NotImplementedError`` naming their ROADMAP
 item.
 """
@@ -24,16 +32,16 @@ import zlib
 import numpy as np
 import torch
 
-from nblic_tpu.constants import Q_N_CONTEXT
-from nblic_tpu.utils.container import NbtcHeader, check_size
-
-from ..convert import resolve_device, streams_from_parsed, tables_from_numpy
+from ..constants import Q_N_CONTEXT
+from ..convert import group_args, resolve_device
 from ..ops import histogram as hist_ops
-from ..ops import rans
+from ..ops import lsq, rans
 from ..ops.context import apply_static_bias, build_static_bias, residual_fold
 from ..ops.decode import decode_groups
 from ..ops.fold import encode_fold
-from ..ops.predict import model_stage1
+from ..ops.neighbors import sample
+from ..ops.predict import context_planes, model_stage1, simple_predict
+from ..utils.container import NbtcHeader, check_size
 
 DEFAULT_TILE = (64, 64)
 N_QD = 12
@@ -41,16 +49,16 @@ N_SYM = 256
 NORM_SUM = hist_ops.NORM_SUM
 # interleave-group width: one shared-cursor stream per G tiles
 G_LANES = 128
+# profile-2 predictor race: the learned choices pay for their transmitted
+# weights and the context-model shift they cause (nblic_tpu's constants)
+RACE_PENALTY = 700.0
+RACE_INVALID = 3e38
 
 
 def _check_encode_mode(near: int, effort: int) -> None:
     if effort >= 3:
         raise NotImplementedError(
             "profile 3 (effort >= 3) is not ported yet: ROADMAP Queue 1 items 9-11"
-        )
-    if effort == 2:
-        raise NotImplementedError(
-            "profile 2 (effort 2) is not ported yet: ROADMAP Queue 1 item 8"
         )
     if near != 0:
         raise NotImplementedError(
@@ -100,7 +108,53 @@ def _model_lossless_impl(tiles: torch.Tensor):
     int64 symbol counts per activity bin.  Each image has its own tables.
     """
     x = tiles.to(torch.int32)
-    px0, err, qd, adr = model_stage1(x)
+    return _bias_fold_hist(x, *model_stage1(x))
+
+
+def _race_bits(x: torch.Tensor, px: torch.Tensor) -> torch.Tensor:
+    """Per-tile code-length proxy sum 2 log2(1 + |x - px|), float32 (B, T)."""
+    e = torch.abs(x - px).to(torch.float32)
+    return torch.sum(2.0 * torch.log2(1.0 + e), dim=(-2, -1))
+
+
+def _model_lossless2_impl(tiles: torch.Tensor, weights=None):
+    """Profile-2 modeling: per-tile least-squares predictors (ops/lsq.py)
+    raced against the blend predictor, the winner kept per tile.
+
+    tiles (B, T, th, tw) uint8 -> (y, qd, bias, hist, w_q, flags): the
+    outputs of :func:`_model_lossless_impl`, then w_q (B, T, 12) int32 (0
+    where the flag is 0) and flags (B, T) int32, 0 blend, 1 learned, 2 their
+    rounded mean.  The race scores a Laplacian code-length proxy in float32,
+    as the JAX package does, so a near-tie may pick another flag there.
+
+    ``weights`` (private; tests and the smoke run carry state with it):
+    (w_q, flags) tensors that replace the fit and the race.
+    """
+    x = tiles.to(torch.int32)
+    b, t = x.shape[:2]
+    n = sample(x)
+    px_s = simple_predict(n)
+    if weights is None:
+        w_q, valid = lsq.fit_tile_weights(x.reshape(b * t, *x.shape[2:]))
+        w_q, valid = w_q.view(b, t, lsq.N_FEAT), valid.view(b, t)
+    else:
+        w_q, flags = (v.to(torch.int32) for v in weights)
+    px_l = lsq.predict_plane(n, w_q)
+    px_a = (px_s + px_l + 1) >> 1
+    if weights is None:
+        cost_s = _race_bits(x, px_s)  # float32, and so are the sums below
+        cost_l = torch.where(valid, _race_bits(x, px_l) + RACE_PENALTY, RACE_INVALID)
+        cost_a = torch.where(valid, _race_bits(x, px_a) + RACE_PENALTY, RACE_INVALID)
+        # argmin keeps the first minimum, as jnp.argmin does
+        flags = torch.argmin(torch.stack([cost_s, cost_l, cost_a]), dim=0).to(torch.int32)
+    pick = flags[..., None, None]
+    px0 = torch.where(pick == 1, px_l, torch.where(pick == 2, px_a, px_s))
+    w_q = torch.where(flags[..., None] > 0, w_q, torch.zeros_like(w_q))
+    return (*_bias_fold_hist(x, px0, *context_planes(n, x, px0)), w_q, flags)
+
+
+def _bias_fold_hist(x, px0, err, qd, adr):
+    """The static bias, residual fold and histogram of a modeling pass."""
     b = x.shape[0]
     # per-image table offset: bias contexts and histogram bins both number 3072
     off = (torch.arange(b, dtype=torch.int32, device=x.device)
@@ -209,9 +263,16 @@ def _deserialize_hists(data: bytes):
     return np.stack(hists)
 
 
-def _emit_container(h, w, tile_h, tile_w, n_tiles, g_lanes, totals,
-                    bias_i16, hist_n, payload, transposed_flag) -> bytes:
-    """Serialize one profile-1 lossless NBTC container."""
+def _serialize_weights(w_q: np.ndarray, flags: np.ndarray) -> bytes:
+    """Profile-2 weight block: flags + weights of learned tiles, zlib'd."""
+    raw = zlib.compress(flags.tobytes() + w_q[flags > 0].tobytes(), 6)
+    return np.asarray([len(raw)], np.uint32).tobytes() + raw + b"\x00" * (len(raw) & 1)
+
+
+def _emit_container(profile, h, w, tile_h, tile_w, n_tiles, g_lanes, totals,
+                    bias_i16, hist_n, payload, weights_bytes,
+                    transposed_flag) -> bytes:
+    """Serialize one lossless NBTC container (profile 1 or 2)."""
     bias_bytes = zlib.compress(bias_i16.tobytes(), 6)
     bias_bytes += b"\x00" * (len(bias_bytes) & 1)  # keep u16 aligned
     hist_bytes = _serialize_hists(hist_n)
@@ -219,11 +280,12 @@ def _emit_container(h, w, tile_h, tile_w, n_tiles, g_lanes, totals,
         [g_lanes, len(totals)] + [2 * int(t) for t in totals], dtype=np.uint32
     ).tobytes()
     header = NbtcHeader(
-        profile=1, near=0, height=h, width=w, tile_h=tile_h, tile_w=tile_w,
+        profile=profile, near=0, height=h, width=w, tile_h=tile_h, tile_w=tile_w,
         n_tiles=n_tiles, bias_len=len(bias_bytes), hist_len=len(hist_bytes),
         flags=int(transposed_flag),
     )
-    return header.to_bytes() + bias_bytes + hist_bytes + meta + payload
+    return (header.to_bytes() + bias_bytes + weights_bytes + hist_bytes + meta
+            + payload)
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +296,8 @@ def _emit_container(h, w, tile_h, tile_w, n_tiles, g_lanes, totals,
 def encode(img: np.ndarray, near: int = 0, tile_h: int = DEFAULT_TILE[0],
            tile_w: int = DEFAULT_TILE[1], effort: int = 1,
            device="cuda") -> bytes:
-    """Encode a gray-8 image into an NBTC profile-1 container."""
+    """Encode a gray-8 image into an NBTC container: profile 1 at effort
+    0-1, profile 2 (per-tile least-squares predictors) at effort 2."""
     return encode_batch([img], near=near, tile_h=tile_h, tile_w=tile_w,
                         effort=effort, device=device)[0]
 
@@ -246,7 +309,14 @@ def encode_batch(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
     modeling pass and one fold.  ``transposed`` marks images stored
     transposed (header flag bit 0)."""
     _check_encode_mode(near, effort)
-    dev = resolve_device(device)
+    return _encode_batch(imgs, tile_h, tile_w, 2 if effort >= 2 else 1, transposed,
+                         resolve_device(device))
+
+
+def _encode_batch(imgs, tile_h: int, tile_w: int, profile: int, transposed,
+                  dev: torch.device, weights=None) -> list[bytes]:
+    """:func:`encode_batch` after its mode checks; ``weights`` is the
+    private profile-2 state of :func:`_model_lossless2_impl`."""
     imgs = [np.ascontiguousarray(im, dtype=np.uint8) for im in imgs]
     if not imgs:
         return []
@@ -260,7 +330,12 @@ def encode_batch(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
     gh, gw = _tile_grid(h, w, tile_h, tile_w)
 
     tiles = to_tiles(torch.from_numpy(np.stack(imgs)).to(dev), tile_h, tile_w)
-    y, qd, bias, hist = _model_lossless_impl(tiles)
+    if profile == 2:
+        y, qd, bias, hist, w_q, flags = _model_lossless2_impl(tiles, weights)
+        w_q = w_q.cpu().numpy().astype(np.int16)
+        flags = flags.cpu().numpy().astype(np.uint8)
+    else:
+        y, qd, bias, hist = _model_lossless_impl(tiles)
     hist_n, acc = _norm_tables(hist)
     freq, facc = _encode_tables(y, qd, hist_n, acc)
     totals, flats = _pack_groups(*encode_fold(freq, facc))
@@ -274,11 +349,27 @@ def encode_batch(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
     out = []
     for i in range(b):
         out.append(_emit_container(
-            h, w, tile_h, tile_w, gh * gw, G_LANES, totals[i], bias[i],
+            profile, h, w, tile_h, tile_w, gh * gw, G_LANES, totals[i], bias[i],
             hist_n[i], words[ends[i] - totals[i].sum() : ends[i]].tobytes(),
+            _serialize_weights(w_q[i], flags[i]) if profile == 2 else b"",
             bool(transposed[i]) if transposed is not None else False,
         ))
     return out
+
+
+def _encode_flag_cycle(imgs, t: int, device="cuda") -> list[bytes]:
+    """Profile-2 containers of same-shape ``imgs`` at t x t tiles whose tiles
+    cycle through flags 0, 1, 2 (blend, learned, mean) with their fitted
+    weights: every branch of the profile-2 predictor, which small tiles
+    seldom win by merit.  Tests and the smoke run hold the decoders against
+    each other on them."""
+    dev = resolve_device(device)
+    tiles = to_tiles(torch.from_numpy(np.stack(imgs)).to(dev), t, t)
+    b, n = tiles.shape[:2]
+    w_q, _ = lsq.fit_tile_weights(tiles.reshape(b * n, t, t))
+    flags = torch.arange(b * n, dtype=torch.int32, device=dev) % 3
+    return _encode_batch(imgs, t, t, 2, None, dev,
+                         (w_q.reshape(b, n, lsq.N_FEAT), flags.reshape(b, n)))
 
 
 def encode_batches(image_groups, near: int = 0,
@@ -304,6 +395,24 @@ def encode_corpus(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
     in input order; the decoders undo the transpose.
     """
     _check_encode_mode(near, effort)
+    idx_groups, batches, flag_groups = _orientation_batches(imgs)
+    streams_by_group = encode_batches(
+        batches, tile_h=tile_h, tile_w=tile_w, effort=effort,
+        transposed_groups=flag_groups, device=device,
+    )
+    out: list[bytes] = [b""] * len(imgs)
+    for g, streams in zip(idx_groups, streams_by_group):
+        for i, s in zip(g, streams):
+            out[i] = s
+    return out
+
+
+def _orientation_batches(imgs):
+    """Landscape-normalized same-shape batches of ``imgs``.
+
+    Returns (index groups into ``imgs``, image batches, transposed flags
+    per batch).
+    """
     norm, flags = [], []
     for im in imgs:
         im = np.ascontiguousarray(im, dtype=np.uint8)
@@ -314,17 +423,8 @@ def encode_corpus(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
     for i, im in enumerate(norm):
         order.setdefault(im.shape, []).append(i)
     idx_groups = list(order.values())
-    streams_by_group = encode_batches(
-        [[norm[i] for i in g] for g in idx_groups],
-        tile_h=tile_h, tile_w=tile_w, effort=effort,
-        transposed_groups=[[flags[i] for i in g] for g in idx_groups],
-        device=device,
-    )
-    out: list[bytes] = [b""] * len(imgs)
-    for g, streams in zip(idx_groups, streams_by_group):
-        for i, s in zip(g, streams):
-            out[i] = s
-    return out
+    return (idx_groups, [[norm[i] for i in g] for g in idx_groups],
+            [[flags[i] for i in g] for g in idx_groups])
 
 
 # ---------------------------------------------------------------------------
@@ -333,14 +433,13 @@ def encode_corpus(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
 
 
 class _Parsed:
-    """Host-side view of one NBTC profile-1 container."""
+    """Host-side view of one NBTC profile-1 or profile-2 container."""
 
     def __init__(self, stream: bytes):
         self.hdr = hdr = NbtcHeader.from_bytes(stream)
-        if hdr.profile != 1:
+        if hdr.profile not in (1, 2):
             raise NotImplementedError({
                 0: "profile-0 containers are not ported (ROADMAP Queue 1 item 14)",
-                2: "profile-2 decode is not ported yet: ROADMAP Queue 1 item 8",
                 3: "profile-3 decode is not ported yet: ROADMAP Queue 1 item 10",
             }.get(hdr.profile, f"unknown NBTC profile {hdr.profile}"))
         check_size(hdr.height, hdr.width)
@@ -351,6 +450,19 @@ class _Parsed:
         if self.bias.shape != (Q_N_CONTEXT,):
             raise ValueError("malformed bias table")
         pos += hdr.bias_len
+        self.weights = self.flags = None
+        if hdr.profile == 2:
+            (wlen,) = np.frombuffer(stream[pos : pos + 4], dtype=np.uint32)
+            pos += 4
+            raw = zlib.decompress(stream[pos : pos + int(wlen)])
+            pos += int(wlen) + (int(wlen) & 1)
+            t = hdr.n_tiles
+            self.flags = np.frombuffer(raw[:t], dtype=np.uint8)
+            dense = np.frombuffer(raw[t:], dtype=np.int16)
+            if len(self.flags) != t or dense.size != lsq.N_FEAT * int((self.flags > 0).sum()):
+                raise ValueError("malformed weight block")
+            self.weights = np.zeros((t, lsq.N_FEAT), dtype=np.int16)
+            self.weights[self.flags > 0] = dense.reshape(-1, lsq.N_FEAT)
         self.hist_n = _deserialize_hists(
             stream[pos : pos + hdr.hist_len]
         ).astype(np.int32)
@@ -374,9 +486,21 @@ class _Parsed:
             np.int32
         )
 
+    def weight_cols(self) -> np.ndarray:
+        """Per-group (16, g) weight and flag columns for the group decoders:
+        rows 0-11 the weights, row 12 the flag, 0 for pad lanes."""
+        g = self.group_size
+        n_groups = len(self.counts)
+        wf = np.zeros((n_groups * g, 16), dtype=np.int32)
+        if self.weights is not None:
+            t = self.hdr.n_tiles
+            wf[:t, : lsq.N_FEAT] = self.weights
+            wf[:t, lsq.N_FEAT] = self.flags
+        return np.ascontiguousarray(wf.reshape(n_groups, g, 16).transpose(0, 2, 1))
+
 
 def decode(stream: bytes, device="cuda") -> np.ndarray:
-    """Decode one NBTC profile-1 container."""
+    """Decode one NBTC profile-1 or profile-2 container."""
     return decode_batch([stream], device=device)[0]
 
 
@@ -390,19 +514,12 @@ def decode_batch(streams: list[bytes], device="cuda") -> list[np.ndarray]:
 
     def geometry(p):
         return (p.hdr.height, p.hdr.width, p.hdr.tile_h, p.hdr.tile_w,
-                p.hdr.near, p.group_size)
+                p.hdr.near, p.group_size, p.hdr.profile)
 
     if any(geometry(p) != geometry(parsed[0]) for p in parsed):
         return [decode(s, device=dev) for s in streams]
-    b = len(parsed)
-    bias, hist_n, acc = tables_from_numpy(
-        np.stack([p.bias for p in parsed]), np.stack([p.hist_n for p in parsed]),
-        np.stack([p.acc for p in parsed]), dev,
-    )
-    words, n_active = streams_from_parsed(parsed, dev)
-    tiles = decode_groups(words, n_active, bias, hist_n, acc, h0.tile_h,
-                          h0.tile_w, h0.near, parsed[0].group_size)
-    tiles = tiles.reshape(b, -1, h0.tile_h, h0.tile_w)[:, : h0.n_tiles]
+    tiles = decode_groups(*group_args(parsed, dev))
+    tiles = tiles.reshape(len(parsed), -1, h0.tile_h, h0.tile_w)[:, : h0.n_tiles]
     imgs = from_tiles(tiles, h0.height, h0.width, h0.tile_h, h0.tile_w).cpu().numpy()
     return [np.ascontiguousarray(im.T if p.hdr.transposed else im)
             for im, p in zip(imgs, parsed)]

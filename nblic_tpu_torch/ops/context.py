@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from nblic_tpu.constants import MAX_VAL, MID_VAL
+from ..constants import MAX_VAL, MID_VAL
 
 # fixed-point scale of the transmitted static bias table (1/16 px units)
 BIAS_FRAC_BITS = 4

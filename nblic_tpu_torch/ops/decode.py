@@ -1,7 +1,10 @@
-"""Lockstep group decode: kernel K2 (``csrc/group_decode.cu``) and its
-plain version.
+"""Lockstep group decode: kernels K2 and K2' (``csrc/group_decode.cu``) and
+their plain version.
 
-Counterpart of ``nblic_tpu/ops/pallas_decode.py`` (profile-1 branch) and of
+Counterpart of ``nblic_tpu/ops/pallas_decode.py::decode_groups_pallas``
+(K2, profiles 1 and 2), of
+``docs/experiments/pallas_decode8.py::decode_groups_pallas8`` (K2', eight
+groups per kernel instance) and of
 ``nblic_tpu/models/tiled.py::_group_decode_scan``.  A CPU tensor runs
 :func:`group_decode_plain`; a CUDA tensor launches the kernel or raises.
 """
@@ -18,10 +21,12 @@ from .window import pixel_model, row_start_window, slide_window
 N_QD = 12
 N_SYM = 256
 N_CTX = N_QD * N_SYM
+N_WROWS = 16  # rows of a group's weight table: 12 weights, the flag, 3 spare
+GROUPS_PER_CTA8 = 8  # K2': interleave groups per kernel instance
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper CTA may use
 
 
-def _check(streams, n_active, bias, hist_n, acc, th, tw, g):
+def _check(streams, n_active, bias, hist_n, acc, wcols, th, tw, g, profile):
     n_groups, w = streams.shape
     b = bias.shape[0]
     if bias.shape != (b, N_CTX) or hist_n.shape != (b, N_QD, N_SYM) \
@@ -33,55 +38,111 @@ def _check(streams, n_active, bias, hist_n, acc, th, tw, g):
         raise ValueError("n_active must hold one count per group")
     if th < 1 or tw < 1 or g < 1 or w < 2 * g:
         raise ValueError(f"bad geometry: th={th} tw={tw} g={g} stream width {w}")
-    devices = {t.device for t in (streams, n_active, bias, hist_n, acc)}
+    if profile not in (1, 2):
+        raise ValueError(f"profile {profile}: the group decoders run profiles 1 and 2")
+    tensors = [streams, n_active, bias, hist_n, acc]
+    if profile == 2:
+        if wcols is None or wcols.shape != (n_groups, N_WROWS, g):
+            raise ValueError(f"profile 2 needs wcols of shape {(n_groups, N_WROWS, g)}")
+        tensors.append(wcols)
+    devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"inputs lie on several devices: {devices}")
 
 
-def decode_groups(streams, n_active, bias, hist_n, acc, th: int, tw: int,
-                  near: int, g: int) -> torch.Tensor:
-    """Decode interleaved groups of g tile lanes.
-
-    streams: (G, W) int32 u16 stream words, one row per group; n_active:
-    (G,) live lanes per group; bias: (B, 3072) int32; hist_n/acc:
-    (B, 12, 256) int32, one table set per image, where G = B x groups per
-    image.  Returns (G, g, th, tw) uint8 tiles.
-    """
-    _check(streams, n_active, bias, hist_n, acc, th, tw, g)
-    if streams.device.type == "cpu":
-        return group_decode_plain(streams, n_active, bias, hist_n, acc,
-                                  th, tw, near, g)
-    if streams.device.type != "cuda":
-        raise ValueError(f"decode_groups runs on cpu or cuda, not {streams.device}")
+def _launch(entry, smem, streams, n_active, bias, hist_n, acc, wcols, th, tw,
+            near, g, profile, npg):
+    """Launch a decode entry of the kernel library; returns the output."""
     if g % 32 or g > 1024:
         raise ValueError(f"the kernel needs g a multiple of 32 up to 1024, got {g}")
-    lib = kernels.library()
-    smem = lib.nbt_group_decode_smem(tw, g)
     if smem > SMEM_LIMIT:
         raise ValueError(f"tile width {tw} x {g} lanes needs {smem} B of shared memory")
     n_groups, w = streams.shape
+    dev = streams.device
     streams = streams.to(torch.int32).contiguous()
     n_active = n_active.to(torch.int32).contiguous()
     bias = bias.to(torch.int32).contiguous()
     hist_n = hist_n.to(torch.int32).contiguous()
     acc = acc.to(torch.int32).contiguous()
-    out = torch.empty((n_groups, th, tw, g), dtype=torch.uint8, device=streams.device)
-    dev, stream = kernels.stream_of(streams)
-    rc = lib.nbt_group_decode(
+    wptr = None
+    if profile == 2:
+        wcols = wcols.to(torch.int32).contiguous()
+        wptr = wcols.data_ptr()
+    out = torch.empty((n_groups, th, tw, g), dtype=torch.uint8, device=dev)
+    dev_index, stream = kernels.stream_of(streams)
+    rc = entry(
         streams.data_ptr(), w, n_active.data_ptr(), bias.data_ptr(),
-        hist_n.data_ptr(), acc.data_ptr(), n_groups, n_groups // bias.shape[0],
-        g, th, tw, near, out.data_ptr(), dev, stream,
+        hist_n.data_ptr(), acc.data_ptr(), wptr, n_groups, npg, g, th, tw, near,
+        profile, out.data_ptr(), dev_index, stream,
     )
-    kernels.check(rc, "group_decode")
-    decode_groups.launches += 1
+    kernels.check(rc, entry.__name__)
     return out.permute(0, 3, 1, 2)
+
+
+def decode_groups(streams, n_active, bias, hist_n, acc, wcols, th: int, tw: int,
+                  near: int, g: int, profile: int = 1) -> torch.Tensor:
+    """Decode interleaved groups of g tile lanes (kernel K2).
+
+    streams: (G, W) int32 u16 stream words, one row per group; n_active:
+    (G,) live lanes per group; bias: (B, 3072) int32; hist_n/acc:
+    (B, 12, 256) int32, one table set per image, where G = B x groups per
+    image; wcols: (G, 16, g) int32 per-lane weights and flag (profile 2;
+    unused, and may be None, at profile 1).  Returns (G, g, th, tw) uint8.
+    """
+    _check(streams, n_active, bias, hist_n, acc, wcols, th, tw, g, profile)
+    if streams.device.type == "cpu":
+        return group_decode_plain(streams, n_active, bias, hist_n, acc, wcols,
+                                  th, tw, near, g, profile)
+    if streams.device.type != "cuda":
+        raise ValueError(f"decode_groups runs on cpu or cuda, not {streams.device}")
+    lib = kernels.library()
+    out = _launch(lib.nbt_group_decode, lib.nbt_group_decode_smem(tw, g, 1),
+                  streams, n_active, bias, hist_n, acc, wcols, th, tw, near, g,
+                  profile, streams.shape[0] // bias.shape[0])
+    decode_groups.launches += 1
+    return out
 
 
 decode_groups.launches = 0
 
 
-def group_decode_plain(streams, n_active, bias, hist_n, acc, th: int, tw: int,
-                       near: int, g: int) -> torch.Tensor:
+def decode_groups8(streams, n_active, bias, hist_n, acc, wcols, th: int, tw: int,
+                   near: int, g: int, profile: int = 1) -> torch.Tensor:
+    """Decode interleaved groups eight to a kernel instance (kernel K2').
+
+    The contract of ``decode_groups_pallas8``: the tables are per group,
+    bias (G, 3072) and hist_n/acc (G, 12, 256), G must be a multiple of 8
+    (callers pad with n_active = 0 rows) and 8 g <= 1024.  The output is
+    bit-identical to :func:`decode_groups`.  Its plain version is
+    :func:`group_decode_plain` with one table set per group.
+    """
+    _check(streams, n_active, bias, hist_n, acc, wcols, th, tw, g, profile)
+    n_groups = streams.shape[0]
+    if bias.shape[0] != n_groups:
+        raise ValueError("decode_groups8 takes one table set per group")
+    if n_groups % GROUPS_PER_CTA8:
+        raise ValueError(f"{n_groups} groups: decode_groups8 needs a multiple of 8")
+    if GROUPS_PER_CTA8 * g > 1024:
+        raise ValueError(f"8 groups of {g} lanes exceed 1024 threads")
+    if streams.device.type == "cpu":
+        return group_decode_plain(streams, n_active, bias, hist_n, acc, wcols,
+                                  th, tw, near, g, profile)
+    if streams.device.type != "cuda":
+        raise ValueError(f"decode_groups8 runs on cpu or cuda, not {streams.device}")
+    lib = kernels.library()
+    out = _launch(lib.nbt_group_decode8,
+                  lib.nbt_group_decode_smem(tw, g, GROUPS_PER_CTA8),
+                  streams, n_active, bias, hist_n, acc, wcols, th, tw, near, g,
+                  profile, 1)
+    decode_groups8.launches += 1
+    return out
+
+
+decode_groups8.launches = 0
+
+
+def group_decode_plain(streams, n_active, bias, hist_n, acc, wcols, th: int,
+                       tw: int, near: int, g: int, profile: int = 1) -> torch.Tensor:
     """Plain version of the group decode: a Python loop over the th x tw
     pixel steps, each step vectorized over (groups x lanes)."""
     dev = streams.device
@@ -93,6 +154,7 @@ def group_decode_plain(streams, n_active, bias, hist_n, acc, th: int, tw: int,
     hist_f = hist_n.reshape(-1).to(torch.int64)
     acc_f = acc.reshape(-1).to(torch.int64)
     acc_rows = acc_f.reshape(-1, N_SYM)
+    wcols = wcols.to(torch.int32) if profile == 2 else None
 
     state, sp = rans.interleaved_dec_init(streams, g)
     active = torch.arange(g, device=dev)[None, :] < n_active[:, None]
@@ -104,7 +166,7 @@ def group_decode_plain(streams, n_active, bias, hist_n, acc, th: int, tw: int,
         err = torch.zeros((n_groups, g), dtype=torch.int32, device=dev)
         row = torch.zeros_like(prev1)
         for j in range(tw):
-            px0, qd, adr = pixel_model(regs, err)
+            px0, qd, adr = pixel_model(regs, err, wcols)
             px, sign = apply_static_bias(bias_f, adr + ctx_off, px0)
             lb = state & rans.NORM_MASK
             slot = ctx_off + qd * N_SYM  # (G, g) start of each lane's acc row

@@ -20,7 +20,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from nblic_tpu.constants import MID_VAL
+from ..constants import MID_VAL
 
 
 class Neighbors(NamedTuple):

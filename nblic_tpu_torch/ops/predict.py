@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from nblic_tpu.constants import MAX_VAL, Q_PT_THRESH, Q_QD_THRESH
+from ..constants import MAX_VAL, Q_PT_THRESH, Q_QD_THRESH
 
 from .neighbors import Neighbors, sample
 
@@ -97,12 +97,17 @@ def shift_err(err: torch.Tensor) -> torch.Tensor:
     return torch.cat([z, err[..., :, :-1]], dim=-1)
 
 
+def context_planes(n: Neighbors, x: torch.Tensor, px0: torch.Tensor):
+    """(err, qd, adr) int32 planes of the prediction px0 of pixels x."""
+    err = x - px0
+    qd = quantize_activity(activity(n, shift_err(err)))
+    adr = context_address(n, px0, qd)
+    return err, qd, adr
+
+
 def model_stage1(img: torch.Tensor):
     """Parallel modeling pass: (px0, err, qd, adr) int32 planes from pixels."""
     x = img.to(torch.int32)
     n = sample(x)
     px0 = simple_predict(n)
-    err = x - px0
-    qd = quantize_activity(activity(n, shift_err(err)))
-    adr = context_address(n, px0, qd)
-    return px0, err, qd, adr
+    return (px0, *context_planes(n, x, px0))

@@ -10,8 +10,9 @@ from __future__ import annotations
 
 import torch
 
-from nblic_tpu.constants import MID_VAL
+from ..constants import MID_VAL
 
+from .lsq import N_FEAT, predict_lanes
 from .neighbors import Neighbors
 from .predict import activity, context_address, quantize_activity, simple_predict
 
@@ -50,10 +51,21 @@ def slide_window(regs, x, i: int, j: int, prev1, prev2, w: int):
     return (a2, b2, c2, d2, e2, f2, g2, h2, q2, r2, s2)
 
 
-def pixel_model(regs, err):
-    """Per-pixel effort-0 modeling on window registers -> (px0, qd, adr)."""
+def pixel_model(regs, err, wcols=None):
+    """Per-pixel modeling on window registers -> (px0, qd, adr).
+
+    ``wcols`` (..., 16, G) selects profile 2: rows 0-11 are each lane's
+    least-squares weights (intercept on row 11) and row 12 its flag, 0 for
+    the blend predictor, 1 for the learned one, 2 for their rounded mean.
+    ``None`` is profile 1 (the blend predictor alone).
+    """
     nb = Neighbors(*regs)
     px0 = simple_predict(nb)
+    if wcols is not None:
+        px_l = predict_lanes(regs, wcols)
+        flag = wcols[..., N_FEAT, :]
+        px_a = (px0 + px_l + 1) >> 1
+        px0 = torch.where(flag == 1, px_l, torch.where(flag == 2, px_a, px0))
     qd = quantize_activity(activity(nb, err))
     adr = context_address(nb, px0, qd)
     return px0, qd, adr

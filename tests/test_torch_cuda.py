@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from nblic_tpu_torch.convert import streams_from_parsed, tables_from_numpy
+from nblic_tpu_torch.convert import group_args, tables_from_numpy
 from nblic_tpu_torch.models import tiled
 from nblic_tpu_torch.ops import decode, fold, rans
 
@@ -43,24 +43,16 @@ def test_fold_kernel_matches_plain(cuda_device, s, l):
     assert torch.equal(e1, e2) and torch.equal(w1[e1], w2[e2]) and torch.equal(s1, s2)
 
 
-def _decode_args(conts, device):
-    parsed = [tiled._Parsed(c) for c in conts]
-    tables = tables_from_numpy(np.stack([p.bias for p in parsed]),
-                               np.stack([p.hist_n for p in parsed]),
-                               np.stack([p.acc for p in parsed]), device)
-    hdr = parsed[0].hdr
-    return (*streams_from_parsed(parsed, device), *tables, hdr.tile_h, hdr.tile_w,
-            hdr.near, parsed[0].group_size)
-
-
 @pytest.mark.cuda
+@pytest.mark.parametrize("profile", [1, 2])
 @pytest.mark.parametrize("shape,t,n", [((70, 90), 16, 1), ((96, 104), 8, 1),
                                        ((130, 200), 64, 3), ((9, 300), 4, 2)])
-def test_decode_kernel_matches_plain(cuda_device, shape, t, n):
+def test_decode_kernel_matches_plain(cuda_device, shape, t, n, profile):
     rng = np.random.default_rng(t)
     imgs = [rng.integers(0, 256, size=shape, dtype=np.uint8) for _ in range(n)]
-    args = _decode_args(tiled.encode_batch(imgs, tile_h=t, tile_w=t, device="cpu"),
-                        cuda_device)
+    conts = (tiled._encode_flag_cycle(imgs, t, "cpu") if profile == 2
+             else tiled.encode_batch(imgs, tile_h=t, tile_w=t, device="cpu"))
+    args = group_args([tiled._Parsed(c) for c in conts], cuda_device)
     launches = decode.decode_groups.launches
     k = decode.decode_groups(*args)
     torch.cuda.synchronize()
@@ -68,24 +60,63 @@ def test_decode_kernel_matches_plain(cuda_device, shape, t, n):
     assert torch.equal(k, decode.group_decode_plain(*args))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("near", [0, 2, 9])
-def test_decode_kernel_matches_plain_on_arbitrary_streams(cuda_device, near):
-    # random words, bias and tables: the output is noise, but kernel and plain
-    # version must walk the same states, cursor clamps and near unfolds
-    rng = np.random.default_rng(near)
-    b, npg, g, t = 2, 2, 64, 8
+def _arbitrary(rng, b, npg, g, near, profile, device):
+    """Random words, bias, tables and weights: the output is noise, but the
+    kernels and the plain version must walk the same states, cursor clamps,
+    predictions and near unfolds."""
     hist = rng.integers(0, 50, size=(b, 12, 256))
     hist_n = tiled._norm_hist_dev(torch.from_numpy(hist)).numpy()
     acc = np.cumsum(hist_n, axis=-1) - hist_n
     bias = rng.integers(-(1 << 11), 1 << 11, size=(b, 3072))
     words = torch.from_numpy(rng.integers(0, 1 << 16, size=(b * npg, 300)).astype(np.int32))
-    n_active = torch.tensor([g, g - 5, 17, g], dtype=torch.int32)
-    args = (words.to(cuda_device), n_active.to(cuda_device),
-            *tables_from_numpy(bias, hist_n, acc, cuda_device), t, t, near, g)
+    n_active = torch.from_numpy(rng.integers(0, g + 1, size=b * npg).astype(np.int32))
+    n_active[0] = g
+    wcols = rng.integers(-(1 << 15) + 1, 1 << 15, size=(b * npg, 16, g))
+    wcols[:, 12] = rng.integers(0, 3, size=(b * npg, g))
+    return (words.to(device), n_active.to(device),
+            *tables_from_numpy(bias, hist_n, acc, device),
+            torch.from_numpy(wcols.astype(np.int32)).to(device), 8, 8, near, g, profile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile", [1, 2])
+@pytest.mark.parametrize("near", [0, 2, 9])
+def test_decode_kernel_matches_plain_on_arbitrary_streams(cuda_device, near, profile):
+    args = _arbitrary(np.random.default_rng(near), 2, 2, 64, near, profile, cuda_device)
     k = decode.decode_groups(*args)
     torch.cuda.synchronize()
     assert torch.equal(k, decode.group_decode_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile", [1, 2])
+@pytest.mark.parametrize("g,t", [(128, 8), (64, 16), (32, 64)])
+def test_decode8_kernel_matches_plain_and_k2(cuda_device, profile, g, t):
+    # 16 groups with per-group tables: two CTAs of 8 groups
+    rng = np.random.default_rng(g + profile)
+    args = list(_arbitrary(rng, 16, 1, g, 2, profile, cuda_device))
+    args[6] = args[7] = t
+    launches = decode.decode_groups8.launches
+    k8 = decode.decode_groups8(*args)
+    torch.cuda.synchronize()
+    assert decode.decode_groups8.launches == launches + 1
+    assert torch.equal(k8, decode.group_decode_plain(*args))
+    assert torch.equal(k8, decode.decode_groups(*args))
+
+
+@pytest.mark.cuda
+def test_decode8_kernel_on_containers(cuda_device):
+    rng = np.random.default_rng(8)
+    imgs = [rng.integers(0, 256, size=(96, 104), dtype=np.uint8) for _ in range(4)]
+    conts = tiled._encode_flag_cycle(imgs, 8, "cpu")
+    # one table set per group: 8 groups
+    args = group_args([tiled._Parsed(c) for c in conts], cuda_device,
+                      per_group_tables=True)
+    assert args[0].shape[0] == 8
+    k8 = decode.decode_groups8(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(k8, decode.decode_groups(*args))
+    assert torch.equal(k8, decode.group_decode_plain(*args))
 
 
 @pytest.mark.cuda
@@ -97,3 +128,24 @@ def test_main_path_on_card_matches_cpu(cuda_device):
     assert on_card == tiled.encode_corpus(imgs, tile_h=16, tile_w=16, device="cpu")
     for im, c in zip(imgs, on_card):
         np.testing.assert_array_equal(tiled.decode(c, device=cuda_device), im)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [16, 64])
+def test_profile2_on_card_matches_cpu(cuda_device, t):
+    rng = np.random.default_rng(t)
+    yy, xx = np.mgrid[0:128, 0:192]
+    wave = np.clip(128 + 100 * np.sin(0.9 * xx + 0.7 * yy) + rng.normal(0, 1, yy.shape),
+                   0, 255).astype(np.uint8)
+    imgs = [wave, rng.integers(0, 256, size=(128, 192), dtype=np.uint8)]
+    # the fit is exact on both devices; the float32 race may flip a near-tie
+    tiles = tiled.to_tiles(torch.from_numpy(np.stack(imgs)), t, t)
+    *_, w_q, flags = tiled._model_lossless2_impl(tiles)
+    cpu = tiled._encode_batch(imgs, t, t, 2, None, torch.device("cpu"), (w_q, flags))
+    card = tiled._encode_batch(imgs, t, t, 2, None, cuda_device,
+                               (w_q.to(cuda_device), flags.to(cuda_device)))
+    assert card == cpu
+    free = tiled.encode_batch(imgs, tile_h=t, tile_w=t, effort=2, device=cuda_device)
+    for im, c in zip(imgs, free):
+        np.testing.assert_array_equal(tiled.decode(c, device=cuda_device), im)
+        np.testing.assert_array_equal(tiled.decode(c, device="cpu"), im)

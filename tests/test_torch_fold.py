@@ -16,6 +16,10 @@ from nblic_tpu.ops import pallas_fold
 from nblic_tpu.ops import rans as j_rans
 from nblic_tpu_torch.ops import fold, rans
 
+# one intra-op thread: parallel test workers each run many tiny torch ops,
+# and idle OpenMP threads spinning between them starve the other workers
+torch.set_num_threads(1)
+
 
 def _tables(seed, s=200, l=512, identity=5):
     rng = np.random.default_rng(seed)

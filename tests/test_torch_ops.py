@@ -1,6 +1,8 @@
 """The port's modeling ops equal their nblic_tpu counterparts element for
-element.  Everything here is integer math, so the tolerance is 0."""
+element.  Everything here is integer math, or (the least-squares fit)
+float32 that rounds the same way, so the tolerance is 0."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,13 +11,18 @@ from conftest import make_test_images
 
 from nblic_tpu.ops import context as j_ctx
 from nblic_tpu.ops import histogram as j_hist
+from nblic_tpu.ops import lsq as j_lsq
 from nblic_tpu.ops import neighbors as j_nb
 from nblic_tpu.ops import predict as j_pred
 from nblic_tpu.ops import window as j_win
-from nblic_tpu_torch.ops import context, histogram, neighbors, predict, window
+from nblic_tpu_torch.ops import context, histogram, lsq, neighbors, predict, window
 
 IMAGES = make_test_images(np.random.default_rng(1234))
 IMAGE_IDS = [f"{i}-{im.shape[0]}x{im.shape[1]}" for i, im in enumerate(IMAGES)]
+
+# one intra-op thread: parallel test workers each run many tiny torch ops,
+# and idle OpenMP threads spinning between them starve the other workers
+torch.set_num_threads(1)
 
 
 def _eq(port, ref):
@@ -143,6 +150,95 @@ def test_pixel_model():
     ref = j_win.pixel_model(tuple(map(jnp.asarray, regs)), jnp.asarray(err))
     for p, r in zip(port, ref):
         _eq(p, r)
+
+
+def _weights(rng, shape):
+    """Random int16-range weights with an int16-range intercept."""
+    return rng.integers(-(1 << 15) + 1, 1 << 15, size=shape).astype(np.int32)
+
+
+def test_pixel_model_profile2():
+    rng = np.random.default_rng(4)
+    g = 96
+    regs = _planes(rng, (g,))
+    err = rng.integers(-255, 256, size=(g,)).astype(np.int32)
+    wcols = np.zeros((16, g), np.int32)
+    wcols[:12] = _weights(rng, (12, g))
+    wcols[12] = np.arange(g) % 3
+    port = window.pixel_model(tuple(map(torch.from_numpy, regs)), torch.from_numpy(err),
+                              torch.from_numpy(wcols))
+    # the model of nblic_tpu.models.tiled._group_decode_scan at profile 2
+    jregs = tuple(map(jnp.asarray, regs))
+    nb = j_nb.Neighbors(*jregs)
+    px0 = j_pred.simple_predict(nb)
+    px_l = j_lsq.predict_lanes(jregs, jnp.asarray(wcols))[0]
+    px0 = jnp.where(wcols[12] == 1, px_l, jnp.where(wcols[12] == 2, (px0 + px_l + 1) >> 1, px0))
+    qd = j_pred.quantize_activity(j_pred.activity(nb, jnp.asarray(err)))
+    for p, r in zip(port, (px0, qd, j_pred.context_address(nb, px0, qd))):
+        _eq(p, r)
+
+
+@pytest.mark.parametrize("img", IMAGES[3:], ids=IMAGE_IDS[3:])
+def test_lsq_features_and_predict_plane(img):
+    rng = np.random.default_rng(img.size)
+    tiles = np.stack([img, img[::-1].copy()])
+    tn = neighbors.sample(torch.from_numpy(tiles))
+    jn = j_nb.Neighbors(*(jnp.stack([a, b]) for a, b in zip(
+        j_nb.sample(jnp.asarray(tiles[0])), j_nb.sample(jnp.asarray(tiles[1])))))
+    _eq(lsq.features(tn), j_lsq.features(jn))
+    w_q = _weights(rng, (2, 12))
+    _eq(lsq.predict_plane(tn, torch.from_numpy(w_q)), j_lsq.predict_plane(jn, jnp.asarray(w_q)))
+
+
+def test_lsq_predict_lanes():
+    rng = np.random.default_rng(6)
+    regs = _planes(rng, (50,))
+    w_cols = _weights(rng, (16, 50))
+    w_cols[:12, 0], w_cols[:12, 1] = lsq.W_CLIP, -lsq.W_CLIP  # extreme weights
+    regs[0][:2] = 255
+    port = lsq.predict_lanes(tuple(map(torch.from_numpy, regs)), torch.from_numpy(w_cols))
+    _eq(port, j_lsq.predict_lanes(tuple(map(jnp.asarray, regs)), jnp.asarray(w_cols))[0])
+
+
+def test_lsq_solve_spd_rounds_as_jitted_jax():
+    # the encoder runs the solve jitted: XLA fuses each row update into one
+    # multiply-subtract, which the port reproduces bit for bit
+    rng = np.random.default_rng(8)
+    f = rng.integers(-128, 128, size=(40, 300, 12)).astype(np.float32)
+    a = np.einsum("tpi,tpj->tij", f, f) + 64.0 * np.eye(12, dtype=np.float32)
+    b = np.einsum("tpi,tp->ti", f, rng.integers(-128, 128, size=(40, 300)).astype(np.float32))
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    port = lsq._solve_spd(torch.from_numpy(a), torch.from_numpy(b))
+    _eq(port, jax.jit(j_lsq._solve_spd)(jnp.asarray(a), jnp.asarray(b)))
+
+
+def test_lsq_fused_sub_mul_rounds_once():
+    rng = np.random.default_rng(9)
+    a, b, c = (rng.standard_normal(100000).astype(np.float32) * s for s in (1e3, 1.0, 7.0))
+    exact = np.asarray([np.float32(x) for x in
+                        (a.astype(np.longdouble) - b.astype(np.longdouble) * c)])
+    port = lsq._fused_sub_mul(*map(torch.from_numpy, (a, b, c))).numpy()
+    _eq(port, exact)
+    assert (port != (a - b * c)).any()  # a separate multiply rounds twice
+
+
+def _smooth():
+    yy, xx = np.mgrid[0:128, 0:128]
+    return ((2 * yy + xx) % 251).astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["smooth", "noise"])
+def test_lsq_fit_tile_weights_matches_jax(kind):
+    from nblic_tpu.models import tiled as j_tiled
+
+    img = _smooth() if kind == "smooth" else \
+        np.random.default_rng(10).integers(0, 256, size=(64, 96), dtype=np.uint8)
+    tiles = j_tiled.to_tiles(img, 16, 16)
+    w_q, valid = lsq.fit_tile_weights(torch.from_numpy(tiles))
+    j_w, j_valid = jax.jit(j_lsq.fit_tile_weights)(jnp.asarray(tiles))
+    _eq(w_q, j_w)
+    _eq(valid, j_valid)
+    assert valid.all() and (w_q != 0).any()
 
 
 @pytest.mark.parametrize("kind", ["random", "sparse", "single", "runs"])

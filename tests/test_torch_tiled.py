@@ -23,6 +23,10 @@ from nblic_tpu_torch import api, cli, convert
 from nblic_tpu_torch.models import tiled
 from nblic_tpu_torch.ops import fold
 
+# one intra-op thread: parallel test workers each run many tiny torch ops,
+# and idle OpenMP threads spinning between them starve the other workers
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -137,14 +141,21 @@ def test_to_from_tiles_match_numpy(shape):
 
 
 def test_port_never_imports_jax():
+    # neither JAX nor any module of the JAX package (nblic_tpu_torch itself
+    # starts with the string "nblic_tpu", so the test reads the first name)
     code = (
         "import sys, numpy as np\n"
         "import nblic_tpu_torch\n"
         "from nblic_tpu_torch import api\n"
+        "import nblic_tpu_torch.cli\n"
         "img = (np.arange(40 * 24) % 251).astype(np.uint8).reshape(40, 24)\n"
-        "c = api.compress_tiled(img, device='cpu', tile_h=8, tile_w=8)\n"
-        "assert (api.decompress(c, device='cpu') == img).all()\n"
+        "for effort in (1, 2):\n"
+        "    c = api.compress_tiled(img, device='cpu', tile_h=8, tile_w=8, effort=effort)\n"
+        "    assert c[10] == effort, c[10]\n"
+        "    assert (api.decompress(c, device='cpu') == img).all()\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'nblic_tpu')\n"
+        "assert not ref, ref\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -157,12 +168,16 @@ def test_unported_modes_raise():
     img = _natural(0, 16, 16)
     with pytest.raises(NotImplementedError, match="item 7"):
         api.compress_tiled(img, near=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        api.compress_tiled(img, effort=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        api.compress_tiled(img, near=1, effort=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="items 9-11"):
+        api.compress_tiled(img, effort=3, device="cpu")
     with pytest.raises(NotImplementedError, match="items 9-11"):
         tiled.encode_corpus([img], effort=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        api.decompress(j_tiled.encode(img, effort=2), device="cpu")
+    p3 = j_tiled.NbtcHeader(profile=3, near=0, height=16, width=16, tile_h=16,
+                            tile_w=0, n_tiles=1, bias_len=0, hist_len=0)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        api.decompress(p3.to_bytes() + bytes(64), device="cpu")
     with pytest.raises(ValueError, match="tile size"):
         api.compress_tiled(img, tile_h=0, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
@@ -191,3 +206,18 @@ def test_cli_roundtrip_matches_jax_container(tmp_path):
     assert cli.main(["-d", "--device=cpu", enc, dec]) == 0
     np.testing.assert_array_equal(imageio.load_image(dec), img)
     assert cli.main(["-c", "-n2", "--tiled", "--device=cpu", src, enc]) == -1
+
+
+def test_cli_effort2_matches_jax_container(tmp_path, capsys):
+    img = _natural(31, 40, 72)
+    src, enc, dec = (str(tmp_path / n) for n in ("in.pgm", "out.nbtc", "out.pgm"))
+    imageio.save_image(src, img)
+    assert cli.main(["-c", "--tiled", "-e2", "--device=cpu", "--tile-h=16", "--tile-w=16",
+                     src, enc]) == 0
+    with open(enc, "rb") as f:
+        assert f.read() == j_api.compress_tiled(img, effort=2, tile_h=16, tile_w=16)
+    assert cli.main(["-d", "--device=cpu", enc, dec]) == 0
+    np.testing.assert_array_equal(imageio.load_image(dec), img)
+    capsys.readouterr()
+    assert cli.main(["-c", "--tiled", "-e3", "--device=cpu", src, enc]) == -1
+    assert "item" in capsys.readouterr().out
