@@ -5,7 +5,9 @@
 
 Phases, one line each; any failure exits non-zero:
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: compile the CUDA kernels from nblic_tpu_torch/csrc (nvcc, sm_90a);
+  2. build: compile the CUDA kernels from nblic_tpu_torch/csrc (nvcc, sm_90a),
+     with ptxas's registers and spills, then K2's slot-table k, stream ring
+     and shared memory a CTA, and K1's shared memory a block;
   3. K1 (rANS fold) against its plain version on the card, exact;
   4. K2 (group decode), profile 1, against its plain version, exact;
   5. reference: the card's containers and pixels equal the CPU plain path's
@@ -22,7 +24,11 @@ Phases, one line each; any failure exits non-zero:
      side's containers decode pixel-exact on the other;
  10. main path, effort 2: the corpus and the frame at effort 2, pixel-exact,
      with K1 and K2 launched during the run.
-Then one JSON line of the kernels' numbers, and as the last line
+Each kernel's time stands beside its bound (the whole card's roofline:
+bytes over the memory rate, integer operations over the int32 rate) and
+its floor (the least time at the launch's own parallelism: the issue of
+one SM's schedulers for K2 and K2', the serial chain for K1).  Then one
+JSON line of the kernels' measured numbers and bounds, and as the last line
 {"ok": true, "device": {...}}.  Needs no network; imports no JAX.
 """
 
@@ -37,15 +43,24 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-# int32 operations: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper white paper)
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# integer operations per step, counted from the CUDA sources (a division or
-# a table load counts as one): K1 per symbol; K2 per pixel of an active
-# lane (blend predictor ~171, activity and context ~50, bias ~8, symbol
-# search ~25, state ~6, cursor ~23, unfold ~15, window ~13), profile 2
-# adding the 12-weight prediction and the flag select (~45)
+SMS, CLOCK_HZ = 132, 1.98e9  # SMs and boost clock (Hopper white paper)
+# int32 operations: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
+INT32_OPS_PER_S = SMS * 64 * CLOCK_HZ
+# integer operations per step, counted from the CUDA sources (a division, a
+# load, a store, a barrier or a cp.async counts as one): K1 per symbol; K2
+# per pixel of an active lane of group_decode_kernel<profile, true>, as a
+# warp issues them: the previous pixel's renormalization (byte-packed warp
+# counts ~20, ring word and state ~10), row-above taps ~10, activity bin
+# ~43, blend predictor ~147 (eight candidates' costs ~100, the three-round
+# argmin ~18, blend ~29), context address ~27, bias ~9, slot lookup ~9,
+# span search ~11 (one round: most warps hold a lane whose span is one
+# symbol wide), state ~7, ballot, rank and count ~9, unfold ~19, error and
+# stores ~8, window slide ~15, ring refill (the end, the 16-byte cp.async,
+# commit, wait) ~15, barrier, parity and loop ~5; profile 2 adds the
+# 12-weight prediction ~27 and the flag select ~5.  K2' is held to K2's
+# count: the same work.
 K1_OPS_PER_SYMBOL = 13
-K2_OPS_PER_PIXEL = {1: 330, 2: 375}
+K2_OPS_PER_PIXEL = {1: 364, 2: 396}
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -85,6 +100,18 @@ def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _decode_floor(args, groups_per_cta: int = 1) -> float:
+    """Least milliseconds of a group decode at the launch's own parallelism:
+    a CTA of 32 w warps keeps each of its SM's 4 schedulers issuing w / 4
+    warps' th x tw x K2_OPS_PER_PIXEL instructions, one a cycle, and the
+    CTAs beyond one per SM come in waves of 132."""
+    streams, *_, th, tw, _, g, profile = args
+    ctas = streams.shape[0] // groups_per_cta
+    per_scheduler = -(-groups_per_cta * g // 128)  # warps on one scheduler
+    waves = -(-ctas // SMS)
+    return 1e3 * waves * per_scheduler * th * tw * K2_OPS_PER_PIXEL[profile] / CLOCK_HZ
+
+
 def _decode_bound(args) -> tuple[float, str]:
     """Bound of a group decode: streams, n_active, tables and (profile 2)
     weights read once, one output byte per lane pixel written once; the
@@ -95,25 +122,6 @@ def _decode_bound(args) -> tuple[float, str]:
     n_bytes += streams.shape[0] * g * th * tw
     n_ops = int(n_active.sum()) * th * tw * K2_OPS_PER_PIXEL[profile]
     return _bound(n_bytes, n_ops)
-
-
-def synth_image(rng, h: int, w: int) -> np.ndarray:
-    """A natural-looking gray-8 plane: smooth gradients, texture and mild noise."""
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    yy /= h
-    xx /= w
-    img = 128.0 + 50.0 * (xx - 0.5) * rng.uniform(-1, 1) + 40.0 * (yy - 0.5)
-    for _ in range(4):  # low-frequency shading
-        fx, fy = rng.uniform(0.5, 4.0, size=2)
-        img += rng.uniform(10, 30) * np.sin(2 * np.pi * (fx * xx + fy * yy)
-                                            + rng.uniform(0, 2 * np.pi))
-    # a textured band and a few textured blocks
-    band = (yy > rng.uniform(0.2, 0.5)) & (yy < rng.uniform(0.6, 0.9))
-    tex = 12.0 * np.sin(2 * np.pi * (rng.uniform(20, 60) * xx)) \
-        * np.sin(2 * np.pi * (rng.uniform(20, 60) * yy))
-    img += np.where(band, tex, 0.0)
-    img += rng.normal(0.0, 2.5, size=(h, w)).astype(np.float32)
-    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
 
 def _main_path(api, tiled, corpus, frame, dev, effort, tag, card):
@@ -168,9 +176,10 @@ def main() -> int:
     from nblic_tpu_torch.models import tiled
     from nblic_tpu_torch.ops import rans
     from nblic_tpu_torch.ops.decode import (
-        decode_groups, decode_groups8, group_decode_plain,
+        SLOT_BITS, decode_groups, decode_groups8, group_decode_plain,
     )
     from nblic_tpu_torch.ops.fold import encode_fold
+    from nblic_tpu_torch.utils.synth import synth_image
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -184,9 +193,15 @@ def main() -> int:
     # ---- build
     t0 = time.perf_counter()
     kernels.build(verbose=True)
-    kernels.library()
+    lib = kernels.library()
     print(f"[build] {time.perf_counter() - t0:.2f} s -> {kernels.library_path()} "
           f"({card})", flush=True)
+    print(f"[layout] K2: slot table k={SLOT_BITS}, stream ring "
+          f"{lib.nbt_group_decode_ring_words(128)} words at g=128, shared memory "
+          f"{lib.nbt_group_decode_smem(64, 128)} B a CTA at 64x64 tiles, "
+          f"{lib.nbt_group_decode_smem(16, 128)} B at 16x16 | K2': "
+          f"{lib.nbt_group_decode8_smem()} B a CTA | K1: "
+          f"{lib.nbt_rans_fold_smem()} B a block", flush=True)
 
     # ---- K1 against the plain fold on the card
     rng = np.random.default_rng(0)
@@ -207,9 +222,11 @@ def main() -> int:
     fold_ms = _cuda_ms(lambda: encode_fold(freq_t, facc_t), 5)
     fold_plain_ms = _cuda_ms(lambda: rans.encode_scan(freq_t, facc_t), 5)
     fold_bound = _bound(s * l * (4 + 4 + 4) + s * 4, s * l * K1_OPS_PER_SYMBOL)
+    fold_floor = max(fold_bound[0], 1e3 * l * K1_OPS_PER_SYMBOL / CLOCK_HZ)
     print(f"[K1 rans_fold] S={s} L={l} exact={fold_ok} emits={int(e1.sum())} "
           f"kernel {fold_ms:.3f} ms | plain {fold_plain_ms:.3f} ms | bound "
-          f"{fold_bound[0]:.4f} ms ({fold_bound[1]}) ({card})", flush=True)
+          f"{fold_bound[0]:.4f} ms ({fold_bound[1]}) | floor {fold_floor:.4f} ms "
+          f"({card})", flush=True)
     if not fold_ok:
         return 1
 
@@ -229,13 +246,13 @@ def main() -> int:
         err = int((k.int() - p.int()).abs().max())
         ms = _cuda_ms(lambda: decode_groups(*args), 5)
         pms = _cuda_ms(lambda: group_decode_plain(*args), 3)
-        bound = _decode_bound(args)
+        bound, floor = _decode_bound(args), _decode_floor(args)
         if t == 64:
-            dec[1] = (same, err, ms, pms, bound)
+            dec[1] = (err, ms, pms, bound)
         print(f"[K2 group_decode p1] {len(imgs)}x{imgs[0].shape} tiles {t}x{t} "
               f"groups={args[0].shape[0]} g={args[9]} exact={same} kernel {ms:.3f} ms"
-              f" | plain {pms:.3f} ms | bound {bound[0]:.4f} ms ({bound[1]}) "
-              f"({card})", flush=True)
+              f" | plain {pms:.3f} ms | bound {bound[0]:.4f} ms ({bound[1]}) | "
+              f"floor {floor:.4f} ms ({card})", flush=True)
         if not same:
             return 1
 
@@ -281,13 +298,13 @@ def main() -> int:
         same = torch.equal(k, p)
         err = int((k.int() - p.int()).abs().max())
         ms = _cuda_ms(lambda: decode_groups(*args), 5)
-        bound = _decode_bound(args)
+        bound, floor = _decode_bound(args), _decode_floor(args)
         if t == 64:
-            dec[2] = (same, err, ms, pms, bound)
+            dec[2] = (err, ms, pms, bound)
         print(f"[K2 group_decode p2] {len(imgs)}x{imgs[0].shape} tiles {t}x{t} "
               f"groups={args[0].shape[0]} g={args[9]} flags 0/1/2 exact={same} "
               f"kernel {ms:.3f} ms | plain {pms:.3f} ms | bound {bound[0]:.4f} ms "
-              f"({bound[1]}) ({card})", flush=True)
+              f"({bound[1]}) | floor {floor:.4f} ms ({card})", flush=True)
         if not same:
             return 1
 
@@ -310,13 +327,14 @@ def main() -> int:
         ms2 = _cuda_ms(lambda: decode_groups(*args), 5)
         pms = _cuda_ms(lambda: group_decode_plain(*args), 1)
         bound = _decode_bound(args)
+        floor8, floor2 = _decode_floor(args, 8), _decode_floor(args)
         if profile == 2:
-            k8 = (same, err, ms8, pms, bound)
+            k8 = (err, ms8, pms, bound)
         print(f"[K2' group_decode8 p{profile}] corpus at 16x16 tiles, "
               f"groups={args[0].shape[0]} ({args[0].shape[0] // 8} CTAs) "
-              f"exact vs plain and K2={same} K2' {ms8:.3f} ms | K2 {ms2:.3f} ms "
-              f"| plain {pms:.3f} ms | bound {bound[0]:.4f} ms ({bound[1]}) "
-              f"({card})", flush=True)
+              f"exact vs plain and K2={same} K2' {ms8:.3f} ms (floor {floor8:.4f}) "
+              f"| K2 {ms2:.3f} ms (floor {floor2:.4f}) | plain {pms:.3f} ms | "
+              f"bound {bound[0]:.4f} ms ({bound[1]}) ({card})", flush=True)
         if not same:
             return 1
 
@@ -363,14 +381,17 @@ def main() -> int:
     same = torch.equal(decode_groups8(*args), decode_groups(*args))
     ms8 = _cuda_ms(lambda: decode_groups8(*args), 5)
     ms2 = _cuda_ms(lambda: decode_groups(*args), 5)
+    bound = _decode_bound(args)
     print(f"[K2' frame] {frame.shape} effort 2, groups={args[0].shape[0]} "
-          f"({args[0].shape[0] // 8} CTAs) K2' == K2 {same}: K2' {ms8:.3f} ms | "
-          f"K2 {ms2:.3f} ms ({card})", flush=True)
+          f"({args[0].shape[0] // 8} CTAs) K2' == K2 {same}: K2' {ms8:.3f} ms "
+          f"(floor {_decode_floor(args, 8):.4f}) | K2 {ms2:.3f} ms (floor "
+          f"{_decode_floor(args):.4f}) | bound {bound[0]:.4f} ms ({bound[1]}) "
+          f"({card})", flush=True)
     if not same:
         return 1
 
     def row(name_, source, replaces, launches, stats):
-        same_, err_, ms_, pms_, (bound_ms, bound_by) = stats
+        err_, ms_, pms_, (bound_ms, bound_by) = stats
         return {"name": name_, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches, "max_abs_err": err_,
                 "ms": ms_, "plain_ms": pms_, "bound_ms": bound_ms,
@@ -381,7 +402,7 @@ def main() -> int:
         row("rans_fold", "nblic_tpu_torch/csrc/rans_fold.cu",
             "nblic_tpu/ops/pallas_fold.py:93",
             launches1["rans_fold"] + launches2["rans_fold"],
-            (fold_ok, fold_err, fold_ms, fold_plain_ms, fold_bound)),
+            (fold_err, fold_ms, fold_plain_ms, fold_bound)),
         row("group_decode_p1", k2_src, "nblic_tpu/ops/pallas_decode.py:247",
             launches1["group_decode"], dec[1]),
         row("group_decode_p2", k2_src, "nblic_tpu/ops/pallas_decode.py:123",

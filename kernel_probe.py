@@ -1,0 +1,319 @@
+#!/usr/bin/env python3
+"""Probes of kernels K1 and K2 on one NVIDIA GPU.
+
+    python3 kernel_probe.py [--parent PATH] PROBE [PROBE ...]
+
+PROBE is one of:
+  cut-chain  variants of K2 (csrc/group_decode.cu) with one link of its
+             per-pixel chain cut each, timed at the main path's shape: two
+             512x768 images at 64x64 tiles, two groups of 128 lanes,
+             profile 1.  Their output is wrong on purpose.  Also K2's
+             wrapper against its launch alone there and at 288 groups of
+             16x16 tiles.  With --parent PATH, the same for PATH, a
+             group_decode.cu of the design before the staged stream (two
+             block barriers a pixel, the 8-step symbol search, the stream
+             word read from device memory, a division by the quantizer step).
+  slot-bits  K2 with a slot table of k = 8..12 bits, at profiles 1 and 2
+             at the main path's shape and at 288 groups of 16x16 tiles.
+  fold       K1 (csrc/rans_fold.cu) with blocks of 32, 64 and 128 streams
+             at 3072 x 4096, its launch alone and the package's wrapper.
+
+Each variant is a copy of a source with some lines replaced, built by nvcc
+into build/probe/ (all builds run at once) and called through ctypes; none
+enters the package.  A replacement that no longer matches its source stops
+the probe with the lines it looked for.  Every variant that is meant to be
+exact is held against the package's kernel or the plain version.  Times
+are CUDA-event medians of 20 launches, two rounds in opposite orders.
+Run from the repository root.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from nblic_tpu_torch import kernels
+from nblic_tpu_torch.convert import group_args
+from nblic_tpu_torch.models import tiled
+from nblic_tpu_torch.ops import decode, fold, rans
+from nblic_tpu_torch.utils.synth import synth_image
+
+PROBE_DIR = kernels.BUILD_DIR.parent / "probe"
+K2_SRC = kernels.CSRC / "group_decode.cu"
+K1_SRC = kernels.CSRC / "rans_fold.cu"
+
+# (old lines, new lines) per cut; each old text must occur in its source once
+CUTS_PARENT = {
+    "no_stream_read": [(
+        "static_cast<uint32_t>(stream[at] & 0xFFFF)",
+        "static_cast<uint32_t>(at & 0xFFFF)")],
+    "one_load_search": [(
+        "      int y = 0;\n#pragma unroll\n      for (int step = 128; step; step >>= 1)\n"
+        "        if (arow[y + step] <= lb) y += step;\n",
+        "      int y = arow[lb >> 7] & 255;\n")],
+    "one_barrier": [(
+        "      __syncthreads();\n      if (need) {", "      if (need) {")],
+    "no_division": [
+        ("const int ty = (min(px, 255 - px) + near) / qstep;",
+         "const int ty = min(px, 255 - px);"),
+        ("      mag *= qstep;\n", "")],
+}
+CUTS_PARENT["all_four"] = [r for cut in CUTS_PARENT.values() for r in cut]
+CUTS_CURRENT = {
+    "no_refill": [(
+        "      if (at_copy < end) cp_async16(ring + (at_copy & (rw - 1)), stream + at_copy);\n"
+        "      cp_async_commit();\n      filled = end;\n      cp_async_wait<kAhead - 1>();\n",
+        "")],
+    "no_span_search": [(
+        "      while (n > 0) {\n        const int half = (n + 1) >> 1;\n"
+        "        if (arow[y + half] <= lb) {\n          y += half;\n          n -= half;\n"
+        "        } else {\n          n = half - 1;\n        }\n      }\n", "")],
+    "no_barrier": [("      __syncthreads();\n      par ^= 1;", "      par ^= 1;")],
+    "no_counts": [("        total += (four * 0x01010101u) >> 24;\n"
+                   "        base += below ? ((four << (32 - 8 * below)) * 0x01010101u) >> 24 : 0;\n",
+                   "")],
+    "cheap_prediction": [(
+        "      const int qd = activity_bin(v, err);\n"
+        "      const int px0 = predict<kProfile>(v, w, flag);",
+        "      const int qd = activity_bin(v, err);\n      const int px0 = v.a;")],
+}
+CUTS_CURRENT["all_five"] = [r for cut in CUTS_CURRENT.values() for r in cut]
+SLOT_LINE = "constexpr int kSlotBits = 12;"
+BLOCK_LINE = "constexpr int kBlock = 128;"
+
+
+def _ms(fn, reps: int = 20) -> float:
+    """Median CUDA-event milliseconds of ``fn()`` over ``reps`` runs."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _rounds(runs: dict) -> dict:
+    """Two timing rounds of every run, the second in reverse order."""
+    times = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            runs[name]()  # warm-up
+            times[name].append(_ms(runs[name]))
+    return times
+
+
+def _card() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    return f"{torch.cuda.get_device_name(0)}; {smi}"
+
+
+def variant(source: Path, name: str, repl) -> tuple[str, str]:
+    """(name, text): ``source`` with each (old, new) of ``repl`` replaced."""
+    text = source.read_text()
+    for old, new in repl:
+        if text.count(old) != 1:
+            raise ValueError(f"{name}: {old!r} occurs {text.count(old)} times in {source}")
+        text = text.replace(old, new)
+    return name, text
+
+
+def _build(name: str, text: str) -> Path:
+    src, lib = PROBE_DIR / f"{name}.cu", PROBE_DIR / f"lib_{name}.so"
+    src.write_text(text)
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}:\n{res.stdout}{res.stderr}")
+    regs = [ln.split("ptxas info    : ")[-1] for ln in res.stderr.splitlines()
+            if "registers" in ln]
+    print(f"[build {name}] {regs}", flush=True)
+    return lib
+
+
+def _entry(lib: Path, name: str, n_args: int, ints: set):
+    """A C entry of ``lib`` taking ``n_args`` arguments, int at ``ints``."""
+    fn = getattr(ctypes.CDLL(str(lib)), name)
+    fn.argtypes = [ctypes.c_int if i in ints else ctypes.c_void_p for i in range(n_args)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _checked(rc: int, what: str) -> None:
+    if rc:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def _k2_runner(lib: Path, args, parent: bool):
+    """One launch of the K2 entry in ``lib`` on ``group_args`` output; the
+    parent's entry takes the rows as they are, the current one rows of a
+    multiple of 4 words, as decode_groups prepares them."""
+    streams, n_active, bias, hist_n, acc, wcols, th, tw, near, g, profile = args
+    n_groups, w = streams.shape
+    words = streams if parent else torch.nn.functional.pad(streams, (0, -w % 4))
+    words = words.to(torch.int32).clone()  # fresh, so 16-byte aligned
+    tables = [t.to(torch.int32).clone() for t in (n_active, bias, hist_n, acc)]
+    wptr = wcols.to(torch.int32).clone() if profile == 2 else None
+    out = torch.empty((n_groups, th, tw, g), dtype=torch.uint8, device=streams.device)
+    head = [words.data_ptr(), w] + ([] if parent else [words.shape[1]])
+    rest = [wptr.data_ptr() if wptr is not None else None, n_groups,
+            n_groups // bias.shape[0], g, th, tw, near, profile, out.data_ptr(),
+            *kernels.stream_of(streams)]
+    call = head + [t.data_ptr() for t in tables] + rest
+    ptrs = {0, len(head), len(head) + 1, len(head) + 2, len(head) + 3, len(head) + 4,
+            len(call) - 3, len(call) - 1}
+    fn = _entry(lib, "nbt_group_decode", len(call), set(range(len(call))) - ptrs)
+
+    def run():
+        _checked(fn(*call), lib.name)
+        return out.permute(0, 3, 1, 2)
+    run.keep = (words, tables, wptr)
+    return run
+
+
+def _main_shape_args(profile: int, dev):
+    """Two 512x768 images at 64x64 tiles: two groups of 128 lanes."""
+    rng = np.random.default_rng(3)
+    imgs = [synth_image(rng, 512, 768) for _ in range(2)]
+    conts = (tiled._encode_flag_cycle(imgs, 64, dev) if profile == 2 else
+             tiled.encode_batch(imgs, tile_h=64, tile_w=64, device=dev))
+    return group_args([tiled._Parsed(c) for c in conts], dev)
+
+
+def _corpus16_args(dev):
+    """A Kodak-shaped corpus at 16x16 tiles: 24 images, 288 groups."""
+    rng = np.random.default_rng(0)
+    corpus = [synth_image(rng, 512, 768) for _ in range(18)]
+    corpus += [synth_image(rng, 768, 512).T.copy() for _ in range(6)]
+    conts = tiled.encode_batch(corpus, tile_h=16, tile_w=16, device=dev)
+    return group_args([tiled._Parsed(c) for c in conts], dev)
+
+
+def cut_chain(libs: dict, design: str, card: str) -> bool:
+    dev = torch.device("cuda")
+    args = _main_shape_args(1, dev)
+    runs = {name: _k2_runner(path, args, design == "parent") for name, path in libs.items()}
+    exact = torch.equal(runs["base"](), decode.group_decode_plain(*args))
+    print(f"[cut-chain {design}] base exact against the plain decoder: {exact}", flush=True)
+    times = _rounds(runs)
+    b = float(np.mean(times["base"]))
+    for name, ts in times.items():
+        print(f"[cut-chain {design}] {name}: {ts[0]:.3f} / {ts[1]:.3f} ms, saves "
+              f"{b - float(np.mean(ts)):.3f} ms of {b:.3f} ({card})", flush=True)
+    if design == "current":
+        for label, a in (("2 groups 64x64", args), ("288 groups 16x16", _corpus16_args(dev))):
+            launch = _k2_runner(libs["base"], a, False)
+            exact &= torch.equal(launch(), decode.decode_groups(*a))
+            print(f"[cut-chain current] base at {label}: wrapper (decode_groups) "
+                  f"{_ms(lambda: decode.decode_groups(*a)):.3f} ms, launch alone "
+                  f"{_ms(launch):.3f} ms ({card})", flush=True)
+    return exact
+
+
+def slot_bits(libs: dict, card: str) -> bool:
+    dev = torch.device("cuda")
+    cases = {"p1 2 groups 64x64": _main_shape_args(1, dev),
+             "p2 2 groups 64x64": _main_shape_args(2, dev),
+             "p1 288 groups 16x16": _corpus16_args(dev)}
+    ok = True
+    for label, args in cases.items():
+        ref = decode.decode_groups(*args)
+        runs = {k: _k2_runner(path, args, False) for k, path in libs.items()}
+        same = {k: torch.equal(run(), ref) for k, run in runs.items()}
+        ok &= all(same.values())
+        times = _rounds(runs)
+        print(f"[slot-bits] {label}: " + " | ".join(
+            f"k={k} {ts[0]:.3f} / {ts[1]:.3f}{'' if same[k] else ' DIFFERS'}"
+            for k, ts in times.items()) + f" ms ({card})", flush=True)
+    return ok
+
+
+def fold_blocks(libs: dict, card: str) -> bool:
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    s, l = 3072, 4096
+    freq = torch.from_numpy(rng.integers(1, 1 << 15, size=(l, s)).astype(np.int32)).to(dev)
+    facc = torch.from_numpy(rng.integers(0, 1 << 14, size=(l, s)).astype(np.int32)).to(dev)
+    w2, e2, s2 = rans.encode_scan(freq.t(), facc.t())
+    out = torch.empty((l, s), dtype=torch.int32, device=dev)
+    state = torch.empty(s, dtype=torch.int32, device=dev)
+    call = [freq.data_ptr(), facc.data_ptr(), out.data_ptr(), state.data_ptr(), s, l,
+            *kernels.stream_of(freq)]
+    runs = {}
+    for block, path in libs.items():
+        fn = _entry(path, "nbt_rans_fold", len(call), {4, 5, 6})
+        runs[block] = lambda fn=fn, path=path: _checked(fn(*call), path.name)
+    ok = True
+    for block, run in runs.items():
+        run()
+        folded = out.t()
+        ok &= (torch.equal(folded > rans.ANS_MASK, e2)
+               and torch.equal((folded & rans.ANS_MASK)[e2], w2[e2])
+               and torch.equal(state.to(torch.int64) & rans.U32_MASK, s2))
+    times = _rounds(runs)
+    print(f"[fold] S={s} L={l} exact={ok} launch alone: " + " | ".join(
+        f"{block} threads {ts[0]:.3f} / {ts[1]:.3f}" for block, ts in times.items())
+        + f" ms; the package's wrapper (128 threads) "
+        f"{_ms(lambda: fold.encode_fold(freq.t(), facc.t())):.3f} ms ({card})", flush=True)
+    return ok
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("probes", nargs="+", choices=("cut-chain", "slot-bits", "fold"))
+    ap.add_argument("--parent", type=Path,
+                    help="cut-chain: also cut this group_decode.cu of the parent design")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_probe: needs a CUDA GPU", file=sys.stderr)
+        return 1
+    specs = {}  # (probe, key) -> (name, text)
+    if "cut-chain" in args.probes:
+        designs = [("current", K2_SRC, CUTS_CURRENT)]
+        if args.parent:
+            designs.append(("parent", args.parent, CUTS_PARENT))
+        for design, src, cuts in designs:
+            for cut, repl in {"base": [], **cuts}.items():
+                specs[(design, cut)] = variant(src, f"{design}_{cut}", repl)
+    if "slot-bits" in args.probes:
+        for k in range(8, 13):
+            specs[("slot-bits", k)] = variant(K2_SRC, f"slot_bits_{k}",
+                                              [(SLOT_LINE, f"constexpr int kSlotBits = {k};")])
+    if "fold" in args.probes:
+        for block in (32, 64, 128):
+            specs[("fold", block)] = variant(K1_SRC, f"fold_{block}",
+                                             [(BLOCK_LINE, f"constexpr int kBlock = {block};")])
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(len(specs)) as pool:
+        libs = dict(zip(specs, pool.map(lambda nt: _build(*nt), specs.values())))
+
+    def of(group):
+        return {key: lib for (g, key), lib in libs.items() if g == group}
+
+    card = _card()
+    ok = True
+    for design in ("current", "parent"):
+        if of(design):
+            ok &= cut_chain(of(design), design, card)
+    if of("slot-bits"):
+        ok &= slot_bits(of("slot-bits"), card)
+    if of("fold"):
+        ok &= fold_blocks(of("fold"), card)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,58 +10,174 @@
 // start, slid per column), the blend prediction (profile 2: or the lane's
 // least-squares prediction, or their mean, by the lane's flag), the 12-bin
 // activity and the context address, the static bias (1/16 px plus the sign
-// bit), the symbol search y = #{v : acc[qd][v] <= state & 0x7FFF} - 1, the
-// state update, the renormalization against ONE shared stream cursor per
-// group (each lane that needs a word takes the word at cursor + its
-// exclusive rank among the group's needing lanes), and the near-aware
-// unfold.
+// bit), the symbol y = #{v : acc[qd][v] <= state & 0x7FFF} - 1, the state
+// update, the renormalization against ONE shared stream cursor per group
+// (each lane that needs a word takes the word at cursor + its exclusive
+// rank among the group's needing lanes, clamped to the last word), and the
+// near-aware unfold.
 //
-// What bounds it on Hopper: latency.  Every pixel is a serial chain per lane
-// (model -> table reads -> search -> state -> cursor -> next pixel) with two
-// block barriers for the cursor; the bytes (streams, tables, one output byte
-// per pixel) and the integer operations (a few hundred per pixel) would take
-// microseconds.  Design: one thread per lane, so the cursor's prefix is a
-// warp ballot plus a sum over the group's warps in shared memory; state,
-// window registers, carried error and (profile 2) the lane's 12 weights and
-// flag stay in registers.  The bias (int16), frequency and cumulative tables
-// (uint16) sit in shared memory, 18 KB per group.  The output is
-// (groups, th, tw, g), so each pixel's store coalesces across the lanes.
+// What bounds K2 on Hopper.  Not the bytes, and not the card's operations:
+// a group's lanes share one cursor, so a group is one CTA of g threads, and
+// a Kodak-shaped image at 64 x 64 tiles is one group (24 images: 24 of 132
+// SMs).  On its SM a CTA of g = 128 lanes is 4 warps on the 4 schedulers;
+// a lane runs ~364 integer operations per pixel (~396 at profile 2;
+// chip_smoke.py counts them), so the SM cannot step faster than ~364
+// cycles a pixel.  Above that floor
+// sits the per-pixel chain: a lane's next state needs its renormalization
+// word, whose position needs every warp's count of needing lanes (a block
+// barrier); the symbol needs the state and the activity bin; the next
+// pixel's prediction needs the symbol.  Each piece of the design cuts a
+// link of that chain:
+// - The stream is staged in shared memory, ahead of the cursor: a ring of
+//   ring_words(g) int32 words (a power of two >= (kAhead + 2) g + 8).
+//   A pixel consumes, and so frees, at most g words.  Each pixel every
+//   thread requests at most one 16-byte cp.async copy of 4 words into the
+//   slots freed (those of the words below the cursor that every thread
+//   has read), one commit group per pixel, and before the pixel's barrier
+//   waits for the group of kAhead pixels ago: every word is in the ring
+//   before its read.  Rows of the stream matrix are a multiple of 4 words
+//   (the wrapper pads them where they are not).  Reads past the end clamp
+//   to word W - 1, whose slot no later word overwrites.
+// - The symbol search is a slot lookup: row qd of the uint8 table T holds,
+//   for each b < 2^k, the last symbol whose cumulative frequency is at
+//   most b 2^(15-k), and T[2^k] = 255.  The symbol lies in [T[b], T[b+1]]
+//   for b = lb >> (15 - k); a bounded binary search over that span takes
+//   no load for most lanes and one for most of the rest, where the search
+//   it replaces took 8 dependent loads.  k = kSlotBits = 12, the fastest
+//   of 8-12 at every shape measured (kernel_probe.py slot-bits: PERF.md)
+//   and still small enough for three CTAs an SM.  Each CTA builds
+//   its table in the prologue, each symbol writing its own span of slots
+//   (ops/decode.py::slot_table is its plain version): a table built by
+//   the wrapper cost three more launches and, with a table set per group,
+//   a global read of 48 KB per CTA.
+// - One block barrier per pixel: the warp counts are double-buffered by
+//   pixel parity.  Pixel p + 1 writes the other buffer; pixel p + 2 writes
+//   this one after a barrier that every reader of it has passed.  A warp's
+//   count is one byte, so one load brings four warps' counts, and one
+//   multiply sums them.
+// - The loop is rotated so that pixel p - 1's renormalization (the counts,
+//   the ring word) and pixel p's prediction share one basic block: the
+//   prediction issues while those loads are in flight.
+// - Lossless groups (near = 0) run a template instance without the
+//   division by the quantizer step.
+// Kept: one thread per lane (folding a group's lanes into one warp would
+// put all of a step's warp instructions on one scheduler); the state,
+// window, carried error and (profile 2) the lane's 12 weights and flag in
+// registers; the bias (int16), frequency and cumulative (uint16) tables
+// and the two previous rows (uint8, lane fastest: row i is written into
+// row i - 2 behind the read frontier, since pixel j reads column j + 3 of
+// row i - 2) in shared memory; each lane reads and writes only its own
+// column of the rows, so they need no barrier.  The output is (groups,
+// th, tw, g), so each pixel's store coalesces across the lanes.
 //
-// K2 keeps the two previous rows (uint8, lane fastest) in shared memory too:
-// the current row is written into the row-before-last behind the read
-// frontier (pixel j reads column j+3 of row i-2), 34 KB per CTA at 64 x 64
-// tiles and g = 128.  A Kodak-shaped image at 64 x 64 tiles is one group, so
-// 24 images fill 24 of the 132 SMs.
-//
-// K2' packs eight groups into one CTA of 8 g threads.  Eight groups' tables
-// (144 KB) and their two rows (128 KB at 64 x 64 tiles) would need 272 KB,
-// over the 227 KB a block may have.  The tables stay in shared memory,
-// because every table read is on the serial chain; the previous rows are
-// read back from the output in device memory, because those reads are not:
-// each pixel loads the row-above taps for the next pixel's window at its
-// start, so the load has the whole pixel to arrive.  147.6 KB of shared
-// memory at any tile width.  Packing makes fewer CTAs (24 groups: 3 CTAs).
+// K2' packs eight groups into one CTA of 8 g threads and keeps the design
+// K2 had before: two barriers per pixel, the 8-step search, stream words
+// read from device memory.  Eight groups' tables (144 KB) and their two
+// rows (128 KB at 64 x 64 tiles) would need 272 KB, over the 227 KB a
+// block may have: the previous rows are read back from the output in
+// device memory, one pixel ahead, off the chain; 147.6 KB of shared memory
+// at any tile width.  No entry point calls it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kCtx = 3072;  // 12 activity bins x 256 texture patterns
+constexpr int kQd = 12;                    // activity bins
+constexpr int kCtx = kQd * 256;            // x 256 texture patterns
 constexpr int kTableBytes = 3 * kCtx * 2;  // bias, freq, acc as 16-bit
-constexpr int kWarpBytes = 32 * 4;         // one count per warp, 32 warps
+constexpr int kWarpBytes = 32 * 4;         // K2': one count per warp, 32 warps
+constexpr int kCountBytes = 32;            // K2: one byte per warp, 32 warps
 constexpr int kWeights = 12;               // 11 taps + intercept
 constexpr int kWRows = 16;                 // weight rows per lane in wcols
+constexpr int kAhead = 4;                  // pixels from a ring request to its read
+constexpr int kSlotBits = 12;              // k: the slot table's bits of lb
+constexpr int kSlotPad = 16;               // slot-table entries past 2^k (255)
+constexpr int kSlotRow = (1 << kSlotBits) + kSlotPad;  // a row: 16n bytes
+
+// Words of K2's stream ring for groups of g lanes.
+__host__ __device__ int ring_words(int g) {
+  int rw = 256;
+  while (rw < (kAhead + 2) * g + 8) rw <<= 1;
+  return rw;
+}
+
+// K2's dynamic shared memory: tables | warp counts x 2 | ring | slot table |
+// two rows.  Offsets in bytes, each 16-byte aligned.
+struct Layout {
+  int counts, ring, slots, rows, total;
+  __host__ __device__ Layout(int tw, int g) {
+    counts = kTableBytes;
+    ring = counts + 2 * kCountBytes;
+    slots = ring + 4 * ring_words(g);
+    rows = slots + kQd * kSlotRow;
+    total = rows + 2 * tw * g;
+  }
+};
 
 __device__ __forceinline__ int iabs(int v) { return v < 0 ? -v : v; }
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The causal window of a pixel: a, b, c, d, e, f, gg, h, q, r, s as in the
+// model (a left, b above, c above-left, d above-right, ...).
+struct Window {
+  int a, b, c, d, e, f, gg, h, q, r, s;
+};
+
+// The fresh window at (i, 0): p1 and p2 hold rows i-1 and i-2, lane-strided.
+__device__ __forceinline__ Window row_start(const uint8_t* p1, const uint8_t* p2,
+                                            int i, int tw, int g, int lane) {
+  Window v;
+  v.a = i > 0 ? p1[lane] : 128;
+  v.b = v.e = v.c = v.a;
+  v.d = (i > 0 && tw > 1) ? p1[g + lane] : v.b;
+  v.f = i > 1 ? p2[lane] : v.b;
+  v.gg = (i > 1 && tw > 1) ? p2[g + lane] : v.f;
+  v.h = v.f;
+  v.q = v.c;
+  v.r = (i > 1 && tw > 2) ? p2[2 * g + lane] : v.gg;
+  v.s = v.h;
+  return v;
+}
+
+// Slide the window one column past x; up1/up2 are the row-above taps of
+// column j + 2 of row i-1 and column j + 3 of row i-2.
+__device__ __forceinline__ void slide(Window& v, int x, int i, int j, int tw,
+                                      int up1, int up2) {
+  const int nd = i <= 0 ? x : (j + 2 >= tw ? v.d : up1);
+  const int nr = i <= 1 ? nd : (j + 3 >= tw ? v.r : up2);
+  v.e = v.a;
+  v.a = x;
+  v.q = v.c;
+  v.c = v.b;
+  v.b = v.d;
+  v.s = v.h;
+  v.h = v.f;
+  v.f = v.gg;
+  v.gg = v.r;
+  v.d = nd;
+  v.r = nr;
+}
+
 // Blend of clipped-linear and best-of-7 angular predictions (effort 0).
-__device__ __forceinline__ int simple_predict(int a, int b, int c, int d, int e,
-                                              int f, int g, int h, int q, int r,
-                                              int s) {
+__device__ __forceinline__ int simple_predict(const Window& v) {
+  const int a = v.a, b = v.b, c = v.c, d = v.d, e = v.e, f = v.f, g = v.gg,
+            h = v.h, q = v.q, r = v.r, s = v.s;
   const int px_lnr = clampi(9 * a + 9 * b + 2 * d - 2 * c - e - f, 0, 16 * 255);
   const int costs[7] = {
       2 * (iabs(a - e) + iabs(c - q) + iabs(b - c) + iabs(d - b)),
@@ -76,15 +192,25 @@ __device__ __forceinline__ int simple_predict(int a, int b, int c, int d, int e,
           iabs(2 * d - g - r),
   };
   const int preds[7] = {2 * a, 2 * b, 2 * c, 2 * d, a + c, c + b, b + d};
-  int cmin = costs[0], px_ang = preds[0], csum = costs[0];
-#pragma unroll
-  for (int k = 1; k < 7; ++k) {
-    csum += costs[k];
-    if (cmin > costs[k]) {  // strict: the first minimum wins
-      cmin = costs[k];
-      px_ang = preds[k];
+  // the first minimum, by a tournament three rounds deep: the left side
+  // holds the lower indices and keeps ties
+  auto pick = [](int& c_l, int& p_l, int c_r, int p_r) {
+    if (c_r < c_l) {
+      c_l = c_r;
+      p_l = p_r;
     }
-  }
+  };
+  int c01 = costs[0], p01 = preds[0], c23 = costs[2], p23 = preds[2];
+  int c45 = costs[4], p45 = preds[4];
+  pick(c01, p01, costs[1], preds[1]);
+  pick(c23, p23, costs[3], preds[3]);
+  pick(c45, p45, costs[5], preds[5]);
+  pick(c01, p01, c23, p23);
+  pick(c45, p45, costs[6], preds[6]);
+  pick(c01, p01, c45, p45);
+  const int cmin = c01, px_ang = p01;
+  int csum = (costs[0] + costs[1]) + (costs[2] + costs[3]) +
+             (costs[4] + costs[5]) + costs[6];
   csum = min((csum - 7 * cmin) >> 3, 607);
   const int wt = (csum >= 5) + (csum >= 12) + (csum >= 34) + (csum >= 78) +
                  (csum >= 194) + (csum >= 431) + (csum >= 601);
@@ -93,33 +219,262 @@ __device__ __forceinline__ int simple_predict(int a, int b, int c, int d, int e,
 
 // Profile-2 least-squares prediction: |acc| <= 11 * 32767 * 128 + 32767
 // stays below 2^31, and >> is arithmetic, as in nblic_tpu/ops/lsq.py.
-__device__ __forceinline__ int lsq_predict(const int (&w)[kWeights], int a,
-                                           int b, int c, int d, int e, int f,
-                                           int g, int h, int q, int r, int s) {
-  const int acc = w[11] + w[0] * (a - 128) + w[1] * (b - 128) +
-                  w[2] * (c - 128) + w[3] * (d - 128) + w[4] * (e - 128) +
-                  w[5] * (f - 128) + w[6] * (g - 128) + w[7] * (h - 128) +
-                  w[8] * (q - 128) + w[9] * (r - 128) + w[10] * (s - 128);
+__device__ __forceinline__ int lsq_predict(const int (&w)[kWeights],
+                                           const Window& v) {
+  const int acc = w[11] + w[0] * (v.a - 128) + w[1] * (v.b - 128) +
+                  w[2] * (v.c - 128) + w[3] * (v.d - 128) + w[4] * (v.e - 128) +
+                  w[5] * (v.f - 128) + w[6] * (v.gg - 128) + w[7] * (v.h - 128) +
+                  w[8] * (v.q - 128) + w[9] * (v.r - 128) + w[10] * (v.s - 128);
   return clampi(128 + ((acc + 2048) >> 12), 0, 255);
 }
 
-// The decode of kGroups groups by one CTA of kGroups * g threads.  Group
-// blockIdx.x * kGroups + (threadIdx.x / g) uses table set (its index / npg).
-template <int kProfile, int kGroups>
-__device__ __forceinline__ void decode_body(
-    const int32_t* __restrict__ streams, int W,
+template <int kProfile>
+__device__ __forceinline__ int predict(const Window& v, const int (&w)[kWeights],
+                                       int flag) {
+  int px0 = simple_predict(v);
+  if constexpr (kProfile == 2) {
+    const int px_l = lsq_predict(w, v);
+    px0 = flag == 1 ? px_l : (flag == 2 ? (px0 + px_l + 1) >> 1 : px0);
+  }
+  return px0;
+}
+
+// The 12-bin activity of the window and the carried error.
+__device__ __forceinline__ int activity_bin(const Window& v, int err) {
+  const int delta = iabs(v.a - v.e) + iabs(v.b - v.c) + iabs(v.b - v.d) +
+                    iabs(v.a - v.c) + iabs(v.b - v.f) + iabs(v.d - v.gg) +
+                    2 * iabs(err);
+  const int t = min(delta, 151);
+  return (t >= 1) + (t >= 2) + (t >= 4) + (t >= 6) + (t >= 9) + (t >= 15) +
+         (t >= 25) + (t >= 39) + (t >= 63) + (t >= 101) + (t >= 151);
+}
+
+// The context address: activity bin and the 8-bit texture pattern.
+__device__ __forceinline__ int context_adr(const Window& v, int px0, int qd) {
+  return (qd << 8) | ((px0 > v.a) << 7) | ((px0 > v.b) << 6) |
+         ((px0 > v.c) << 5) | ((px0 > v.d) << 4) | ((px0 > v.e) << 3) |
+         ((px0 > v.f) << 2) | ((px0 > 2 * v.a - v.e) << 1) | (px0 > 2 * v.b - v.f);
+}
+
+// Near-aware unfold (mapYtoX) of symbol y around the biased prediction px.
+template <bool kLossless>
+__device__ __forceinline__ int unfold(int y, int px, int sign, int near) {
+  const int qstep = 2 * near + 1;
+  const int ty = kLossless ? min(px, 255 - px) : (min(px, 255 - px) + near) / qstep;
+  int mag, sy;
+  if (y <= 0) {
+    mag = 0;
+    sy = 0;
+  } else if (y <= 2 * ty) {
+    mag = (y + 1) >> 1;
+    sy = (y & 1) ^ sign;
+  } else {
+    mag = y - ty;
+    sy = px < 128;
+  }
+  if (!kLossless) mag *= qstep;
+  return clampi(px + (sy ? mag : -mag), 0, 255);
+}
+
+// K2: one group per CTA of g threads, lane = threadIdx.x.
+template <int kProfile, bool kLossless>
+__global__ void group_decode_kernel(
+    const int32_t* __restrict__ streams, int W, int pitch,
     const int32_t* __restrict__ n_active, const int32_t* __restrict__ bias,
     const int32_t* __restrict__ hist_n, const int32_t* __restrict__ acc,
-    const int32_t* __restrict__ wcols, int npg, int g, int th, int tw,
-    int near, uint8_t* __restrict__ out) {
+    const int32_t* __restrict__ wcols, int npg, int g, int th, int tw, int near,
+    uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay(tw, g);
+  int16_t* bias_s = reinterpret_cast<int16_t*>(smem);
+  uint16_t* freq_s = reinterpret_cast<uint16_t*>(smem + 2 * kCtx);
+  uint16_t* acc_s = reinterpret_cast<uint16_t*>(smem + 4 * kCtx);
+  uint8_t* counts = smem + lay.counts;  // [2][32]: needing lanes per warp
+  int32_t* ring = reinterpret_cast<int32_t*>(smem + lay.ring);
+  uint8_t* slot_s = smem + lay.slots;
+  uint8_t* p1 = smem + lay.rows;  // row i-1
+  uint8_t* p2 = p1 + tw * g;      // row i-2, then row i behind the frontier
+
+  const int gi = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int set = gi / npg;
+  constexpr int shift = 15 - kSlotBits;
+  const int rw = ring_words(g);
+  const int wend = (W + 3) & ~3;  // words a row of `streams` holds (<= pitch)
+  // the tables in 16-byte vectors (the wrapper aligns them)
+  const int4* bias4 = reinterpret_cast<const int4*>(bias + set * kCtx);
+  const int4* freq4 = reinterpret_cast<const int4*>(hist_n + set * kCtx);
+  const int4* acc4 = reinterpret_cast<const int4*>(acc + set * kCtx);
+  for (int k = lane; k < kCtx / 4; k += g) {
+    const int4 bv = bias4[k], fv = freq4[k], av = acc4[k];
+    bias_s[4 * k] = static_cast<int16_t>(bv.x);
+    bias_s[4 * k + 1] = static_cast<int16_t>(bv.y);
+    bias_s[4 * k + 2] = static_cast<int16_t>(bv.z);
+    bias_s[4 * k + 3] = static_cast<int16_t>(bv.w);
+    freq_s[4 * k] = static_cast<uint16_t>(fv.x);
+    freq_s[4 * k + 1] = static_cast<uint16_t>(fv.y);
+    freq_s[4 * k + 2] = static_cast<uint16_t>(fv.z);
+    freq_s[4 * k + 3] = static_cast<uint16_t>(fv.w);
+    acc_s[4 * k] = static_cast<uint16_t>(av.x);
+    acc_s[4 * k + 1] = static_cast<uint16_t>(av.y);
+    acc_s[4 * k + 2] = static_cast<uint16_t>(av.z);
+    acc_s[4 * k + 3] = static_cast<uint16_t>(av.w);
+  }
+  // The slot table, from the int32 cumulative rows (nondecreasing): symbol
+  // v owns the slots b with acc[v] <= b 2^shift < acc[v + 1], v = 0 also
+  // those below, v = 255 also those above; so T[b] = #{v >= 1 : acc[v] <=
+  // b 2^shift}, as ops/decode.py::slot_table computes it.  Entries 2^k on
+  // are 255.
+  constexpr int n_slots = 1 << kSlotBits;
+  const int32_t* acc_g = acc + set * kCtx;
+  for (int k = lane; k < kCtx; k += g) {
+    const int v = k & 255;
+    uint8_t* srow = slot_s + (k >> 8) * kSlotRow;
+    auto first = [&](int u) {  // the first slot whose edge reaches acc[u]
+      return min((acc_g[k - v + u] + (1 << shift) - 1) >> shift, n_slots);
+    };
+    int b = v == 0 ? 0 : first(v);
+    const int end = v == 255 ? n_slots + kSlotPad : first(v + 1);
+    const uint32_t v4 = static_cast<uint32_t>(v) * 0x01010101u;
+    for (; b < end && (b & 15); ++b) srow[b] = static_cast<uint8_t>(v);
+    for (; b + 16 <= end; b += 16)
+      *reinterpret_cast<uint4*>(srow + b) = make_uint4(v4, v4, v4, v4);
+    for (; b < end; ++b) srow[b] = static_cast<uint8_t>(v);
+  }
+  for (int k = lane; k < 2 * kCountBytes; k += g) counts[k] = 0;
+
+  int w[kWeights];
+  int flag = 0;
+  if constexpr (kProfile == 2) {
+    const int32_t* wl = wcols + static_cast<size_t>(gi) * kWRows * g + lane;
+#pragma unroll
+    for (int k = 0; k < kWeights; ++k) w[k] = wl[k * g];
+    flag = wl[kWeights * g];
+  }
+
+  // Head: the lanes' initial states.  The ring takes the words from 2 g - 4
+  // on, so that it holds word W - 1 even where W = 2 g.
+  const int32_t* stream = streams + static_cast<size_t>(gi) * pitch;
+  uint32_t state = (static_cast<uint32_t>(stream[lane] & 0xFFFF) << 16) |
+                   static_cast<uint32_t>(stream[g + lane] & 0xFFFF);
+  int sp = 2 * g;          // cursor before the pending renormalization
+  int filled = 2 * g - 4;  // words [2 g - 4, filled) are requested
+  auto upto = [&](int free_below) {
+    // the end of the words whose slots may be taken: those of the words
+    // below free_below are free
+    return min((free_below + rw - 4) & ~3, wend);
+  };
+  for (int at = filled + 4 * lane; at < upto(sp); at += 4 * g)
+    cp_async16(ring + (at & (rw - 1)), stream + at);
+  cp_async_commit();
+  filled = upto(sp);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const bool active = lane < n_active[gi];
+  const int warp = lane >> 5;
+  const int n_warps = g >> 5;
+  const unsigned lanemask_lt = (1u << (lane & 31)) - 1u;
+  uint8_t* out_g = out + static_cast<size_t>(gi) * th * tw * g;
+  bool need = false;  // the pending renormalization: this lane takes a word
+  int rank = 0;       // at cursor + rank + the needing lanes of lower warps
+  int par = 0;        // pixel parity: this pixel writes counts[par]
+
+  for (int i = 0; i < th; ++i) {
+    Window v = row_start(p1, p2, i, tw, g, lane);
+    int err = 0;
+    for (int j = 0; j < tw; ++j) {
+      // pixel p - 1's renormalization, after its barrier: four warps' counts
+      // a word, summed bytewise by one multiply (each sum stays below 256)
+      const uint32_t* prev =
+          reinterpret_cast<const uint32_t*>(counts + kCountBytes * (par ^ 1));
+      int base = 0, total = 0;
+      for (int k = 0; 4 * k < n_warps; ++k) {
+        const uint32_t four = prev[k];
+        const int below = min(max(warp - 4 * k, 0), 4);  // of this word's warps
+        total += (four * 0x01010101u) >> 24;
+        base += below ? ((four << (32 - 8 * below)) * 0x01010101u) >> 24 : 0;
+      }
+      const int at = min(sp + base + rank, W - 1);
+      const uint32_t word = ring[at & (rw - 1)] & 0xFFFF;
+      if (need) state = (state << 16) | word;
+      const int free_below = sp;  // every thread is past its reads below sp
+      sp += total;
+
+      // pixel p
+      const int up1 = (i > 0 && j + 2 < tw) ? p1[(j + 2) * g + lane] : 0;
+      const int up2 = (i > 1 && j + 3 < tw) ? p2[(j + 3) * g + lane] : 0;
+      const int qd = activity_bin(v, err);
+      const int px0 = predict<kProfile>(v, w, flag);
+      const int bval = bias_s[context_adr(v, px0, qd)];
+      const int sign = (bval >> 3) & 1;  // arithmetic shift, as in the model
+      const int px = clampi(px0 + (bval >> 4) + sign, 0, 255);
+
+      // symbol: the last y with acc[qd][y] <= lb, in [T[b], T[b + 1]]
+      const uint32_t lb = state & 0x7FFFu;
+      const uint8_t* srow = slot_s + qd * kSlotRow;
+      const uint16_t* arow = acc_s + qd * 256;
+      const int b = static_cast<int>(lb >> shift);
+      int y = srow[b];
+      int n = srow[b + 1] - y;
+      while (n > 0) {
+        const int half = (n + 1) >> 1;
+        if (arow[y + half] <= lb) {
+          y += half;
+          n -= half;
+        } else {
+          n = half - 1;
+        }
+      }
+      state = (state >> 15) * freq_s[qd * 256 + y] + lb - arow[y];
+      need = active && state < (1u << 16);
+      const unsigned ballot = __ballot_sync(0xFFFFFFFFu, need);
+      rank = __popc(ballot & lanemask_lt);
+      if ((lane & 31) == 0) counts[kCountBytes * par + warp] = __popc(ballot);
+
+      const int x = unfold<kLossless>(y, px, sign, near);
+      err = x - px0;
+      p2[j * g + lane] = static_cast<uint8_t>(x);
+      out_g[(static_cast<size_t>(i) * tw + j) * g + lane] = static_cast<uint8_t>(x);
+      slide(v, x, i, j, tw, up1, up2);
+
+      // a pixel frees at most g words: one 4-word copy per thread refills
+      const int end = upto(free_below);
+      const int at_copy = filled + 4 * lane;
+      if (at_copy < end) cp_async16(ring + (at_copy & (rw - 1)), stream + at_copy);
+      cp_async_commit();
+      filled = end;
+      cp_async_wait<kAhead - 1>();
+      __syncthreads();
+      par ^= 1;
+    }
+    uint8_t* t = p1;
+    p1 = p2;
+    p2 = t;
+  }
+  cp_async_wait<0>();
+}
+
+// K2': eight groups per CTA of 8 g threads; group blockIdx.x * 8 +
+// threadIdx.x / g uses table set (its index / npg).
+template <int kProfile>
+__global__ void __launch_bounds__(1024, 1)
+    group_decode8_kernel(const int32_t* __restrict__ streams, int W,
+                         const int32_t* __restrict__ n_active,
+                         const int32_t* __restrict__ bias,
+                         const int32_t* __restrict__ hist_n,
+                         const int32_t* __restrict__ acc,
+                         const int32_t* __restrict__ wcols, int npg, int g,
+                         int th, int tw, int near, uint8_t* __restrict__ out) {
+  constexpr int kGroups = 8;
   extern __shared__ __align__(16) unsigned char smem[];
   int16_t* bias_all = reinterpret_cast<int16_t*>(smem);
   uint16_t* freq_all = reinterpret_cast<uint16_t*>(smem + 2 * kGroups * kCtx);
   uint16_t* acc_all = reinterpret_cast<uint16_t*>(smem + 4 * kGroups * kCtx);
   int* warp_tot = reinterpret_cast<int*>(smem + kGroups * kTableBytes);
 
-  const int grp = kGroups == 1 ? 0 : threadIdx.x / g;
-  const int lane = kGroups == 1 ? threadIdx.x : threadIdx.x % g;
+  const int grp = threadIdx.x / g;
+  const int lane = threadIdx.x % g;
   const int gi = blockIdx.x * kGroups + grp;
   for (int k = threadIdx.x; k < kGroups * kCtx; k += blockDim.x) {
     const int set = (blockIdx.x * kGroups + k / kCtx) / npg;
@@ -151,55 +506,22 @@ __device__ __forceinline__ void decode_body(
   const int n_warps = g >> 5;
   int* tot = warp_tot + grp * n_warps;
   const unsigned lanemask_lt = (1u << (lane & 31)) - 1u;
-  const int qstep = 2 * near + 1;
   uint8_t* out_g = out + static_cast<size_t>(gi) * th * tw * g;
 
-  // K2: p1 holds row i-1.  p2 holds row i-2, and row i is written into it
-  // behind the read frontier (pixel j reads p2 at column j+3 and writes
-  // column j), so two row buffers suffice; they swap at each row end.
-  // K2': p1/p2 point at rows i-1 and i-2 of this group's output.
-  uint8_t* rows = smem + kGroups * kTableBytes + kWarpBytes;  // K2 only
-  uint8_t* p1 = kGroups == 1 ? rows : out_g;
-  uint8_t* p2 = kGroups == 1 ? rows + tw * g : out_g;
-
   for (int i = 0; i < th; ++i) {
-    if constexpr (kGroups > 1) {
-      p1 = out_g + static_cast<size_t>(i > 0 ? i - 1 : 0) * tw * g;
-      p2 = out_g + static_cast<size_t>(i > 1 ? i - 2 : 0) * tw * g;
-    }
-    // fresh window at (i, 0)
-    int a = i > 0 ? p1[lane] : 128;
-    int b = a, e = a, c = a;
-    int d = (i > 0 && tw > 1) ? p1[g + lane] : b;
-    int f = i > 1 ? p2[lane] : b;
-    int gg = (i > 1 && tw > 1) ? p2[g + lane] : f;
-    int h = f, q = c;
-    int r = (i > 1 && tw > 2) ? p2[2 * g + lane] : gg;
-    int s = h;
+    // rows i-1 and i-2 of this group's output
+    const uint8_t* p1 = out_g + static_cast<size_t>(i > 0 ? i - 1 : 0) * tw * g;
+    const uint8_t* p2 = out_g + static_cast<size_t>(i > 1 ? i - 2 : 0) * tw * g;
+    Window v = row_start(p1, p2, i, tw, g, lane);
     int err = 0;
-
     for (int j = 0; j < tw; ++j) {
       // row-above taps of the next pixel's window, off the serial chain
       const int up1 = (i > 0 && j + 2 < tw) ? p1[(j + 2) * g + lane] : 0;
       const int up2 = (i > 1 && j + 3 < tw) ? p2[(j + 3) * g + lane] : 0;
-
-      int px0 = simple_predict(a, b, c, d, e, f, gg, h, q, r, s);
-      if constexpr (kProfile == 2) {
-        const int px_l = lsq_predict(w, a, b, c, d, e, f, gg, h, q, r, s);
-        px0 = flag == 1 ? px_l : (flag == 2 ? (px0 + px_l + 1) >> 1 : px0);
-      }
-      const int delta = iabs(a - e) + iabs(b - c) + iabs(b - d) + iabs(a - c) +
-                        iabs(b - f) + iabs(d - gg) + 2 * iabs(err);
-      const int v = min(delta, 151);
-      const int qd = (v >= 1) + (v >= 2) + (v >= 4) + (v >= 6) + (v >= 9) +
-                     (v >= 15) + (v >= 25) + (v >= 39) + (v >= 63) +
-                     (v >= 101) + (v >= 151);
-      const int adr = (qd << 8) | ((px0 > a) << 7) | ((px0 > b) << 6) |
-                      ((px0 > c) << 5) | ((px0 > d) << 4) | ((px0 > e) << 3) |
-                      ((px0 > f) << 2) | ((px0 > 2 * a - e) << 1) |
-                      (px0 > 2 * b - f);
-      const int bval = bias_s[adr];
-      const int sign = (bval >> 3) & 1;  // arithmetic shift, as in the model
+      const int px0 = predict<kProfile>(v, w, flag);
+      const int qd = activity_bin(v, err);
+      const int bval = bias_s[context_adr(v, px0, qd)];
+      const int sign = (bval >> 3) & 1;
       const int px = clampi(px0 + (bval >> 4) + sign, 0, 255);
 
       // symbol: the last v with acc[qd][v] <= lb (acc[qd][0] == 0)
@@ -229,79 +551,19 @@ __device__ __forceinline__ void decode_body(
       }
       sp += total;
 
-      // near-aware unfold (mapYtoX)
-      const int ty = (min(px, 255 - px) + near) / qstep;
-      int mag, sy;
-      if (y <= 0) {
-        mag = 0;
-        sy = 0;
-      } else if (y <= 2 * ty) {
-        mag = (y + 1) >> 1;
-        sy = (y & 1) ^ sign;
-      } else {
-        mag = y - ty;
-        sy = px < 128;
-      }
-      mag *= qstep;
-      const int x = clampi(px + (sy ? mag : -mag), 0, 255);
+      const int x = unfold<false>(y, px, sign, near);
       err = x - px0;
-
-      // slide the window one column
-      const int nd = i <= 0 ? x : (j + 2 >= tw ? d : up1);
-      const int nr = i <= 1 ? nd : (j + 3 >= tw ? r : up2);
-      if constexpr (kGroups == 1) p2[j * g + lane] = static_cast<uint8_t>(x);
       out_g[(static_cast<size_t>(i) * tw + j) * g + lane] = static_cast<uint8_t>(x);
-      e = a;
-      a = x;
-      q = c;
-      c = b;
-      b = d;
-      s = h;
-      h = f;
-      f = gg;
-      gg = r;
-      d = nd;
-      r = nr;
-    }
-    if constexpr (kGroups == 1) {
-      uint8_t* t = p1;
-      p1 = p2;
-      p2 = t;
+      slide(v, x, i, j, tw, up1, up2);
     }
   }
 }
 
-template <int kProfile>
-__global__ void group_decode_kernel(const int32_t* streams, int W,
-                                    const int32_t* n_active, const int32_t* bias,
-                                    const int32_t* hist_n, const int32_t* acc,
-                                    const int32_t* wcols, int npg, int g, int th,
-                                    int tw, int near, uint8_t* out) {
-  decode_body<kProfile, 1>(streams, W, n_active, bias, hist_n, acc, wcols, npg,
-                           g, th, tw, near, out);
-}
+long long smem8_bytes() { return 8LL * kTableBytes + kWarpBytes; }
 
-template <int kProfile>
-__global__ void __launch_bounds__(1024, 1)
-    group_decode8_kernel(const int32_t* streams, int W, const int32_t* n_active,
-                         const int32_t* bias, const int32_t* hist_n,
-                         const int32_t* acc, const int32_t* wcols, int npg,
-                         int g, int th, int tw, int near, uint8_t* out) {
-  decode_body<kProfile, 8>(streams, W, n_active, bias, hist_n, acc, wcols, npg,
-                           g, th, tw, near, out);
-}
-
-long long smem_bytes(int tw, int g, int groups) {
-  return static_cast<long long>(groups) * kTableBytes + kWarpBytes +
-         (groups == 1 ? 2LL * tw * g : 0LL);
-}
-
-template <typename Kernel>
-int launch(Kernel kernel, int blocks, int threads, long long smem,
-           const int32_t* streams, int W, const int32_t* n_active,
-           const int32_t* bias, const int32_t* hist_n, const int32_t* acc,
-           const int32_t* wcols, int npg, int g, int th, int tw, int near,
-           uint8_t* out, int device, void* stream) {
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int blocks, int threads, long long smem, int device,
+           void* stream, Args... args) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem > 48 * 1024) {
@@ -310,54 +572,58 @@ int launch(Kernel kernel, int blocks, int threads, long long smem,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   kernel<<<blocks, threads, static_cast<size_t>(smem),
-           static_cast<cudaStream_t>(stream)>>>(streams, W, n_active, bias,
-                                                hist_n, acc, wcols, npg, g, th,
-                                                tw, near, out);
+           static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Dynamic shared memory of one CTA decoding `groups` groups (1 or 8).
-extern "C" long long nbt_group_decode_smem(int tw, int g, int groups) {
-  return smem_bytes(tw, g, groups);
+// Dynamic shared memory of one K2 CTA: tile width tw, g lanes.
+extern "C" long long nbt_group_decode_smem(int tw, int g) {
+  return Layout(tw, g).total;
 }
 
-// K2.  streams: (G, W) int32 u16 words; n_active: (G,); bias: (B, 3072)
-// int32; hist_n/acc: (B, 12, 256) int32, with G = B * npg; wcols: (G, 16, g)
-// int32 (profile 2; not read at profile 1).  out: (G, th, tw, g) uint8.  g
-// is the block size: a multiple of 32, at most 1024.  Launches on `stream`;
-// returns cudaGetLastError() after the launch.
-extern "C" int nbt_group_decode(const int32_t* streams, int W,
+// Dynamic shared memory of one K2' CTA (eight groups; any tile width).
+extern "C" long long nbt_group_decode8_smem() { return smem8_bytes(); }
+
+// Words of K2's stream ring for groups of g lanes.
+extern "C" int nbt_group_decode_ring_words(int g) { return ring_words(g); }
+
+// K2.  streams: (G, pitch) int32 u16 words, W of them live per row, pitch a
+// multiple of 4 >= W, 16-byte aligned; n_active: (G,); bias: (B, 3072)
+// int32; hist_n/acc: (B, 12, 256) int32, acc nondecreasing along its last
+// axis (each CTA builds its slot table from it); the tables 16-byte
+// aligned; G = B * npg; wcols:
+// (G, 16, g) int32 (profile 2; not read at profile 1).  out: (G, th, tw, g)
+// uint8.  g: a multiple of 32, at most 1024.  Launches on `stream`; returns
+// cudaGetLastError() after the launch.
+extern "C" int nbt_group_decode(const int32_t* streams, int W, int pitch,
                                 const int32_t* n_active, const int32_t* bias,
                                 const int32_t* hist_n, const int32_t* acc,
                                 const int32_t* wcols, int n_groups, int npg,
                                 int g, int th, int tw, int near, int profile,
                                 uint8_t* out, int device, void* stream) {
-  const long long smem = smem_bytes(tw, g, 1);
-  if (profile == 2)
-    return launch(group_decode_kernel<2>, n_groups, g, smem, streams, W,
-                  n_active, bias, hist_n, acc, wcols, npg, g, th, tw, near, out,
-                  device, stream);
-  return launch(group_decode_kernel<1>, n_groups, g, smem, streams, W, n_active,
-                bias, hist_n, acc, wcols, npg, g, th, tw, near, out, device,
-                stream);
+  const long long smem = Layout(tw, g).total;
+  const bool lossless = near == 0;
+  auto kernel = profile == 2 ? (lossless ? group_decode_kernel<2, true>
+                                         : group_decode_kernel<2, false>)
+                             : (lossless ? group_decode_kernel<1, true>
+                                         : group_decode_kernel<1, false>);
+  return launch(kernel, n_groups, g, smem, device, stream, streams, W, pitch,
+                n_active, bias, hist_n, acc, wcols, npg, g, th, tw, near, out);
 }
 
-// K2'.  The arguments of nbt_group_decode with one table set per group
-// (npg = 1) and G a multiple of 8; each CTA of 8 g threads decodes 8 groups.
+// K2'.  streams: (G, W) int32 u16 words; the other arguments as K2's, with
+// one table set per group (npg = 1) and G a multiple of 8; each CTA of 8 g
+// threads decodes 8 groups.
 extern "C" int nbt_group_decode8(const int32_t* streams, int W,
                                  const int32_t* n_active, const int32_t* bias,
                                  const int32_t* hist_n, const int32_t* acc,
                                  const int32_t* wcols, int n_groups, int npg,
                                  int g, int th, int tw, int near, int profile,
                                  uint8_t* out, int device, void* stream) {
-  const long long smem = smem_bytes(tw, g, 8);
-  if (profile == 2)
-    return launch(group_decode8_kernel<2>, n_groups / 8, 8 * g, smem, streams,
-                  W, n_active, bias, hist_n, acc, wcols, npg, g, th, tw, near,
-                  out, device, stream);
-  return launch(group_decode8_kernel<1>, n_groups / 8, 8 * g, smem, streams, W,
-                n_active, bias, hist_n, acc, wcols, npg, g, th, tw, near, out,
-                device, stream);
+  auto kernel = profile == 2 ? group_decode8_kernel<2> : group_decode8_kernel<1>;
+  return launch(kernel, n_groups / 8, 8 * g, smem8_bytes(), device, stream,
+                streams, W, n_active, bias, hist_n, acc, wcols, npg, g, th, tw,
+                near, out);
 }

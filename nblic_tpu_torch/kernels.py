@@ -26,6 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 
 
 def _sources() -> list[Path]:
@@ -76,17 +77,27 @@ def build(verbose: bool = False) -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     lib = ctypes.CDLL(str(build()))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.nbt_rans_fold.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.nbt_rans_fold.restype = i32
-    for decode in (lib.nbt_group_decode, lib.nbt_group_decode8):
-        decode.argtypes = [
-            ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
-            ptr, i32, ptr,
-        ]
-        decode.restype = i32
-    lib.nbt_group_decode_smem.argtypes = [i32, i32, i32]
-    lib.nbt_group_decode_smem.restype = ctypes.c_longlong
+    lib.nbt_rans_fold_smem.argtypes = []
+    lib.nbt_rans_fold_smem.restype = i64
+    lib.nbt_group_decode.argtypes = [
+        ptr, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+        ptr, i32, ptr,
+    ]
+    lib.nbt_group_decode.restype = i32
+    lib.nbt_group_decode8.argtypes = [
+        ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+        ptr, i32, ptr,
+    ]
+    lib.nbt_group_decode8.restype = i32
+    lib.nbt_group_decode_smem.argtypes = [i32, i32]
+    lib.nbt_group_decode_smem.restype = i64
+    lib.nbt_group_decode8_smem.argtypes = []
+    lib.nbt_group_decode8_smem.restype = i64
+    lib.nbt_group_decode_ring_words.argtypes = [i32]
+    lib.nbt_group_decode_ring_words.restype = i32
     lib.nbt_error_string.argtypes = [i32]
     lib.nbt_error_string.restype = ctypes.c_char_p
     return lib

@@ -23,7 +23,52 @@ N_SYM = 256
 N_CTX = N_QD * N_SYM
 N_WROWS = 16  # rows of a group's weight table: 12 weights, the flag, 3 spare
 GROUPS_PER_CTA8 = 8  # K2': interleave groups per kernel instance
-SMEM_LIMIT = 232448  # bytes of shared memory one Hopper CTA may use
+SLOT_BITS = 12  # k of K2's slot table, kSlotBits in csrc/group_decode.cu
+SLOT_PAD = 16  # slot-table entries past 2^k
+
+
+def slot_table(acc: torch.Tensor, k: int = SLOT_BITS) -> torch.Tensor:
+    """K2's symbol lookup over the top k bits of the slot ``state & 0x7FFF``:
+    the plain version of the table each K2 CTA builds in its prologue.
+
+    acc: (..., 256) cumulative frequencies, nondecreasing from acc[0] = 0
+    (as every table the codec builds).  Returns (..., 2^k + 16) uint8:
+    entry b < 2^k is the last symbol v with acc[v] <= b 2^(15-k) (the last
+    of a run of zero-frequency bins), and the entries from 2^k on are 255:
+    entry 2^k closes the last span, the rest pad a row to 16 bytes.  The
+    symbol of slot lb lies in [T[b], T[b + 1]] for b = lb >> (15 - k).
+    """
+    if not 4 <= k <= rans.NORM_BITS:
+        raise ValueError(f"slot bits must lie in 4..15, got {k}")
+    # the count of acc[1..255] at most an edge is the last such v when acc[0] = 0
+    rows = acc.reshape(-1, N_SYM)[:, 1:].contiguous()
+    edges = torch.full(((1 << k) + SLOT_PAD,), torch.iinfo(rows.dtype).max,
+                       dtype=rows.dtype, device=rows.device)
+    edges[: 1 << k] = torch.arange(1 << k, device=rows.device) << (rans.NORM_BITS - k)
+    t = torch.searchsorted(rows, edges.expand(rows.shape[0], -1).contiguous(), right=True)
+    return t.to(torch.uint8).reshape(acc.shape[:-1] + (edges.shape[0],))
+
+
+def slot_search(acc_rows: torch.Tensor, slots: torch.Tensor, row: torch.Tensor,
+                lb: torch.Tensor, k: int = SLOT_BITS) -> torch.Tensor:
+    """K2's symbol search: the slot lookup, then a bounded binary search in
+    [T[b], T[b+1]], step for step as the kernel takes it.
+
+    acc_rows: (R, 256); slots: (R, 2^k + 16), :func:`slot_table` of those
+    rows; row, lb: equal-shape int64 row indices and slots.  Returns the
+    symbols, int64.
+    """
+    b = lb >> (rans.NORM_BITS - k)
+    y = slots[row, b].to(torch.int64)
+    n = slots[row, b + 1].to(torch.int64) - y
+    acc_rows = acc_rows.to(torch.int64)
+    while bool((n > 0).any()):
+        live = n > 0
+        half = (n + 1) >> 1
+        ok = live & (acc_rows[row, (y + half).clamp(max=N_SYM - 1)] <= lb)
+        y = torch.where(ok, y + half, y)
+        n = torch.where(ok, n - half, torch.where(live, half - 1, n))
+    return y
 
 
 def _check(streams, n_active, bias, hist_n, acc, wcols, th, tw, g, profile):
@@ -50,33 +95,21 @@ def _check(streams, n_active, bias, hist_n, acc, wcols, th, tw, g, profile):
         raise ValueError(f"inputs lie on several devices: {devices}")
 
 
-def _launch(entry, smem, streams, n_active, bias, hist_n, acc, wcols, th, tw,
-            near, g, profile, npg):
-    """Launch a decode entry of the kernel library; returns the output."""
+def _aligned(t: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
+    """``t`` as a contiguous tensor of ``dtype`` starting 16-byte aligned."""
+    t = t.to(dtype).contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _kernel_inputs(smem, g, n_active, bias, hist_n, acc, wcols, profile):
+    """Check a launch's limits; int32 tables and the wcols pointer."""
     if g % 32 or g > 1024:
         raise ValueError(f"the kernel needs g a multiple of 32 up to 1024, got {g}")
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"tile width {tw} x {g} lanes needs {smem} B of shared memory")
-    n_groups, w = streams.shape
-    dev = streams.device
-    streams = streams.to(torch.int32).contiguous()
-    n_active = n_active.to(torch.int32).contiguous()
-    bias = bias.to(torch.int32).contiguous()
-    hist_n = hist_n.to(torch.int32).contiguous()
-    acc = acc.to(torch.int32).contiguous()
-    wptr = None
-    if profile == 2:
-        wcols = wcols.to(torch.int32).contiguous()
-        wptr = wcols.data_ptr()
-    out = torch.empty((n_groups, th, tw, g), dtype=torch.uint8, device=dev)
-    dev_index, stream = kernels.stream_of(streams)
-    rc = entry(
-        streams.data_ptr(), w, n_active.data_ptr(), bias.data_ptr(),
-        hist_n.data_ptr(), acc.data_ptr(), wptr, n_groups, npg, g, th, tw, near,
-        profile, out.data_ptr(), dev_index, stream,
-    )
-    kernels.check(rc, entry.__name__)
-    return out.permute(0, 3, 1, 2)
+    if smem > kernels.SMEM_LIMIT:
+        raise ValueError(f"this tile width and g = {g} need {smem} B of shared memory")
+    tables = [_aligned(t) for t in (n_active, bias, hist_n, acc)]
+    wcols = _aligned(wcols) if profile == 2 else None
+    return tables, wcols, (wcols.data_ptr() if wcols is not None else None)
 
 
 def decode_groups(streams, n_active, bias, hist_n, acc, wcols, th: int, tw: int,
@@ -96,11 +129,20 @@ def decode_groups(streams, n_active, bias, hist_n, acc, wcols, th: int, tw: int,
     if streams.device.type != "cuda":
         raise ValueError(f"decode_groups runs on cpu or cuda, not {streams.device}")
     lib = kernels.library()
-    out = _launch(lib.nbt_group_decode, lib.nbt_group_decode_smem(tw, g, 1),
-                  streams, n_active, bias, hist_n, acc, wcols, th, tw, near, g,
-                  profile, streams.shape[0] // bias.shape[0])
+    (n_active, bias, hist_n, acc), wcols, wptr = _kernel_inputs(
+        lib.nbt_group_decode_smem(tw, g), g, n_active, bias, hist_n, acc, wcols,
+        profile)
+    # rows of a multiple of 4 words: the kernel stages them by 16-byte copies
+    n_groups, w = streams.shape
+    words = _aligned(torch.nn.functional.pad(streams, (0, -w % 4)) if w % 4 else streams)
+    out = torch.empty((n_groups, th, tw, g), dtype=torch.uint8, device=streams.device)
+    rc = lib.nbt_group_decode(
+        words.data_ptr(), w, words.shape[1], n_active.data_ptr(), bias.data_ptr(),
+        hist_n.data_ptr(), acc.data_ptr(), wptr, n_groups, n_groups // bias.shape[0],
+        g, th, tw, near, profile, out.data_ptr(), *kernels.stream_of(streams))
+    kernels.check(rc, "nbt_group_decode")
     decode_groups.launches += 1
-    return out
+    return out.permute(0, 3, 1, 2)
 
 
 decode_groups.launches = 0
@@ -130,21 +172,33 @@ def decode_groups8(streams, n_active, bias, hist_n, acc, wcols, th: int, tw: int
     if streams.device.type != "cuda":
         raise ValueError(f"decode_groups8 runs on cpu or cuda, not {streams.device}")
     lib = kernels.library()
-    out = _launch(lib.nbt_group_decode8,
-                  lib.nbt_group_decode_smem(tw, g, GROUPS_PER_CTA8),
-                  streams, n_active, bias, hist_n, acc, wcols, th, tw, near, g,
-                  profile, 1)
+    (n_active, bias, hist_n, acc), wcols, wptr = _kernel_inputs(
+        lib.nbt_group_decode8_smem(), g, n_active, bias, hist_n, acc, wcols, profile)
+    streams = streams.to(torch.int32).contiguous()
+    out = torch.empty((n_groups, th, tw, g), dtype=torch.uint8, device=streams.device)
+    dev_index, stream = kernels.stream_of(streams)
+    rc = lib.nbt_group_decode8(
+        streams.data_ptr(), streams.shape[1], n_active.data_ptr(), bias.data_ptr(),
+        hist_n.data_ptr(), acc.data_ptr(), wptr, n_groups, 1, g, th, tw, near,
+        profile, out.data_ptr(), dev_index, stream,
+    )
+    kernels.check(rc, "nbt_group_decode8")
     decode_groups8.launches += 1
-    return out
+    return out.permute(0, 3, 1, 2)
 
 
 decode_groups8.launches = 0
 
 
 def group_decode_plain(streams, n_active, bias, hist_n, acc, wcols, th: int,
-                       tw: int, near: int, g: int, profile: int = 1) -> torch.Tensor:
+                       tw: int, near: int, g: int, profile: int = 1,
+                       slot_bits: int | None = None) -> torch.Tensor:
     """Plain version of the group decode: a Python loop over the th x tw
-    pixel steps, each step vectorized over (groups x lanes)."""
+    pixel steps, each step vectorized over (groups x lanes).
+
+    The symbol is the count #{v : acc[qd][v] <= lb} - 1; with ``slot_bits``
+    it is K2's :func:`slot_search` over :func:`slot_table` instead.
+    """
     dev = streams.device
     n_groups = streams.shape[0]
     npg = n_groups // bias.shape[0]
@@ -154,6 +208,8 @@ def group_decode_plain(streams, n_active, bias, hist_n, acc, wcols, th: int,
     hist_f = hist_n.reshape(-1).to(torch.int64)
     acc_f = acc.reshape(-1).to(torch.int64)
     acc_rows = acc_f.reshape(-1, N_SYM)
+    if slot_bits is not None:
+        slots = slot_table(acc_rows, slot_bits)
     wcols = wcols.to(torch.int32) if profile == 2 else None
 
     state, sp = rans.interleaved_dec_init(streams, g)
@@ -170,7 +226,10 @@ def group_decode_plain(streams, n_active, bias, hist_n, acc, wcols, th: int,
             px, sign = apply_static_bias(bias_f, adr + ctx_off, px0)
             lb = state & rans.NORM_MASK
             slot = ctx_off + qd * N_SYM  # (G, g) start of each lane's acc row
-            y = (acc_rows[slot // N_SYM] <= lb[..., None]).sum(-1) - 1
+            if slot_bits is None:
+                y = (acc_rows[slot // N_SYM] <= lb[..., None]).sum(-1) - 1
+            else:
+                y = slot_search(acc_rows, slots, slot // N_SYM, lb, slot_bits)
             at = slot + y
             state = (state >> rans.NORM_BITS) * hist_f[at] + lb - acc_f[at]
             state, sp = rans.interleaved_dec_renorm(state, sp, streams, active)

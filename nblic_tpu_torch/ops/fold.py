@@ -44,7 +44,7 @@ def encode_fold(freq: torch.Tensor, facc: torch.Tensor):
         kernels.check(rc, "rans_fold")
         encode_fold.launches += 1
     fold = out.t()  # rows of `out` are fold steps
-    return fold & rans.ANS_MASK, (fold >> 16) != 0, state.to(torch.int64) & rans.U32_MASK
+    return fold & rans.ANS_MASK, fold > rans.ANS_MASK, state.to(torch.int64) & rans.U32_MASK
 
 
 encode_fold.launches = 0

@@ -1,1 +1,1 @@
-"""Host-side utilities of the port: containers and image files."""
+"""Host-side utilities of the port: containers, image files and synthetic images."""

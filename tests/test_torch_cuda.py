@@ -44,6 +44,26 @@ def test_fold_kernel_matches_plain(cuda_device, s, l):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s,l,offset", [(3072, 300, 0), (3001, 37, 0), (512, 70, 1)])
+def test_fold_kernel_unaligned_tables(cuda_device, s, l, offset):
+    # S % 4 != 0 and a table 4 bytes off 16-byte alignment take the kernel's
+    # 4-byte copies; L % 16 != 0 leaves a partial chunk
+    rng = np.random.default_rng(s)
+    freq = rng.integers(1, 1 << 15, size=(l, s)).astype(np.int32)
+    acc = rng.integers(0, 1 << 14, size=(l, s)).astype(np.int32)
+    flat_f = torch.zeros(l * s + offset, dtype=torch.int32, device=cuda_device)
+    flat_a = torch.zeros_like(flat_f)
+    f = flat_f[offset:].view(l, s)
+    a = flat_a[offset:].view(l, s)
+    f.copy_(torch.from_numpy(freq))
+    a.copy_(torch.from_numpy(acc))
+    w1, e1, s1 = fold.encode_fold(f.t(), a.t())
+    w2, e2, s2 = rans.encode_scan(f.t(), a.t())
+    torch.cuda.synchronize()
+    assert torch.equal(e1, e2) and torch.equal(w1[e1], w2[e2]) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("profile", [1, 2])
 @pytest.mark.parametrize("shape,t,n", [((70, 90), 16, 1), ((96, 104), 8, 1),
                                        ((130, 200), 64, 3), ((9, 300), 4, 2)])
@@ -60,12 +80,51 @@ def test_decode_kernel_matches_plain(cuda_device, shape, t, n, profile):
     assert torch.equal(k, decode.group_decode_plain(*args))
 
 
-def _arbitrary(rng, b, npg, g, near, profile, device):
+def _container_args(imgs, t, profile, device):
+    conts = (tiled._encode_flag_cycle(imgs, t, device) if profile == 2
+             else tiled.encode_batch(imgs, tile_h=t, tile_w=t, device=device))
+    return list(group_args([tiled._Parsed(c) for c in conts], device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile", [1, 2])
+@pytest.mark.parametrize("width", ["2g", "2g+8", "2g+100", "half"])
+def test_decode_kernel_truncated_streams(cuda_device, profile, width):
+    # the cursor runs past W: every later read takes word W - 1, which the
+    # kernel's stream ring must keep, as the plain decoder does
+    rng = np.random.default_rng(7)
+    imgs = [rng.integers(0, 256, size=(96, 104), dtype=np.uint8)]
+    args = _container_args(imgs, 8, profile, cuda_device)
+    g = args[9]
+    w = {"2g": 2 * g, "2g+8": 2 * g + 8, "2g+100": 2 * g + 100,
+         "half": args[0].shape[1] // 2}[width]
+    args[0] = args[0][:, :w]
+    k = decode.decode_groups(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(k, decode.group_decode_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile", [1, 2])
+def test_decode_kernel_long_multigroup_streams(cuda_device, profile):
+    # noise at 64x64 tiles: 2 groups whose streams wrap the ring hundreds of times
+    rng = np.random.default_rng(11)
+    args = _container_args([rng.integers(0, 256, size=(768, 1024), dtype=np.uint8)],
+                           64, profile, cuda_device)
+    ring = decode.kernels.library().nbt_group_decode_ring_words(args[9])
+    assert args[0].shape[0] == 2 and args[0].shape[1] > 100 * ring
+    k = decode.decode_groups(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(k, decode.group_decode_plain(*args))
+
+
+def _arbitrary(rng, b, npg, g, near, profile, device, hist_n=None):
     """Random words, bias, tables and weights: the output is noise, but the
     kernels and the plain version must walk the same states, cursor clamps,
     predictions and near unfolds."""
-    hist = rng.integers(0, 50, size=(b, 12, 256))
-    hist_n = tiled._norm_hist_dev(torch.from_numpy(hist)).numpy()
+    if hist_n is None:
+        hist = rng.integers(0, 50, size=(b, 12, 256))
+        hist_n = tiled._norm_hist_dev(torch.from_numpy(hist)).numpy()
     acc = np.cumsum(hist_n, axis=-1) - hist_n
     bias = rng.integers(-(1 << 11), 1 << 11, size=(b, 3072))
     words = torch.from_numpy(rng.integers(0, 1 << 16, size=(b * npg, 300)).astype(np.int32))
@@ -83,6 +142,29 @@ def _arbitrary(rng, b, npg, g, near, profile, device):
 @pytest.mark.parametrize("near", [0, 2, 9])
 def test_decode_kernel_matches_plain_on_arbitrary_streams(cuda_device, near, profile):
     args = _arbitrary(np.random.default_rng(near), 2, 2, 64, near, profile, cuda_device)
+    k = decode.decode_groups(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(k, decode.group_decode_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile", [1, 2])
+@pytest.mark.parametrize("case", ["zero-bins", "empty-rows", "mass-on-255"])
+def test_decode_kernel_slot_table_edge_cases(cuda_device, case, profile):
+    # the slot table each CTA builds must give the last of a run of empty
+    # bins, and cover rows whose whole mass sits on one symbol
+    rng = np.random.default_rng(len(case))
+    hist = np.zeros((2, 12, 256), dtype=np.int64)
+    if case == "zero-bins":
+        hist = rng.integers(1, 400, size=hist.shape) * (rng.random(hist.shape) < 0.25)
+        hist[..., 40:120] = 0
+    elif case == "mass-on-255":
+        hist[..., 255] = 1000
+    hist_n = tiled._norm_hist_dev(torch.from_numpy(hist)).numpy()
+    if case == "mass-on-255":  # exactly, in the first row of each set
+        hist_n[:, 0] = 0
+        hist_n[:, 0, 255] = 1 << 15
+    args = _arbitrary(rng, 2, 2, 128, 0, profile, cuda_device, hist_n)
     k = decode.decode_groups(*args)
     torch.cuda.synchronize()
     assert torch.equal(k, decode.group_decode_plain(*args))

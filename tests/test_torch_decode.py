@@ -162,3 +162,57 @@ def test_decode_groups_rejects_bad_inputs():
     padded = group_args([p], "cpu", per_group_tables=True)
     with pytest.raises(ValueError, match="one table set per group"):
         decode.decode_groups8(*padded[:2], *(t[:1] for t in padded[2:5]), *padded[5:])
+
+
+def _slot_rows(case):
+    """(R, 256) cumulative-frequency rows for the slot-table cases."""
+    rng = np.random.default_rng(len(case))
+    if case.startswith("container"):
+        t = int(case.split("x")[-1])
+        img = mixed(3, 128, 128)
+        return torch.from_numpy(
+            tiled._Parsed(tiled.encode(img, tile_h=t, tile_w=t, device="cpu")).acc)
+    if case == "zero-bins":  # sparse counts, runs of empty bins mid-row
+        hist = rng.integers(1, 400, size=(12, 256)) * (rng.random((12, 256)) < 0.25)
+        hist[:, 40:120] = 0
+        hist_n = tiled._norm_hist_dev(torch.from_numpy(hist))
+    elif case == "empty-rows":  # _norm_hist_dev's (32767, 1, 0, ...)
+        hist_n = tiled._norm_hist_dev(torch.zeros((12, 256), dtype=torch.int64))
+        assert hist_n[0, 0] == 32767 and hist_n[0, 1] == 1
+    else:  # the whole mass on symbol 255: exactly, and as _norm_hist_dev spills it
+        one_hot = torch.zeros((1, 256), dtype=torch.int64)
+        one_hot[0, 255] = 1000
+        hist_n = torch.cat([torch.zeros((1, 256), dtype=torch.int32),
+                            tiled._norm_hist_dev(one_hot)])
+        hist_n[0, 255] = 1 << 15
+    return torch.cumsum(hist_n, -1, dtype=torch.int32) - hist_n
+
+
+@pytest.mark.parametrize("k", [8, 9, 10, 11, 12])
+@pytest.mark.parametrize("case", ["container-8x8", "container-64x64", "zero-bins",
+                                  "empty-rows", "mass-on-255"])
+def test_slot_table_lookup_is_exact_for_every_slot(case, k):
+    # K2's symbol search: the slot lookup and the bounded search in the span
+    # give #{v : acc[v] <= lb} - 1 for all 2^15 slots of every row
+    acc = _slot_rows(case).to(torch.int64).reshape(-1, 256)
+    slots = decode.slot_table(acc, k)
+    assert slots.shape == (acc.shape[0], (1 << k) + decode.SLOT_PAD)
+    assert slots.dtype == torch.uint8 and (slots[:, 1 << k:] == 255).all()
+    lb = torch.arange(1 << 15, dtype=torch.int64)
+    rows = torch.arange(acc.shape[0])[:, None].expand(-1, lb.numel())
+    y = decode.slot_search(acc, slots, rows, lb.expand(acc.shape[0], -1), k)
+    want = torch.stack([(r[None, :] <= lb[:, None]).sum(-1) - 1 for r in acc])
+    assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("profile", [1, 2])
+def test_plain_decoder_through_slot_table(profile):
+    rng = np.random.default_rng(profile)
+    imgs = [rng.integers(0, 256, size=(96, 104), dtype=np.uint8), _wave(4, 96, 104, 1.0)]
+    conts = (tiled._encode_flag_cycle(imgs, 8, "cpu") if profile == 2
+             else tiled.encode_batch(imgs, tile_h=8, tile_w=8, device="cpu"))
+    args = group_args([tiled._Parsed(c) for c in conts], "cpu")
+    assert args[0].shape[0] == 4  # two groups an image
+    ref = decode.group_decode_plain(*args)
+    for k in (8, decode.SLOT_BITS):
+        assert torch.equal(decode.group_decode_plain(*args, slot_bits=k), ref)
