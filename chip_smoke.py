@@ -23,7 +23,15 @@ Phases, one line each; any failure exits non-zero:
      card's containers equal the CPU's byte for byte; free-running, each
      side's containers decode pixel-exact on the other;
  10. main path, effort 2: the corpus and the frame at effort 2, pixel-exact,
-     with K1 and K2 launched during the run.
+     with K1 and K2 launched during the run;
+ 11. near-lossless (near 2 and 9): the card's containers equal the CPU's on
+     small images at efforts 1 and 2, each side decoding the other's within
+     near; the corpus at near 2 through encode_corpus / decode_batches at
+     effort 1, and its 6 portrait images at effort 2, max error <= 2, with
+     K1 and K2 launched during each run; one feedback scan at 64x64 tiles
+     timed; K2's near instances (<1, false>, <2, false>, the latter at 64x64
+     and 16x16 tiles) against the plain decoder, exact, <1, false> beside
+     <1, true>.  (kernel_probe.py near-stages times a near encode's stages.)
 Each kernel's time stands beside its bound (the whole card's roofline:
 bytes over the memory rate, integer operations over the int32 rate) and
 its floor (the least time at the launch's own parallelism: the issue of
@@ -61,6 +69,10 @@ INT32_OPS_PER_S = SMS * 64 * CLOCK_HZ
 # count: the same work.
 K1_OPS_PER_SYMBOL = 13
 K2_OPS_PER_PIXEL = {1: 364, 2: 396}
+# near > 0 (group_decode_kernel<profile, false>): the unfold adds near to the
+# fold bound, divides it by the step and multiplies the magnitude by it
+K2_NEAR_OPS = 3
+NEAR = 2  # the near phase's max error
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -105,23 +117,145 @@ def _decode_floor(args, groups_per_cta: int = 1) -> float:
     a CTA of 32 w warps keeps each of its SM's 4 schedulers issuing w / 4
     warps' th x tw x K2_OPS_PER_PIXEL instructions, one a cycle, and the
     CTAs beyond one per SM come in waves of 132."""
-    streams, *_, th, tw, _, g, profile = args
+    streams, *_, th, tw, near, g, profile = args
     ctas = streams.shape[0] // groups_per_cta
     per_scheduler = -(-groups_per_cta * g // 128)  # warps on one scheduler
     waves = -(-ctas // SMS)
-    return 1e3 * waves * per_scheduler * th * tw * K2_OPS_PER_PIXEL[profile] / CLOCK_HZ
+    return 1e3 * waves * per_scheduler * th * tw * _k2_ops(profile, near) / CLOCK_HZ
+
+
+def _k2_ops(profile: int, near: int) -> int:
+    return K2_OPS_PER_PIXEL[profile] + (K2_NEAR_OPS if near else 0)
 
 
 def _decode_bound(args) -> tuple[float, str]:
     """Bound of a group decode: streams, n_active, tables and (profile 2)
     weights read once, one output byte per lane pixel written once; the
     operations of every active lane's pixels."""
-    streams, n_active, bias, hist_n, acc, wcols, th, tw, _, g, profile = args
+    streams, n_active, bias, hist_n, acc, wcols, th, tw, near, g, profile = args
     inputs = [streams, n_active, bias, hist_n, acc] + ([wcols] if profile == 2 else [])
     n_bytes = sum(t.numel() * t.element_size() for t in inputs)
     n_bytes += streams.shape[0] * g * th * tw
-    n_ops = int(n_active.sum()) * th * tw * K2_OPS_PER_PIXEL[profile]
+    n_ops = int(n_active.sum()) * th * tw * _k2_ops(profile, near)
     return _bound(n_bytes, n_ops)
+
+
+def _max_err(a, b) -> int:
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+def _near_phase(tiled, corpus, dev, card):
+    """Near-lossless encode (the feedback scan) and K2's near instances.
+
+    Returns None on a failure, else (K1 launches, K2 launches at effort 1,
+    at effort 2) over the corpus runs, each counted from 0 just before its
+    run."""
+    import torch
+
+    from nblic_tpu_torch.convert import group_args
+    from nblic_tpu_torch.ops.decode import decode_groups, group_decode_plain
+    from nblic_tpu_torch.ops.fold import encode_fold
+    from nblic_tpu_torch.utils.synth import synth_image
+
+    # ---- the card against the CPU on small inputs
+    rng = np.random.default_rng(4)
+    for shape, t in (((70, 90), 16), ((96, 104), 8)):
+        img = synth_image(rng, *shape)
+        for near in (NEAR, 9):
+            for effort in (1, 2):
+                kw = dict(near=near, tile_h=t, tile_w=t, effort=effort)
+                on_card = tiled.encode(img, device=dev, **kw)
+                on_cpu = tiled.encode(img, device="cpu", **kw)
+                err_card = _max_err(tiled.decode(on_cpu, device=dev), img)
+                err_cpu = _max_err(tiled.decode(on_card, device="cpu"), img)
+                ok = on_card == on_cpu and max(err_card, err_cpu) <= near
+                print(f"[near reference] {shape} tiles {t} near {near} effort {effort}: "
+                      f"card == cpu containers {on_card == on_cpu}, max error decoded on "
+                      f"the card {err_card}, on the cpu {err_cpu}", flush=True)
+                if not ok:
+                    return None
+
+    # ---- the corpus at near 2 through the entry points: effort 1 on all 24
+    # images (two batches: nothing is transposed at near > 0), effort 2 on
+    # the 6 portrait images alone, which keeps the phase near three minutes
+    k1 = 0
+    k2 = {}
+    near_conts = {}
+    for effort, imgs, what in ((1, corpus, "24 images"),
+                               (2, corpus[18:], "the 6 portrait images alone")):
+        n_px = sum(im.size for im in imgs)
+        encode_fold.launches = 0
+        decode_groups.launches = 0
+        t0 = time.perf_counter()
+        conts = tiled.encode_corpus(imgs, near=NEAR, effort=effort, device=dev)
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        groups = [conts[:18], conts[18:]] if effort == 1 else [conts]  # by shape
+        decoded = sum(tiled.decode_batches(groups, device=dev), [])
+        dec_s = time.perf_counter() - t0
+        k1 += encode_fold.launches
+        k2[effort] = decode_groups.launches
+        near_conts[effort] = conts
+        err = max(_max_err(d, im) for d, im in zip(decoded, imgs))
+        parsed = [tiled._Parsed(c) for c in conts]
+        untransposed = not any(p.hdr.transposed for p in parsed)
+        learned = ""
+        if effort == 2:
+            flags = np.concatenate([p.flags for p in parsed])
+            learned = (f", tiles with a learned predictor (flag > 0) "
+                       f"{int((flags > 0).sum())}/{flags.size}, the same images at effort 1 "
+                       f"{8.0 * sum(map(len, near_conts[1][18:])) / n_px:.4f} bpp")
+        print(f"[near corpus e{effort}] {what} near {NEAR}: max error {err}, "
+              f"{8.0 * sum(map(len, conts)) / n_px:.4f} bpp{learned}, encode_corpus "
+              f"{n_px / enc_s / 1e6:.3f} MPix/s ({enc_s:.2f} s), decode_batches "
+              f"{n_px / dec_s / 1e6:.2f} MPix/s, untransposed {untransposed}; launches "
+              f"K1 {encode_fold.launches} K2 {decode_groups.launches} ({card})", flush=True)
+        if err > NEAR or not untransposed \
+                or min(encode_fold.launches, decode_groups.launches) <= 0:
+            return None
+
+    # ---- one final scan at 64x64 tiles, over the 18 landscape images with
+    # the bias tables of their effort-1 containers: it gives those
+    # containers' histograms
+    land = [tiled._Parsed(c) for c in near_conts[1][:18]]
+    x = tiled.to_tiles(torch.from_numpy(np.stack(corpus[:18])).to(dev), 64, 64)
+    bias = torch.from_numpy(np.stack([p.bias for p in land])).to(dev)
+    (_, _, hist), scan_ms = _timed(lambda: tiled._model_near(
+        x.to(torch.int32), bias, None, 64, 64, NEAR, 1))
+    same = np.array_equal(tiled._norm_tables(hist)[0].cpu().numpy(),
+                          np.stack([p.hist_n for p in land]))
+    print(f"[near scan] one final scan at 64x64 tiles, {x.shape[0] * x.shape[1]} lanes: "
+          f"{scan_ms:.1f} ms, {scan_ms / 4096:.3f} ms a pixel step; its histograms "
+          f"equal the containers' {same} ({card})", flush=True)
+    if not same:
+        return None
+
+    # ---- K2's near instances against the plain decoder; <1, true> beside
+    lossless = group_args([tiled._Parsed(c) for c in tiled.encode_batch(corpus[:1],
+                                                                         device=dev)], dev)
+    ms_lossless = _cuda_ms(lambda: decode_groups(*lossless), 5)
+    rng3 = np.random.default_rng(3)
+    cases = [(1, near_conts[1][:1], "1x(512, 768) tiles 64x64"),
+             (2, tiled._encode_flag_cycle([synth_image(rng3, 512, 768) for _ in range(2)],
+                                          64, dev, near=NEAR),
+              "2x(512, 768) tiles 64x64 flags 0/1/2"),
+             (2, tiled._encode_flag_cycle([synth_image(rng, 128, 256)], 16, dev, near=NEAR),
+              "1x(128, 256) tiles 16x16 flags 0/1/2")]
+    for profile, conts, what in cases:
+        args = group_args([tiled._Parsed(c) for c in conts], dev)
+        k = decode_groups(*args)
+        p, pms = _timed(lambda: group_decode_plain(*args))  # one plain run
+        same = torch.equal(k, p)
+        ms = _cuda_ms(lambda: decode_groups(*args), 5)
+        bound, floor = _decode_bound(args), _decode_floor(args)
+        beside = f" | <1,true> {ms_lossless:.3f} ms" if profile == 1 else ""
+        print(f"[K2 group_decode p{profile} near {NEAR}] {what} groups={args[0].shape[0]} "
+              f"g={args[9]} exact={same} <{profile},false> {ms:.3f} ms{beside} | plain "
+              f"{pms:.3f} ms | bound {bound[0]:.4f} ms ({bound[1]}) | floor {floor:.4f} ms "
+              f"({card})", flush=True)
+        if not same:
+            return None
+    return k1, k2[1], k2[2]
 
 
 def _main_path(api, tiled, corpus, frame, dev, effort, tag, card):
@@ -390,6 +524,13 @@ def main() -> int:
     if not same:
         return 1
 
+    # ---- near-lossless: the feedback scan and K2's near instances
+    near = _near_phase(tiled, corpus, dev, card)
+    if near is None:
+        print("[near] failed: a mismatch, an error past near or a kernel never launched")
+        return 1
+    near_k1, near_k2_e1, near_k2_e2 = near
+
     def row(name_, source, replaces, launches, stats):
         err_, ms_, pms_, (bound_ms, bound_by) = stats
         return {"name": name_, "route": "cuda", "source": source,
@@ -401,12 +542,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("rans_fold", "nblic_tpu_torch/csrc/rans_fold.cu",
             "nblic_tpu/ops/pallas_fold.py:93",
-            launches1["rans_fold"] + launches2["rans_fold"],
+            launches1["rans_fold"] + launches2["rans_fold"] + near_k1,
             (fold_err, fold_ms, fold_plain_ms, fold_bound)),
         row("group_decode_p1", k2_src, "nblic_tpu/ops/pallas_decode.py:247",
-            launches1["group_decode"], dec[1]),
+            launches1["group_decode"] + near_k2_e1, dec[1]),
         row("group_decode_p2", k2_src, "nblic_tpu/ops/pallas_decode.py:123",
-            launches2["group_decode"], dec[2]),
+            launches2["group_decode"] + near_k2_e2, dec[2]),
         row("group_decode8", k2_src, "docs/experiments/pallas_decode8.py:238",
             launches8, k8),
     ]}), flush=True)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Probes of kernels K1 and K2 on one NVIDIA GPU.
+"""Probes of kernels K1 and K2, and of near-lossless encode, on one NVIDIA GPU.
 
     python3 kernel_probe.py [--parent PATH] PROBE [PROBE ...]
 
@@ -17,6 +17,13 @@ PROBE is one of:
              at the main path's shape and at 288 groups of 16x16 tiles.
   fold       K1 (csrc/rans_fold.cu) with blocks of 32, 64 and 128 streams
              at 3072 x 4096, its launch alone and the package's wrapper.
+  near-stages  one near-lossless encode batch (18 synthetic 512x768 images,
+             near 2, effort 1, 64x64 tiles), after a lossless warm-up,
+             stage by stage with a device sync after each: the lossless
+             proxy, the refinement scan, the final scan, the coding tail
+             with K1, container assembly; the first image's container held
+             against encode_batch's of that image alone; then the final
+             scan over one image's tiles alone.  Builds no variant.
 
 Each variant is a copy of a source with some lines replaced, built by nvcc
 into build/probe/ (all builds run at once) and called through ctypes; none
@@ -33,6 +40,7 @@ import argparse
 import ctypes
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -271,9 +279,61 @@ def fold_blocks(libs: dict, card: str) -> bool:
     return ok
 
 
+def near_stages(card: str) -> bool:
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    imgs = [synth_image(rng, 512, 768) for _ in range(18)]
+    b, (h, w), t, near = len(imgs), imgs[0].shape, 64, 2
+    tiled.encode_batch(imgs[:2], device=dev)  # warm-up: the lossless pass and the tail
+    torch.cuda.synchronize()
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    tiles = tiled.to_tiles(torch.from_numpy(np.stack(imgs)).to(dev), t, t)
+    _, _, bias, _ = tiled._model_lossless_impl(tiles)
+    mark()
+    x = tiles.to(torch.int32)
+    bias, _ = tiled._refine_near_bias(x, bias, None, None, t, t, near, 1)
+    mark()
+    y, qd, hist = tiled._model_near(x, bias, None, t, t, near, 1)
+    mark()
+    hist_n, acc = tiled._norm_tables(hist)
+    totals, flats = tiled._pack_groups(*fold.encode_fold(
+        *tiled._encode_tables(y, qd, hist_n, acc)))
+    words = tiled._live_payload(flats, totals).cpu().numpy().astype(np.uint16)
+    totals = totals.cpu().numpy().reshape(b, -1)
+    bias_h = bias.cpu().numpy().astype(np.int16)
+    hist_h = hist_n.cpu().numpy().astype(np.uint32)
+    mark()
+    ends = np.cumsum(totals.sum(axis=1))
+    conts = [tiled._emit_container(
+        1, near, h, w, t, t, x.shape[1], tiled.G_LANES, totals[i], bias_h[i], hist_h[i],
+        words[ends[i] - totals[i].sum() : ends[i]].tobytes(), b"", False) for i in range(b)]
+    mark()
+    ms = [1e3 * (t1 - t0) for t0, t1 in zip(marks, marks[1:])]
+    names = ("lossless proxy", "refinement scan", "final scan", "coding tail with K1",
+             "containers")
+    one = tiled.encode_batch(imgs[:1], near=near, device=dev)
+    start = time.perf_counter()
+    tiled._model_near(x[:1], bias[:1], None, t, t, near, 1)
+    torch.cuda.synchronize()
+    one_ms = 1e3 * (time.perf_counter() - start)
+    same = conts[0] == one[0]
+    print(f"[near-stages] {b}x{(h, w)} near {near} effort 1, {t}x{t} tiles, {b * x.shape[1]} "
+          f"lanes: " + ", ".join(f"{n} {v:.1f} ms" for n, v in zip(names, ms))
+          + f"; scans {100 * (ms[1] + ms[2]) / sum(ms):.2f}%, {ms[2] / (t * t):.3f} ms a "
+          f"pixel step | the final scan over one image ({x.shape[1]} lanes) {one_ms:.1f} ms "
+          f"| image 0's container equals encode_batch's alone: {same} ({card})", flush=True)
+    return same
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probes", nargs="+", choices=("cut-chain", "slot-bits", "fold"))
+    ap.add_argument("probes", nargs="+", choices=("cut-chain", "slot-bits", "fold",
+                                                     "near-stages"))
     ap.add_argument("--parent", type=Path,
                     help="cut-chain: also cut this group_decode.cu of the parent design")
     args = ap.parse_args(argv)
@@ -297,8 +357,10 @@ def main(argv=None) -> int:
             specs[("fold", block)] = variant(K1_SRC, f"fold_{block}",
                                              [(BLOCK_LINE, f"constexpr int kBlock = {block};")])
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
-    with ThreadPoolExecutor(len(specs)) as pool:
-        libs = dict(zip(specs, pool.map(lambda nt: _build(*nt), specs.values())))
+    libs = {}
+    if specs:
+        with ThreadPoolExecutor(len(specs)) as pool:
+            libs = dict(zip(specs, pool.map(lambda nt: _build(*nt), specs.values())))
 
     def of(group):
         return {key: lib for (g, key), lib in libs.items() if g == group}
@@ -312,6 +374,8 @@ def main(argv=None) -> int:
         ok &= slot_bits(of("slot-bits"), card)
     if of("fold"):
         ok &= fold_blocks(of("fold"), card)
+    if "near-stages" in args.probes:
+        ok &= near_stages(card)
     return 0 if ok else 1
 
 

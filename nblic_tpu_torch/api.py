@@ -1,9 +1,10 @@
 """Public API of nblic_tpu_torch, the PyTorch / CUDA port of nblic_tpu.
 
 ``compress_tiled`` / ``decompress_tiled`` write and read the tile-parallel
-``NBTC`` container (lossless profile 1 at effort 0-1, profile 2 at effort
-2), the same format as ``nblic_tpu`` (see ``models/tiled.py`` for where
-the bytes may differ at effort 2).
+``NBTC`` container (profile 1 at effort 0-1, profile 2 at effort 2,
+lossless or, with ``near`` > 0, near-lossless), the same format as
+``nblic_tpu`` (see ``models/tiled.py`` for where the bytes may differ at
+effort 2).
 ``decompress`` sniffs the container magic.  Every entry takes ``device``,
 "cuda" by default; asking for CUDA where there is none raises.
 """
@@ -18,7 +19,8 @@ from .utils.container import sniff_format
 
 def compress_tiled(img: np.ndarray, near: int = 0, device="cuda", **kwargs) -> bytes:
     """Encode with the tile-parallel engine (NBTC container); ``effort=2``
-    selects profile 2 (per-tile least-squares predictors)."""
+    selects profile 2 (per-tile least-squares predictors), ``near`` > 0
+    near-lossless coding with max error ``near``."""
     return tiled.encode(img, near=near, device=device, **kwargs)
 
 

@@ -4,9 +4,9 @@ Usage:
     python -m nblic_tpu_torch -c --tiled [--device=cuda] in.{bmp,pgm,pnm} out.nbtc
     python -m nblic_tpu_torch -d [--device=cuda] in.nbtc out.{bmp,pgm,pnm}
 
-Switches: ``-v`` verbose, ``-n<int>`` near (0 so far), ``-e<digit>`` effort
-(0-1 profile 1, 2 profile 2; 3 is not ported yet), ``--tile-h=N`` /
-``--tile-w=N`` tile geometry (default 64x64).
+Switches: ``-v`` verbose, ``-n<int>`` near (0 lossless; k > 0 near-lossless,
+max error k), ``-e<digit>`` effort (0-1 profile 1, 2 profile 2; 3 is not
+ported yet), ``--tile-h=N`` / ``--tile-w=N`` tile geometry (default 64x64).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ nblic_tpu_torch: the PyTorch / CUDA port of the NBTC tiled codec
   decompress:  python -m nblic_tpu_torch -d [-switches] <input.nbtc> <output-image>
   switches:
     -v           verbose
-    -n<number>   near: 0 (lossless; near-lossless encode is not ported yet)
+    -n<number>   near: 0 lossless (default), k > 0 near-lossless (max error k)
     -e<number>   effort: 0 or 1 (profile 1), 2 (profile 2: per-tile least squares)
     --tiled      the tile-parallel NBTC container (the only one ported)
     --device=D   torch device, default cuda

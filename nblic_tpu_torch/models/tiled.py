@@ -1,11 +1,12 @@
-"""NBTC profiles 1 and 2, lossless: the tile-parallel codec on PyTorch.
+"""NBTC profiles 1 and 2, lossless and near-lossless: the tile-parallel
+codec on PyTorch.
 
 Counterpart of ``nblic_tpu/models/tiled.py``; writes and reads the same
 ``NBTC0001`` containers, byte for byte at profile 1 and, at profile 2, given
 the same per-tile (weights, flags).  Profile 2's fit is exact, but its race
 sums float32 code lengths, whose order differs between the card, the CPU
 and XLA: on large tiles a near-tie may pick another flag for a tile.  Such
-a container still decodes exactly in both packages.
+a container still decodes exactly (within ``near``) in both packages.
 
 - Encode is one whole-plane modeling pass (blend predictor, 12-bin
   activity, a 3072-context static bias table, residual fold, a 12 x 256
@@ -15,14 +16,21 @@ a container still decodes exactly in both packages.
 - Effort 2 writes profile 2: each tile also fits a least-squares predictor
   over its causal taps (``ops/lsq.py``) and keeps the best of the blend,
   the learned predictor and their mean; the weights ride the container.
+- Near-lossless (``near`` > 0) replaces the modeling pass by a
+  reconstruction-feedback scan (:func:`_tile_encode_scan`): every tile of
+  every same-shape image steps through its pixels in lockstep, predicting
+  from reconstructed pixels as the decoder will.  The lossless pass gives
+  the first bias table, one statistics scan refines it (and, at profile 2,
+  refits the learned predictors), and a final scan yields the symbols for
+  the same coding tail.  Each image still gets the container the JAX
+  package writes for it alone.
 - Decode runs the 128 tile lanes of each group in lockstep against one
-  shared stream cursor (kernel K2 on CUDA), and decodes near-lossless
-  containers of either profile that the JAX package wrote.
+  shared stream cursor (kernel K2 on CUDA), near-lossless containers
+  included.
 
 Every entry point takes ``device`` ("cuda" by default); a CUDA device on a
-machine without CUDA raises.  Near-lossless encode and profiles 0 and 3
-are not ported yet and raise ``NotImplementedError`` naming their ROADMAP
-item.
+machine without CUDA raises.  Profiles 0 and 3 are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,11 +44,14 @@ from ..constants import Q_N_CONTEXT
 from ..convert import group_args, resolve_device
 from ..ops import histogram as hist_ops
 from ..ops import lsq, rans
-from ..ops.context import apply_static_bias, build_static_bias, residual_fold
-from ..ops.decode import decode_groups
+from ..ops.context import (
+    apply_static_bias, build_static_bias, residual_fold, residual_unfold,
+)
+from ..ops.decode import N_WROWS, decode_groups
 from ..ops.fold import encode_fold
 from ..ops.neighbors import sample
 from ..ops.predict import context_planes, model_stage1, simple_predict
+from ..ops.window import pixel_model, row_start_window, slide_window
 from ..utils.container import NbtcHeader, check_size
 
 DEFAULT_TILE = (64, 64)
@@ -53,6 +64,8 @@ G_LANES = 128
 # weights and the context-model shift they cause (nblic_tpu's constants)
 RACE_PENALTY = 700.0
 RACE_INVALID = 3e38
+# near > 0: bias-refinement passes of the feedback scan (nblic_tpu's constant)
+NEAR_BIAS_ITERS = 1
 
 
 def _check_encode_mode(near: int, effort: int) -> None:
@@ -60,10 +73,8 @@ def _check_encode_mode(near: int, effort: int) -> None:
         raise NotImplementedError(
             "profile 3 (effort >= 3) is not ported yet: ROADMAP Queue 1 items 9-11"
         )
-    if near != 0:
-        raise NotImplementedError(
-            "near-lossless encode is not ported yet: ROADMAP Queue 1 item 7"
-        )
+    if not 0 <= near <= 255:  # the header keeps near in one byte
+        raise ValueError(f"near must lie in 0..255, got {near}")
 
 
 # ---------------------------------------------------------------------------
@@ -111,13 +122,14 @@ def _model_lossless_impl(tiles: torch.Tensor):
     return _bias_fold_hist(x, *model_stage1(x))
 
 
-def _race_bits(x: torch.Tensor, px: torch.Tensor) -> torch.Tensor:
-    """Per-tile code-length proxy sum 2 log2(1 + |x - px|), float32 (B, T)."""
-    e = torch.abs(x - px).to(torch.float32)
+def _race_bits(x: torch.Tensor, px: torch.Tensor, near: int = 0) -> torch.Tensor:
+    """Per-tile code-length proxy sum 2 log2(1 + |x - px| / (2 near + 1)),
+    float32 (B, T); near-lossless codes residuals at that magnitude."""
+    e = torch.abs(x - px).to(torch.float32) / (2.0 * near + 1.0)
     return torch.sum(2.0 * torch.log2(1.0 + e), dim=(-2, -1))
 
 
-def _model_lossless2_impl(tiles: torch.Tensor, weights=None):
+def _model_lossless2_impl(tiles: torch.Tensor, weights=None, near: int = 0):
     """Profile-2 modeling: per-tile least-squares predictors (ops/lsq.py)
     raced against the blend predictor, the winner kept per tile.
 
@@ -125,7 +137,8 @@ def _model_lossless2_impl(tiles: torch.Tensor, weights=None):
     outputs of :func:`_model_lossless_impl`, then w_q (B, T, 12) int32 (0
     where the flag is 0) and flags (B, T) int32, 0 blend, 1 learned, 2 their
     rounded mean.  The race scores a Laplacian code-length proxy in float32,
-    as the JAX package does, so a near-tie may pick another flag there.
+    as the JAX package does, so a near-tie may pick another flag there;
+    ``near`` only rescales that proxy.
 
     ``weights`` (private; tests and the smoke run carry state with it):
     (w_q, flags) tensors that replace the fit and the race.
@@ -142,9 +155,9 @@ def _model_lossless2_impl(tiles: torch.Tensor, weights=None):
     px_l = lsq.predict_plane(n, w_q)
     px_a = (px_s + px_l + 1) >> 1
     if weights is None:
-        cost_s = _race_bits(x, px_s)  # float32, and so are the sums below
-        cost_l = torch.where(valid, _race_bits(x, px_l) + RACE_PENALTY, RACE_INVALID)
-        cost_a = torch.where(valid, _race_bits(x, px_a) + RACE_PENALTY, RACE_INVALID)
+        cost_s = _race_bits(x, px_s, near)  # float32, and so are the sums below
+        cost_l = torch.where(valid, _race_bits(x, px_l, near) + RACE_PENALTY, RACE_INVALID)
+        cost_a = torch.where(valid, _race_bits(x, px_a, near) + RACE_PENALTY, RACE_INVALID)
         # argmin keeps the first minimum, as jnp.argmin does
         flags = torch.argmin(torch.stack([cost_s, cost_l, cost_a]), dim=0).to(torch.int32)
     pick = flags[..., None, None]
@@ -153,18 +166,163 @@ def _model_lossless2_impl(tiles: torch.Tensor, weights=None):
     return (*_bias_fold_hist(x, px0, *context_planes(n, x, px0)), w_q, flags)
 
 
+def _image_offsets(b: int, device) -> torch.Tensor:
+    """(B, 1, 1, 1) int32 offset of each image's tables in the batch's: bias
+    contexts and histogram bins both number 3072 an image."""
+    return (torch.arange(b, dtype=torch.int32, device=device)
+            * Q_N_CONTEXT).view(b, 1, 1, 1)
+
+
+def _batch_bias(adr, err) -> torch.Tensor:
+    """Per-image static bias tables (B, 3072) of (B, ...) address and error
+    planes."""
+    b = adr.shape[0]
+    bias = build_static_bias(adr + _image_offsets(b, adr.device), err, b * Q_N_CONTEXT)
+    return bias.view(b, Q_N_CONTEXT)
+
+
+def _symbol_hist(y, qd) -> torch.Tensor:
+    """Per-image (B, 12, 256) symbol counts by activity bin of (B, ...) planes."""
+    b = y.shape[0]
+    idx = qd * N_SYM + y + _image_offsets(b, y.device)
+    return torch.bincount(idx.reshape(-1), minlength=b * N_QD * N_SYM).view(b, N_QD, N_SYM)
+
+
 def _bias_fold_hist(x, px0, err, qd, adr):
     """The static bias, residual fold and histogram of a modeling pass."""
-    b = x.shape[0]
-    # per-image table offset: bias contexts and histogram bins both number 3072
-    off = (torch.arange(b, dtype=torch.int32, device=x.device)
-           * Q_N_CONTEXT).view(b, 1, 1, 1)
-    bias = build_static_bias(adr + off, err, b * Q_N_CONTEXT)
-    px, sign = apply_static_bias(bias, adr + off, px0)
+    bias = _batch_bias(adr, err)
+    px, sign = apply_static_bias(bias.view(-1), adr + _image_offsets(x.shape[0], x.device), px0)
     y = residual_fold(x, px, sign, 0)
-    hist = torch.bincount((qd * N_SYM + y + off).reshape(-1),
-                          minlength=b * N_QD * N_SYM)
-    return y, qd, bias.view(b, Q_N_CONTEXT), hist.view(b, N_QD, N_SYM)
+    return y, qd, bias, _symbol_hist(y, qd)
+
+
+# ---------------------------------------------------------------------------
+# near-lossless: the reconstruction-feedback scan
+# ---------------------------------------------------------------------------
+
+
+def _lane_wcols(w_q: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """(B, T, 12) weights and (B, T) flags -> (B, 16, T) lane columns: rows
+    0-11 the weights, row 12 the flag, the window's ``pixel_model`` layout."""
+    b, t = flags.shape
+    wcols = torch.zeros((b, N_WROWS, t), dtype=torch.int32, device=flags.device)
+    wcols[:, : lsq.N_FEAT] = w_q.transpose(1, 2)
+    wcols[:, lsq.N_FEAT] = flags
+    return wcols
+
+
+def _tile_encode_scan(x, bias, wcols, th: int, tw: int, near: int, profile: int,
+                      stats: bool = False):
+    """Near-lossless modeling scan with reconstruction feedback, in lockstep
+    over every tile of every image.
+
+    x: (B, T, th, tw) int32 pixels; bias: (B, 3072) int32, one table per
+    image; wcols: (B, 16, T) int32 per-tile weights and flag (profile 2;
+    ignored at profile 1).  Every lane walks its tile in raster order and
+    slides its window over *reconstructed* pixels, so the decoder replays
+    the same chain: the loop of ``ops/decode.py::group_decode_plain``, with
+    a fold where the decoder reads a symbol.  ``i`` and ``j`` are Python
+    ints and nothing in the loop reads a value back from the device.
+
+    Returns (y, qd), (B, T, th, tw) int32 planes; ``stats=True`` adds (adr,
+    x - px0, x_rec): each pixel's context address (within its image's
+    table), the error of the *original* pixel against the unbiased
+    prediction, which the bias refit averages, and the reconstruction.
+    The chain's own error, x_rec - px0, feeds the next pixel's activity.
+    """
+    b, t = x.shape[:2]
+    dev = x.device
+    xs = x.permute(2, 3, 0, 1).contiguous()  # (th, tw, B, T): a step reads one slab
+    off = _image_offsets(b, dev).view(b, 1)
+    bias_f = bias.reshape(-1)
+    wcols = wcols if profile == 2 else None
+    prev1 = torch.zeros((b, t, tw), dtype=torch.int32, device=dev)
+    prev2 = torch.zeros_like(prev1)
+    outs = []
+    for i in range(th):
+        regs = row_start_window(i, prev1, prev2, tw)
+        err = torch.zeros((b, t), dtype=torch.int32, device=dev)
+        row = []
+        for j in range(tw):
+            px0, qd, adr = pixel_model(regs, err, wcols)
+            px, sign = apply_static_bias(bias_f, adr + off, px0)
+            x_orig = xs[i, j]
+            y = residual_fold(x_orig, px, sign, near)
+            x_rec = residual_unfold(y, px, sign, near)
+            err = x_rec - px0
+            row.append(x_rec)
+            outs.append((y, qd, adr, x_orig - px0, x_rec) if stats else (y, qd))
+            regs = slide_window(regs, x_rec, i, j, prev1, prev2, tw)
+        prev1, prev2 = torch.stack(row, dim=-1), prev1
+    return tuple(torch.stack(plane, dim=-1).view(b, t, th, tw) for plane in zip(*outs))
+
+
+def _refine_near_bias(x, bias, w_q, flags, th: int, tw: int, near: int, profile: int,
+                      w_refit=None):
+    """Re-estimate each image's bias table from the feedback scan's own
+    errors: the lossless pass's tables saw unquantized windows, the decoder
+    sees quantized ones.  Each of the ``NEAR_BIAS_ITERS`` passes runs a
+    statistics scan with the current tables and rebuilds them from the
+    (address, x - px0) pairs it saw; at profile 2 it also refits the learned
+    predictors on the scan's reconstruction (targets the originals), kept
+    where the fit is valid and the tile's flag is learned.  ``w_refit``
+    (private): (B, T, 12) weights that replace the refit's result.
+
+    x: (B, T, th, tw) int32; w_q (B, T, 12) and flags (B, T) at profile 2,
+    else None.  Returns (bias, w_q).
+    """
+    b, t = x.shape[:2]
+    for _ in range(NEAR_BIAS_ITERS):
+        wcols = _lane_wcols(w_q, flags) if profile == 2 else None
+        _, _, adr, err, rec = _tile_encode_scan(x, bias, wcols, th, tw, near, profile,
+                                                stats=True)
+        bias = _batch_bias(adr, err)
+        if profile == 2:
+            if w_refit is None:
+                w_new, valid = lsq.fit_tile_weights(rec.view(b * t, th, tw),
+                                                    target=x.view(b * t, th, tw))
+                w_new, valid = w_new.view(b, t, lsq.N_FEAT), valid.view(b, t)
+            else:
+                w_new, valid = w_refit.to(torch.int32), torch.ones_like(flags, dtype=torch.bool)
+            w_q = torch.where((valid & (flags > 0))[..., None], w_new, w_q)
+    return bias, w_q
+
+
+def _model_near(x, bias, wcols, th: int, tw: int, near: int, profile: int):
+    """The final feedback scan: (y, qd) planes and each image's (12, 256)
+    symbol counts."""
+    y, qd = _tile_encode_scan(x, bias, wcols, th, tw, near, profile)
+    return y, qd, _symbol_hist(y, qd)
+
+
+def _encode_near_impl(tiles, th: int, tw: int, near: int, profile: int, weights=None):
+    """Near-lossless modeling at profile 1 or 2 (the JAX package's
+    near-lossless branch of ``encode`` and its ``_encode_near2_impl``).
+
+    The lossless pass gives the first bias tables (at profile 2 the race,
+    its proxy rescaled to ``near``), :func:`_refine_near_bias` refines them
+    (and refits the learned predictors), then the final scan.  Returns (y,
+    qd, bias, hist, w_q, flags); w_q and flags are None at profile 1.
+
+    ``weights`` (private, profile 2; tests and the smoke run carry state
+    with it): (w_q, flags) replace the race, as in
+    :func:`_model_lossless2_impl`, and the refit keeps w_q; a third tensor,
+    (B, T, 12), is the refit's result instead.
+    """
+    x = tiles.to(torch.int32)
+    w_q = flags = w_refit = wcols = None
+    if profile == 2:
+        _, _, bias, _, w_q, flags = _model_lossless2_impl(
+            tiles, None if weights is None else weights[:2], near)
+        if weights is not None:
+            w_refit = weights[2] if len(weights) > 2 else w_q
+    else:
+        _, _, bias, _ = _model_lossless_impl(tiles)
+    bias, w_q = _refine_near_bias(x, bias, w_q, flags, th, tw, near, profile, w_refit)
+    if profile == 2:
+        wcols = _lane_wcols(w_q, flags)
+    y, qd, hist = _model_near(x, bias, wcols, th, tw, near, profile)
+    return y, qd, bias, hist, w_q, flags
 
 
 def _norm_hist_dev(h: torch.Tensor) -> torch.Tensor:
@@ -269,10 +427,10 @@ def _serialize_weights(w_q: np.ndarray, flags: np.ndarray) -> bytes:
     return np.asarray([len(raw)], np.uint32).tobytes() + raw + b"\x00" * (len(raw) & 1)
 
 
-def _emit_container(profile, h, w, tile_h, tile_w, n_tiles, g_lanes, totals,
+def _emit_container(profile, near, h, w, tile_h, tile_w, n_tiles, g_lanes, totals,
                     bias_i16, hist_n, payload, weights_bytes,
                     transposed_flag) -> bytes:
-    """Serialize one lossless NBTC container (profile 1 or 2)."""
+    """Serialize one NBTC container (profile 1 or 2)."""
     bias_bytes = zlib.compress(bias_i16.tobytes(), 6)
     bias_bytes += b"\x00" * (len(bias_bytes) & 1)  # keep u16 aligned
     hist_bytes = _serialize_hists(hist_n)
@@ -280,7 +438,7 @@ def _emit_container(profile, h, w, tile_h, tile_w, n_tiles, g_lanes, totals,
         [g_lanes, len(totals)] + [2 * int(t) for t in totals], dtype=np.uint32
     ).tobytes()
     header = NbtcHeader(
-        profile=profile, near=0, height=h, width=w, tile_h=tile_h, tile_w=tile_w,
+        profile=profile, near=near, height=h, width=w, tile_h=tile_h, tile_w=tile_w,
         n_tiles=n_tiles, bias_len=len(bias_bytes), hist_len=len(hist_bytes),
         flags=int(transposed_flag),
     )
@@ -297,7 +455,8 @@ def encode(img: np.ndarray, near: int = 0, tile_h: int = DEFAULT_TILE[0],
            tile_w: int = DEFAULT_TILE[1], effort: int = 1,
            device="cuda") -> bytes:
     """Encode a gray-8 image into an NBTC container: profile 1 at effort
-    0-1, profile 2 (per-tile least-squares predictors) at effort 2."""
+    0-1, profile 2 (per-tile least-squares predictors) at effort 2;
+    near-lossless (max error ``near``) when ``near`` > 0."""
     return encode_batch([img], near=near, tile_h=tile_h, tile_w=tile_w,
                         effort=effort, device=device)[0]
 
@@ -306,17 +465,21 @@ def encode_batch(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
                  tile_w: int = DEFAULT_TILE[1], effort: int = 1,
                  transposed=None, device="cuda") -> list[bytes]:
     """Encode same-shape images together: every image's tiles ride one
-    modeling pass and one fold.  ``transposed`` marks images stored
-    transposed (header flag bit 0)."""
+    modeling pass (at ``near`` > 0, one lockstep feedback scan) and one
+    fold.  ``transposed`` marks images stored transposed (header flag bit
+    0); at ``near`` > 0 it is ignored, as the JAX package ignores it there."""
     _check_encode_mode(near, effort)
-    return _encode_batch(imgs, tile_h, tile_w, 2 if effort >= 2 else 1, transposed,
-                         resolve_device(device))
+    return _encode_batch(imgs, tile_h, tile_w, 2 if effort >= 2 else 1,
+                         transposed if near == 0 else None, resolve_device(device),
+                         near=near)
 
 
 def _encode_batch(imgs, tile_h: int, tile_w: int, profile: int, transposed,
-                  dev: torch.device, weights=None) -> list[bytes]:
-    """:func:`encode_batch` after its mode checks; ``weights`` is the
-    private profile-2 state of :func:`_model_lossless2_impl`."""
+                  dev: torch.device, weights=None, near: int = 0) -> list[bytes]:
+    """:func:`encode_batch` after its mode checks.  Private, for tests and
+    the smoke run: ``weights`` is the profile-2 state of
+    :func:`_model_lossless2_impl` (lossless) or :func:`_encode_near_impl`
+    (near-lossless)."""
     imgs = [np.ascontiguousarray(im, dtype=np.uint8) for im in imgs]
     if not imgs:
         return []
@@ -330,12 +493,16 @@ def _encode_batch(imgs, tile_h: int, tile_w: int, profile: int, transposed,
     gh, gw = _tile_grid(h, w, tile_h, tile_w)
 
     tiles = to_tiles(torch.from_numpy(np.stack(imgs)).to(dev), tile_h, tile_w)
-    if profile == 2:
+    if near:
+        y, qd, bias, hist, w_q, flags = _encode_near_impl(tiles, tile_h, tile_w, near,
+                                                          profile, weights)
+    elif profile == 2:
         y, qd, bias, hist, w_q, flags = _model_lossless2_impl(tiles, weights)
-        w_q = w_q.cpu().numpy().astype(np.int16)
-        flags = flags.cpu().numpy().astype(np.uint8)
     else:
         y, qd, bias, hist = _model_lossless_impl(tiles)
+    if profile == 2:
+        w_q = w_q.cpu().numpy().astype(np.int16)
+        flags = flags.cpu().numpy().astype(np.uint8)
     hist_n, acc = _norm_tables(hist)
     freq, facc = _encode_tables(y, qd, hist_n, acc)
     totals, flats = _pack_groups(*encode_fold(freq, facc))
@@ -349,7 +516,7 @@ def _encode_batch(imgs, tile_h: int, tile_w: int, profile: int, transposed,
     out = []
     for i in range(b):
         out.append(_emit_container(
-            profile, h, w, tile_h, tile_w, gh * gw, G_LANES, totals[i], bias[i],
+            profile, near, h, w, tile_h, tile_w, gh * gw, G_LANES, totals[i], bias[i],
             hist_n[i], words[ends[i] - totals[i].sum() : ends[i]].tobytes(),
             _serialize_weights(w_q[i], flags[i]) if profile == 2 else b"",
             bool(transposed[i]) if transposed is not None else False,
@@ -357,7 +524,7 @@ def _encode_batch(imgs, tile_h: int, tile_w: int, profile: int, transposed,
     return out
 
 
-def _encode_flag_cycle(imgs, t: int, device="cuda") -> list[bytes]:
+def _encode_flag_cycle(imgs, t: int, device="cuda", near: int = 0) -> list[bytes]:
     """Profile-2 containers of same-shape ``imgs`` at t x t tiles whose tiles
     cycle through flags 0, 1, 2 (blend, learned, mean) with their fitted
     weights: every branch of the profile-2 predictor, which small tiles
@@ -369,7 +536,7 @@ def _encode_flag_cycle(imgs, t: int, device="cuda") -> list[bytes]:
     w_q, _ = lsq.fit_tile_weights(tiles.reshape(b * n, t, t))
     flags = torch.arange(b * n, dtype=torch.int32, device=dev) % 3
     return _encode_batch(imgs, t, t, 2, None, dev,
-                         (w_q.reshape(b, n, lsq.N_FEAT), flags.reshape(b, n)))
+                         (w_q.reshape(b, n, lsq.N_FEAT), flags.reshape(b, n)), near=near)
 
 
 def encode_batches(image_groups, near: int = 0,
@@ -392,12 +559,14 @@ def encode_corpus(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
 
     Portrait images are transposed to landscape (header flag bit 0) so both
     orientations of a corpus share one batch shape.  Containers come back
-    in input order; the decoders undo the transpose.
+    in input order; the decoders undo the transpose.  At ``near`` > 0 no
+    image is transposed (the JAX package encodes those one by one and
+    never merges orientations); the images of each shape share one batch.
     """
     _check_encode_mode(near, effort)
-    idx_groups, batches, flag_groups = _orientation_batches(imgs)
+    idx_groups, batches, flag_groups = _orientation_batches(imgs, transpose=near == 0)
     streams_by_group = encode_batches(
-        batches, tile_h=tile_h, tile_w=tile_w, effort=effort,
+        batches, near=near, tile_h=tile_h, tile_w=tile_w, effort=effort,
         transposed_groups=flag_groups, device=device,
     )
     out: list[bytes] = [b""] * len(imgs)
@@ -407,8 +576,9 @@ def encode_corpus(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
     return out
 
 
-def _orientation_batches(imgs):
-    """Landscape-normalized same-shape batches of ``imgs``.
+def _orientation_batches(imgs, transpose: bool = True):
+    """Same-shape batches of ``imgs``, landscape-normalized unless
+    ``transpose`` is false.
 
     Returns (index groups into ``imgs``, image batches, transposed flags
     per batch).
@@ -416,7 +586,7 @@ def _orientation_batches(imgs):
     norm, flags = [], []
     for im in imgs:
         im = np.ascontiguousarray(im, dtype=np.uint8)
-        t = im.shape[0] > im.shape[1]
+        t = transpose and im.shape[0] > im.shape[1]
         norm.append(np.ascontiguousarray(im.T) if t else im)
         flags.append(t)
     order: dict[tuple, list[int]] = {}

@@ -73,16 +73,21 @@ def _solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return aug[:, :, n]
 
 
-def fit_tile_weights(tiles: torch.Tensor):
+def fit_tile_weights(tiles: torch.Tensor, target: torch.Tensor | None = None):
     """Fit quantized predictor weights per tile.
 
-    tiles: (T, th, tw) pixels.  Returns (w_q int32 (T, 12), valid bool (T,));
-    the weights of a tile whose solve is not finite are 0.
+    tiles: (T, th, tw) pixels, the plane the causal feature windows are
+    sampled from; ``target`` (same shape, default ``tiles``) is the plane
+    being predicted.  The near-lossless refit passes the reconstruction as
+    ``tiles`` and the original as ``target``, so the fit sees the windows
+    the decoder will.  Returns (w_q int32 (T, 12), valid bool (T,)); the
+    weights of a tile whose solve is not finite are 0.
     """
     x = tiles.to(torch.int32)
     t = x.shape[0]
     fm = features(sample(x)).reshape(t, -1, N_FEAT).to(torch.float64)
-    tgt = (x - MID_VAL).reshape(t, -1, 1).to(torch.float64)
+    tgt_x = x if target is None else target.to(torch.int32)
+    tgt = (tgt_x - MID_VAL).reshape(t, -1, 1).to(torch.float64)
     ft = fm.transpose(1, 2)
     a = torch.bmm(ft, fm).to(torch.float32)  # exact integer sums, then f32
     b = torch.bmm(ft, tgt)[..., 0].to(torch.float32)

@@ -231,3 +231,23 @@ def test_profile2_on_card_matches_cpu(cuda_device, t):
     for im, c in zip(imgs, free):
         np.testing.assert_array_equal(tiled.decode(c, device=cuda_device), im)
         np.testing.assert_array_equal(tiled.decode(c, device="cpu"), im)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("effort", [1, 2])
+def test_near_encode_on_card_matches_cpu(cuda_device, effort):
+    rng = np.random.default_rng(20 + effort)
+    yy, xx = np.mgrid[0:64, 0:96]
+    wave = np.clip(128 + 100 * np.sin(0.9 * xx + 0.7 * yy) + rng.normal(0, 1, yy.shape),
+                   0, 255).astype(np.uint8)
+    imgs = [wave, rng.integers(0, 256, size=(64, 96), dtype=np.uint8)]
+    card = tiled.encode_batch(imgs, near=2, tile_h=16, tile_w=16, effort=effort,
+                              device=cuda_device)
+    assert card == tiled.encode_batch(imgs, near=2, tile_h=16, tile_w=16, effort=effort,
+                                      device="cpu")
+    launches = decode.decode_groups.launches
+    for im, c in zip(imgs, card):
+        for dev in (cuda_device, "cpu"):
+            err = tiled.decode(c, device=dev).astype(int) - im.astype(int)
+            assert np.abs(err).max() <= 2
+    assert decode.decode_groups.launches == launches + len(imgs)

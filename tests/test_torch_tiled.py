@@ -153,6 +153,9 @@ def test_port_never_imports_jax():
         "    c = api.compress_tiled(img, device='cpu', tile_h=8, tile_w=8, effort=effort)\n"
         "    assert c[10] == effort, c[10]\n"
         "    assert (api.decompress(c, device='cpu') == img).all()\n"
+        "    c = api.compress_tiled(img, near=2, device='cpu', tile_h=8, tile_w=8, effort=effort)\n"
+        "    err = api.decompress(c, device='cpu').astype(int) - img\n"
+        "    assert c[10] == effort and abs(err).max() <= 2, c[10]\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'nblic_tpu')\n"
         "assert not ref, ref\n"
@@ -166,10 +169,10 @@ def test_port_never_imports_jax():
 
 def test_unported_modes_raise():
     img = _natural(0, 16, 16)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        api.compress_tiled(img, near=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        api.compress_tiled(img, near=1, effort=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="items 9-11"):
+        api.compress_tiled(img, near=2, effort=3, device="cpu")
+    with pytest.raises(NotImplementedError, match="items 9-11"):
+        tiled.encode_batch([img], near=1, effort=4, device="cpu")
     with pytest.raises(NotImplementedError, match="items 9-11"):
         api.compress_tiled(img, effort=3, device="cpu")
     with pytest.raises(NotImplementedError, match="items 9-11"):
@@ -205,7 +208,7 @@ def test_cli_roundtrip_matches_jax_container(tmp_path):
         assert f.read() == j_api.compress_tiled(img, tile_h=16, tile_w=16)
     assert cli.main(["-d", "--device=cpu", enc, dec]) == 0
     np.testing.assert_array_equal(imageio.load_image(dec), img)
-    assert cli.main(["-c", "-n2", "--tiled", "--device=cpu", src, enc]) == -1
+    assert cli.main(["-c", "-n2", "-e3", "--tiled", "--device=cpu", src, enc]) == -1
 
 
 def test_cli_effort2_matches_jax_container(tmp_path, capsys):
