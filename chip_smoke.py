@@ -32,6 +32,16 @@ Phases, one line each; any failure exits non-zero:
      timed; K2's near instances (<1, false>, <2, false>, the latter at 64x64
      and 16x16 tiles) against the plain decoder, exact, <1, false> beside
      <1, true>.  (kernel_probe.py near-stages times a near encode's stages.)
+ 12. profile 3 (effort 3, lossless; plain PyTorch, no kernel of its own):
+     the card's containers equal the CPU's for a 48x64 and a 64x48 image
+     as one batch at strip heights 16 and 64, and each alone at 16, under
+     TUNE_V4, TUNE_MAX and TUNE_V4S; the whole corpus as one strips.encode_batch at
+     strip height 64 (288 strip lanes), with its bpp, MPix/s, peak device
+     memory and the time of each stage (modeling, row scan, fold, packing
+     and containers; each stage function wrapped here to sync the card when
+     it returns), two of its containers held against the CPU's; one image
+     through api.compress_tiled(effort=3).  (kernel_probe.py p3-stages
+     times one 768x512 image at the default strip height.)
 Each kernel's time stands beside its bound (the whole card's roofline:
 bytes over the memory rate, integer operations over the int32 rate) and
 its floor (the least time at the launch's own parallelism: the issue of
@@ -256,6 +266,115 @@ def _near_phase(tiled, corpus, dev, card):
         if not same:
             return None
     return k1, k2[1], k2[2]
+
+
+class StageClock:
+    """Wraps functions (module, name, label) so that each syncs the card
+    when it returns and records the time; the originals come back on exit.
+    ``stages()`` gives each stage's ms from the previous mark."""
+
+    def __init__(self, targets):
+        self.targets, self.marks = targets, []
+
+    def __enter__(self):
+        import torch
+
+        self.saved = [getattr(m, a) for m, a, _ in self.targets]
+        for (mod, attr, label), orig in zip(self.targets, self.saved):
+            def timed(*args, _orig=orig, _label=label, **kw):
+                out = _orig(*args, **kw)
+                torch.cuda.synchronize()
+                self.marks.append((_label, time.perf_counter()))
+                return out
+            setattr(mod, attr, timed)
+        torch.cuda.synchronize()
+        self.marks = [("start", time.perf_counter())]
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, attr, _), orig in zip(self.targets, self.saved):
+            setattr(mod, attr, orig)
+
+    def stages(self) -> dict:
+        return {b[0]: 1e3 * (b[1] - a[1]) for a, b in zip(self.marks, self.marks[1:])}
+
+
+def p3_stage_targets(strips):
+    """The strip engine's stages, in order, as StageClock targets."""
+    from nblic_tpu_torch.ops import rans, rans_bin
+
+    return [(strips, "_model_planes", "modeling"), (strips, "_row_scan", "row scan"),
+            (rans_bin, "fold", "fold"), (strips, "_finalize", "packing and containers")]
+
+
+def _p3_phase(api, corpus, dev, card) -> bool:
+    """Profile 3: the card against the CPU on small images, the corpus as
+    one batch stage by stage, and the public route."""
+    import torch
+
+    from nblic_tpu_torch.models import strips
+    from nblic_tpu_torch.ops.decode import decode_groups
+    from nblic_tpu_torch.ops.fold import encode_fold
+    from nblic_tpu_torch.utils.synth import synth_image
+
+    rng = np.random.default_rng(5)
+    pair = [synth_image(rng, 48, 64), synth_image(rng, 64, 48)]
+    default = strips.TUNE
+    try:
+        for tune in ("TUNE_V4", "TUNE_MAX", "TUNE_V4S"):
+            strips.TUNE = getattr(strips, tune)
+            for th in (16, 64):
+                on_cpu = strips.encode_batch(pair, th=th, device="cpu")
+                t0 = time.perf_counter()
+                on_card = strips.encode_batch(pair, th=th, device=dev)
+                batch_s = time.perf_counter() - t0
+                # each image alone as well, at the short strip height
+                singles = ([strips.encode(im, th=th, device=dev) for im in pair]
+                           if th == 16 else on_card)
+                ok = on_card == on_cpu and singles == on_cpu
+                print(f"[p3 reference] {tune} th {th}: the 48x64 and 64x48 images as a "
+                      f"batch{' and alone' if th == 16 else ''}, card == cpu containers "
+                      f"{ok} (batch on the card {batch_s:.2f} s)", flush=True)
+                if not ok:
+                    return False
+    finally:
+        strips.TUNE = default
+
+    # ---- the corpus at th = 64: one batch of 24 x 12 strips, staged
+    th = 64
+    n_px = sum(im.size for im in corpus)
+    encode_fold.launches = decode_groups.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with StageClock(p3_stage_targets(strips)) as clock:
+        t0 = time.perf_counter()
+        conts = strips.encode_batch(corpus, th=th, device=dev)
+        enc_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stages = clock.stages()
+    total = sum(stages.values())
+    h, w = max(corpus[0].shape), min(corpus[0].shape)  # portrait-normalized
+    lanes = len(corpus) * -(-h // th)
+    steps = th * w * (strips.TUNE.n_unary + strips.L_R) // strips.N_PHASE
+    print(f"[p3 corpus] {len(corpus)} images ({n_px / 1e6:.2f} MPix) th {th}, {lanes} strip "
+          f"lanes, {steps} fold steps: {8.0 * sum(map(len, conts)) / n_px:.4f} bpp, "
+          f"strips.encode_batch {n_px / enc_s / 1e6:.4f} MPix/s ({enc_s:.2f} s), peak "
+          f"device memory {peak:.2f} GiB; stages ms "
+          + ", ".join(f"{k} {v:.1f} ({100 * v / total:.1f}%)" for k, v in stages.items())
+          + f"; launches K1 {encode_fold.launches} K2 {decode_groups.launches} ({card})",
+          flush=True)
+    picks = [0, len(corpus) - 1]  # a transposed landscape image, a portrait one
+    on_cpu = strips.encode_batch([corpus[i] for i in picks], th=th, device="cpu")
+    same = on_cpu == [conts[i] for i in picks]
+    print(f"[p3 corpus] images {picks} encoded on the cpu: containers equal {same}",
+          flush=True)
+
+    # ---- the public route
+    img = synth_image(rng, 40, 56)
+    via_api = api.compress_tiled(img, effort=3, device=dev)
+    routed = via_api == strips.encode(img, device=dev) and via_api[10] == 3
+    print(f"[p3 api] compress_tiled(effort=3) on a 40x56 image: profile {via_api[10]}, "
+          f"{len(via_api)} B, equal to strips.encode {routed}", flush=True)
+    return same and routed
 
 
 def _main_path(api, tiled, corpus, frame, dev, effort, tag, card):
@@ -530,6 +649,13 @@ def main() -> int:
         print("[near] failed: a mismatch, an error past near or a kernel never launched")
         return 1
     near_k1, near_k2_e1, near_k2_e2 = near
+
+    # ---- profile 3: plain PyTorch on the card, no kernel of its own
+    t0 = time.perf_counter()
+    if not _p3_phase(api, corpus, dev, card):
+        print("[p3] failed: a container differed from the CPU's or the route")
+        return 1
+    print(f"[p3] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
     def row(name_, source, replaces, launches, stats):
         err_, ms_, pms_, (bound_ms, bound_by) = stats

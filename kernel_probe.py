@@ -24,6 +24,12 @@ PROBE is one of:
              with K1, container assembly; the first image's container held
              against encode_batch's of that image alone; then the final
              scan over one image's tiles alone.  Builds no variant.
+  p3-stages  one profile-3 encode of a synthetic 768x512 image at the
+             default strip height (768: one strip), after a small warm-up,
+             stage by stage as chip_smoke.py times the corpus: modeling, row
+             scan, fold, packing and containers; with each stage's time a
+             step (a row's column segment, a fold step).  Builds no
+             variant.
 
 Each variant is a copy of a source with some lines replaced, built by nvcc
 into build/probe/ (all builds run at once) and called through ctypes; none
@@ -330,10 +336,36 @@ def near_stages(card: str) -> bool:
     return same
 
 
+def p3_stages(card: str) -> bool:
+    from chip_smoke import StageClock, p3_stage_targets
+    from nblic_tpu_torch.models import strips
+
+    dev = torch.device("cuda")
+    img = synth_image(np.random.default_rng(0), 768, 512)
+    strips.encode(img[:64, :48], device=dev)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    with StageClock(p3_stage_targets(strips)) as clock:
+        cont = strips.encode(img, device=dev)
+    stages = clock.stages()
+    total = sum(stages.values())
+    tune = strips.TUNE
+    th, w = strips.TH_DEFAULT, img.shape[1]
+    n_seg = strips._eff_seg(tune.n_seg, w)
+    steps = th * w * (tune.n_unary + strips.L_R) // strips.N_PHASE
+    print(f"[p3-stages] 1x{img.shape} th {th}: {8.0 * len(cont) / img.size:.4f} bpp, "
+          f"{total / 1e3:.2f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          + ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.1f}%)" for k, v in stages.items())
+          + f"; row scan {1e3 * stages['row scan'] / (th * n_seg):.1f} us a segment "
+          f"({th} rows x {n_seg} segments), fold {1e3 * stages['fold'] / steps:.1f} us a "
+          f"step ({steps} steps) ({card})", flush=True)
+    return len(cont) > 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probes", nargs="+", choices=("cut-chain", "slot-bits", "fold",
-                                                     "near-stages"))
+                                                     "near-stages", "p3-stages"))
     ap.add_argument("--parent", type=Path,
                     help="cut-chain: also cut this group_decode.cu of the parent design")
     args = ap.parse_args(argv)
@@ -376,6 +408,8 @@ def main(argv=None) -> int:
         ok &= fold_blocks(of("fold"), card)
     if "near-stages" in args.probes:
         ok &= near_stages(card)
+    if "p3-stages" in args.probes:
+        ok &= p3_stages(card)
     return 0 if ok else 1
 
 

@@ -28,8 +28,10 @@ a container still decodes exactly (within ``near``) in both packages.
   shared stream cursor (kernel K2 on CUDA), near-lossless containers
   included.
 
-Every entry point takes ``device`` ("cuda" by default); a CUDA device on a
-machine without CUDA raises.  Profiles 0 and 3 are not ported yet and raise
+Effort 3 writes profile 3 through ``models/strips.py`` (lossless only), as
+the JAX package routes it.  Every entry point takes ``device`` ("cuda" by
+default); a CUDA device on a machine without CUDA raises.  Profile-0 and
+profile-3 decode and profile-3 near-lossless are not ported and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -53,6 +55,7 @@ from ..ops.neighbors import sample
 from ..ops.predict import context_planes, model_stage1, simple_predict
 from ..ops.window import pixel_model, row_start_window, slide_window
 from ..utils.container import NbtcHeader, check_size
+from . import strips
 
 DEFAULT_TILE = (64, 64)
 N_QD = 12
@@ -60,6 +63,7 @@ N_SYM = 256
 NORM_SUM = hist_ops.NORM_SUM
 # interleave-group width: one shared-cursor stream per G tiles
 G_LANES = 128
+MAX_GROUP = 1024  # the widest group a container may declare (K2's limit)
 # profile-2 predictor race: the learned choices pay for their transmitted
 # weights and the context-model shift they cause (nblic_tpu's constants)
 RACE_PENALTY = 700.0
@@ -69,12 +73,13 @@ NEAR_BIAS_ITERS = 1
 
 
 def _check_encode_mode(near: int, effort: int) -> None:
-    if effort >= 3:
-        raise NotImplementedError(
-            "profile 3 (effort >= 3) is not ported yet: ROADMAP Queue 1 items 9-11"
-        )
     if not 0 <= near <= 255:  # the header keeps near in one byte
         raise ValueError(f"near must lie in 0..255, got {near}")
+    if effort >= 3 and near:
+        raise NotImplementedError(
+            "profile-3 near-lossless (effort >= 3, near > 0) is not ported yet: "
+            "ROADMAP Queue 1 item 11"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -455,7 +460,8 @@ def encode(img: np.ndarray, near: int = 0, tile_h: int = DEFAULT_TILE[0],
            tile_w: int = DEFAULT_TILE[1], effort: int = 1,
            device="cuda") -> bytes:
     """Encode a gray-8 image into an NBTC container: profile 1 at effort
-    0-1, profile 2 (per-tile least-squares predictors) at effort 2;
+    0-1, profile 2 (per-tile least-squares predictors) at effort 2,
+    profile 3 (the strip engine, lossless; no tiles) at effort 3 and above;
     near-lossless (max error ``near``) when ``near`` > 0."""
     return encode_batch([img], near=near, tile_h=tile_h, tile_w=tile_w,
                         effort=effort, device=device)[0]
@@ -467,8 +473,12 @@ def encode_batch(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
     """Encode same-shape images together: every image's tiles ride one
     modeling pass (at ``near`` > 0, one lockstep feedback scan) and one
     fold.  ``transposed`` marks images stored transposed (header flag bit
-    0); at ``near`` > 0 it is ignored, as the JAX package ignores it there."""
+    0); at ``near`` > 0 it is ignored, as the JAX package ignores it there.
+    At effort 3 the images go to :func:`strips.encode_batch`, which
+    normalizes their orientation itself."""
     _check_encode_mode(near, effort)
+    if effort >= 3:
+        return strips.encode_batch(imgs, device=device)
     return _encode_batch(imgs, tile_h, tile_w, 2 if effort >= 2 else 1,
                          transposed if near == 0 else None, resolve_device(device),
                          near=near)
@@ -562,8 +572,12 @@ def encode_corpus(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
     in input order; the decoders undo the transpose.  At ``near`` > 0 no
     image is transposed (the JAX package encodes those one by one and
     never merges orientations); the images of each shape share one batch.
+    At effort 3 the strip engine normalizes images to portrait instead, and
+    the images of each portrait shape share one batch.
     """
     _check_encode_mode(near, effort)
+    if effort >= 3:
+        return _encode_corpus_p3(imgs, device)
     idx_groups, batches, flag_groups = _orientation_batches(imgs, transpose=near == 0)
     streams_by_group = encode_batches(
         batches, near=near, tile_h=tile_h, tile_w=tile_w, effort=effort,
@@ -573,6 +587,19 @@ def encode_corpus(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
     for g, streams in zip(idx_groups, streams_by_group):
         for i, s in zip(g, streams):
             out[i] = s
+    return out
+
+
+def _encode_corpus_p3(imgs, device) -> list[bytes]:
+    """Profile-3 containers of ``imgs`` in input order, one
+    :func:`strips.encode_batch` per portrait-normalized shape."""
+    groups: dict[tuple, list[int]] = {}
+    for i, im in enumerate(imgs):
+        groups.setdefault(tuple(sorted(np.shape(im), reverse=True)), []).append(i)
+    out: list[bytes] = [b""] * len(imgs)
+    for idx in groups.values():
+        for i, c in zip(idx, strips.encode_batch([imgs[i] for i in idx], device=device)):
+            out[i] = c
     return out
 
 
@@ -602,20 +629,34 @@ def _orientation_batches(imgs, transpose: bool = True):
 # ---------------------------------------------------------------------------
 
 
+def _inflate(data: bytes, what: str) -> bytes:
+    try:
+        return zlib.decompress(data)
+    except zlib.error as exc:
+        raise ValueError(f"corrupt {what}: {exc}") from None
+
+
 class _Parsed:
     """Host-side view of one NBTC profile-1 or profile-2 container."""
 
     def __init__(self, stream: bytes):
         self.hdr = hdr = NbtcHeader.from_bytes(stream)
-        if hdr.profile not in (1, 2):
+        if hdr.profile not in (0, 1, 2, 3):
+            raise ValueError(f"unknown NBTC profile {hdr.profile}")
+        if hdr.profile in (0, 3):
             raise NotImplementedError({
                 0: "profile-0 containers are not ported (ROADMAP Queue 1 item 14)",
                 3: "profile-3 decode is not ported yet: ROADMAP Queue 1 item 10",
-            }.get(hdr.profile, f"unknown NBTC profile {hdr.profile}"))
+            }[hdr.profile])
         check_size(hdr.height, hdr.width)
+        # the tile grid before any decode: a hostile header is refused here
+        if hdr.tile_h < 1 or hdr.tile_w < 1 or hdr.n_tiles != np.prod(
+                _tile_grid(hdr.height, hdr.width, hdr.tile_h, hdr.tile_w)):
+            raise ValueError(f"tile grid {hdr.tile_h}x{hdr.tile_w} of a {hdr.height}x"
+                             f"{hdr.width} image does not hold {hdr.n_tiles} tiles")
         pos = NbtcHeader.SIZE
         self.bias = np.frombuffer(
-            zlib.decompress(stream[pos : pos + hdr.bias_len]), dtype=np.int16
+            _inflate(stream[pos : pos + hdr.bias_len], "bias table"), dtype=np.int16
         ).astype(np.int32)
         if self.bias.shape != (Q_N_CONTEXT,):
             raise ValueError("malformed bias table")
@@ -624,7 +665,7 @@ class _Parsed:
         if hdr.profile == 2:
             (wlen,) = np.frombuffer(stream[pos : pos + 4], dtype=np.uint32)
             pos += 4
-            raw = zlib.decompress(stream[pos : pos + int(wlen)])
+            raw = _inflate(stream[pos : pos + int(wlen)], "weight block")
             pos += int(wlen) + (int(wlen) & 1)
             t = hdr.n_tiles
             self.flags = np.frombuffer(raw[:t], dtype=np.uint8)
@@ -640,13 +681,19 @@ class _Parsed:
         self.acc = np.stack(
             [hist_ops.accumulate(h.astype(np.uint32)) for h in self.hist_n]
         ).astype(np.int32)
-        g, n_groups = np.frombuffer(stream[pos : pos + 8], dtype=np.uint32)
+        g, n_groups = (int(v) for v in np.frombuffer(stream[pos : pos + 8],
+                                                     dtype=np.uint32))
         pos += 8
-        self.group_size = int(g)
-        lengths = np.frombuffer(stream[pos : pos + 4 * int(n_groups)], dtype=np.uint32)
-        pos += 4 * int(n_groups)
+        if not 1 <= g <= MAX_GROUP or n_groups != -(-hdr.n_tiles // g):
+            raise ValueError(f"{n_groups} groups of {g} lanes do not hold "
+                             f"{hdr.n_tiles} tiles")
+        self.group_size = g
+        lengths = np.frombuffer(stream[pos : pos + 4 * n_groups], dtype=np.uint32)
+        pos += 4 * n_groups
         self.counts = (lengths // 2).astype(np.int64)
         self.payload = np.frombuffer(stream, dtype=np.uint16, offset=pos)
+        if len(self.counts) != n_groups or self.counts.sum() > self.payload.size:
+            raise ValueError("truncated group table or payload")
 
     def n_active(self) -> np.ndarray:
         """Per-group active-lane counts."""

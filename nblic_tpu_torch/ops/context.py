@@ -29,13 +29,14 @@ def bias_moments(adr: torch.Tensor, err: torch.Tensor, n_ctx: int):
     return sums, cnts
 
 
-def quantize_bias(sums: torch.Tensor, cnts: torch.Tensor) -> torch.Tensor:
+def quantize_bias(sums: torch.Tensor, cnts: torch.Tensor, shrink: int = 0) -> torch.Tensor:
     """Fixed-point rounded mean error per context, int32 in [-2^11, 2^11).
 
     Rounds half away from zero on magnitudes (a floor division of a signed
-    numerator would round negative means one step too far).
+    numerator would round negative means one step too far).  ``shrink``
+    adds pseudo-counts to the denominator, pulling sparse contexts toward 0.
     """
-    denom = torch.clamp(cnts, min=1)
+    denom = torch.clamp(cnts + shrink, min=1)
     mag = _floordiv((torch.abs(sums) << BIAS_FRAC_BITS) * 2 + denom, 2 * denom)
     bias = torch.where(cnts > 0, torch.sign(sums) * mag, torch.zeros_like(mag))
     return torch.clamp(bias, -(1 << 11), (1 << 11) - 1).to(torch.int32)

@@ -2,14 +2,14 @@
 
 Counterpart of ``nblic_tpu/ops/predict.py``: the blend predictor, the 12-bin
 activity quantizer and the 3072-entry context address, as branch-free int32
-tensor math over whole planes.
+tensor math over whole planes; and profile 3's dual-bin activity quantizer.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..constants import MAX_VAL, Q_PT_THRESH, Q_QD_THRESH
+from ..constants import MAX_VAL, Q_MID, Q_PT_THRESH, Q_QD_THRESH
 
 from .neighbors import Neighbors, sample
 
@@ -71,6 +71,30 @@ def quantize_activity(delta: torch.Tensor) -> torch.Tensor:
     for cut in Q_QD_THRESH[:-1]:
         qd = qd + (v >= cut).to(torch.int32)
     return qd
+
+
+N_QW = 32  # interpolation weight range of the dual-bin quantizer
+
+
+def n_quantize_activity(delta: torch.Tensor):
+    """Dual-bin activity quantizer with 5-bit interpolation: (qu, qv, qw)."""
+    mids = torch.tensor(Q_MID, dtype=delta.dtype, device=delta.device)
+    # first qd in [0, 15) with delta <= mid[qd], else 15
+    qd = (delta[..., None] > mids[:15]).sum(-1).to(delta.dtype)
+    mid_lo = mids[torch.clamp(qd - 1, min=0)]
+    mid_hi = mids[qd]
+    interp = (delta < mid_hi) & (qd > 0)
+    qw_raw = torch.where(
+        interp,
+        torch.div(N_QW * (delta - mid_lo), torch.clamp(mid_hi - mid_lo, min=1),
+                  rounding_mode="floor"),
+        0,
+    )
+    low_half = qw_raw < N_QW // 2
+    qu = torch.where(interp & low_half, qd - 1, qd)
+    qv = torch.where(interp & ~low_half, qd - 1, qd)
+    qw = torch.where(interp, torch.where(low_half, qw_raw, N_QW - qw_raw), 0)
+    return qu, qv, qw.to(delta.dtype)
 
 
 def context_address(n: Neighbors, px: torch.Tensor, qd: torch.Tensor) -> torch.Tensor:

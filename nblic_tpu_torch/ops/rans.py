@@ -47,6 +47,33 @@ def encode_scan(freq: torch.Tensor, acc: torch.Tensor):
     return words.t(), emits.t(), state
 
 
+def pack_streams(words, emits, state):
+    """Compaction of S fold outputs into decode-ready streams, back to back.
+
+    words/emits: (S, L) in fold order; state: (S,).  Returns (flat, lengths):
+    flat (S * (L + 2),) int32 holding each stream in decode order
+    ([state_hi, state_lo, emitted words reversed]) of which only the first
+    ``lengths.sum()`` entries are meaningful; lengths (S,) int64 word counts.
+    """
+    s, l = words.shape
+    cap = s * (l + 2)
+    e = emits.to(torch.int64)
+    counts = e.sum(1)
+    lengths = counts + 2
+    offsets = torch.cumsum(lengths, 0) - lengths
+    rank = torch.cumsum(e, 1) - 1  # fold-order rank of each emitted word
+    # decode order reverses the emitted words after the two state words
+    pos = offsets[:, None] + 2 + (counts[:, None] - 1 - rank)
+    idx = torch.where(emits, pos, cap)  # slot `cap` collects the non-emits
+    flat = torch.zeros(cap + 1, dtype=torch.int32, device=words.device)
+    flat.scatter_(0, idx.reshape(-1), words.to(torch.int32).reshape(-1))
+    flat = flat[:cap]
+    st = state.to(torch.int64)
+    flat[offsets] = ((st >> ANS_BITS) & ANS_MASK).to(torch.int32)
+    flat[offsets + 1] = (st & ANS_MASK).to(torch.int32)
+    return flat, lengths
+
+
 def interleave_pack(words, emits, state):
     """Pack a lockstep fold into ONE interleaved stream (decode-read order).
 

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from nblic_tpu_torch.convert import group_args, tables_from_numpy
-from nblic_tpu_torch.models import tiled
+from nblic_tpu_torch.models import strips, tiled
 from nblic_tpu_torch.ops import decode, fold, rans
 
 
@@ -251,3 +251,17 @@ def test_near_encode_on_card_matches_cpu(cuda_device, effort):
             err = tiled.decode(c, device=dev).astype(int) - im.astype(int)
             assert np.abs(err).max() <= 2
     assert decode.decode_groups.launches == launches + len(imgs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tune", ["TUNE_V4", "TUNE_MAX", "TUNE_V4S"])
+@pytest.mark.parametrize("th", [16, 64])
+def test_profile3_on_card_matches_cpu(cuda_device, monkeypatch, tune, th):
+    monkeypatch.setattr(strips, "TUNE", getattr(strips, tune))
+    rng = np.random.default_rng(th)
+    imgs = [rng.integers(0, 256, size=(48, 64), dtype=np.uint8),
+            np.clip(np.add.outer(np.arange(64), np.arange(48)) * 2 + rng.integers(
+                0, 6, size=(64, 48)), 0, 255).astype(np.uint8)]
+    card = strips.encode_batch(imgs, th=th, device=cuda_device)
+    assert card == strips.encode_batch(imgs, th=th, device="cpu")
+    assert card[0] == strips.encode(imgs[0], th=th, device=cuda_device)

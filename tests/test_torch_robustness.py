@@ -1,0 +1,127 @@
+"""Hostile and corrupt NBTC containers in the port, and geometries and
+near values the other tests do not reach, against nblic_tpu.
+
+The port's decoder must never hang, crash or leak a library error:
+decoding bad input raises ``ValueError`` or returns pixels of the image's
+shape, within a few seconds.  A header whose tile grid does not hold its
+tile count is refused before any decode.  Non-square tiles and ``near``
+above 9 write the JAX package's bytes.
+"""
+
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from nblic_tpu.models import tiled as j_tiled
+from nblic_tpu_torch.models import tiled
+from nblic_tpu_torch.utils.container import NbtcHeader
+from nblic_tpu_torch.utils.synth import synth_image
+
+torch.set_num_threads(1)
+
+KINDS = {"p1": dict(), "p2": dict(effort=2), "near2": dict(near=2)}
+LIMIT_S = 10.0  # a plain decode of these images takes well under a second
+
+
+@pytest.fixture(scope="module")
+def image():
+    return synth_image(np.random.default_rng(61), 48, 40)
+
+
+@pytest.fixture(scope="module")
+def containers(image):
+    return {k: tiled.encode(image, tile_h=16, tile_w=16, device="cpu", **kw)
+            for k, kw in KINDS.items()}
+
+
+def _decode_or_value_error(stream: bytes, shape):
+    """Decode ``stream``: a ValueError or pixels of ``shape``, in time."""
+    t0 = time.perf_counter()
+    try:
+        out = tiled.decode(stream, device="cpu")
+        assert out.shape == shape
+    except ValueError:
+        pass
+    assert time.perf_counter() - t0 < LIMIT_S
+
+
+def _patched(stream: bytes, fmt_offset: int, value: int, size: int) -> bytes:
+    s = bytearray(stream)
+    s[fmt_offset : fmt_offset + size] = value.to_bytes(size, "little")
+    return bytes(s)
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_flipped_bytes(containers, image, kind):
+    stream = containers[kind]
+    rng = np.random.default_rng(len(kind))
+    # every byte after the header: the tables, the group table, the payload
+    for pos in rng.choice(np.arange(NbtcHeader.SIZE, len(stream)), size=40, replace=False):
+        s = bytearray(stream)
+        s[pos] ^= int(rng.integers(1, 256))
+        _decode_or_value_error(bytes(s), image.shape)
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_truncations_raise(containers, kind):
+    stream = containers[kind]
+    for cut in (1, 8, NbtcHeader.SIZE - 1, NbtcHeader.SIZE + 5, len(stream) // 3,
+                len(stream) // 2, len(stream) - 40, len(stream) - 1):
+        t0 = time.perf_counter()
+        with pytest.raises(ValueError):
+            tiled.decode(stream[:cut], device="cpu")
+        assert time.perf_counter() - t0 < LIMIT_S
+
+
+# header fields of a 48x40 image at 16x16 tiles (3 x 3 tiles): tile_h at
+# byte 20, tile_w at 22 (u16), n_tiles at 24 (u32)
+HOSTILE = {
+    "tile_w 272": (22, 272, 2),
+    "tile_w high byte": (22, 0xFF10, 2),
+    "tile_w 0": (22, 0, 2),
+    "tile_h 8": (20, 8, 2),
+    "n_tiles 200": (24, 200, 4),
+    "n_tiles 0": (24, 0, 4),
+    "profile 7": (10, 7, 1),
+}
+
+
+@pytest.mark.parametrize("field", list(HOSTILE))
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_hostile_header_fields_raise(containers, kind, field):
+    t0 = time.perf_counter()
+    with pytest.raises(ValueError):
+        tiled.decode(_patched(containers[kind], *HOSTILE[field]), device="cpu")
+    assert time.perf_counter() - t0 < LIMIT_S
+
+
+def test_hostile_group_table_raises(containers):
+    stream = containers["p1"]
+    p = tiled._Parsed(stream)
+    at = len(stream) - 2 * p.payload.size - 4 * len(p.counts) - 8  # g, n_groups
+    for value, off in ((0, 0), (1 << 20, 0), (2, 4), (0xFFFFFFFF, 8)):
+        with pytest.raises(ValueError):
+            tiled.decode(_patched(stream, at + off, value, 4), device="cpu")
+
+
+@pytest.mark.parametrize("tile", [(8, 16), (16, 8), (32, 16)])
+@pytest.mark.parametrize("effort", [1, 2])
+def test_non_square_tiles_byte_identical(tile, effort):
+    img = synth_image(np.random.default_rng(62), 70, 90)
+    kw = dict(tile_h=tile[0], tile_w=tile[1], effort=effort)
+    port = tiled.encode(img, device="cpu", **kw)
+    assert port == j_tiled.encode(img, **kw)
+    np.testing.assert_array_equal(tiled.decode(port, device="cpu"), img)
+    np.testing.assert_array_equal(j_tiled.decode(port), img)
+
+
+@pytest.mark.parametrize("near", [10, 40, 127, 255])
+@pytest.mark.parametrize("effort", [1, 2])
+def test_large_near_byte_identical(near, effort):
+    img = synth_image(np.random.default_rng(63), 32, 48)
+    port = tiled.encode(img, near=near, tile_h=16, tile_w=16, effort=effort, device="cpu")
+    assert port == j_tiled.encode(img, near=near, tile_h=16, tile_w=16, effort=effort)
+    err = np.abs(tiled.decode(port, device="cpu").astype(np.int32) - img)
+    assert err.max() <= near

@@ -156,6 +156,8 @@ def test_port_never_imports_jax():
         "    c = api.compress_tiled(img, near=2, device='cpu', tile_h=8, tile_w=8, effort=effort)\n"
         "    err = api.decompress(c, device='cpu').astype(int) - img\n"
         "    assert c[10] == effort and abs(err).max() <= 2, c[10]\n"
+        "c = api.compress_tiled(img, device='cpu', effort=3)\n"
+        "assert c[10] == 3 and c == nblic_tpu_torch.models.strips.encode(img, device='cpu')\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'nblic_tpu')\n"
         "assert not ref, ref\n"
@@ -169,18 +171,20 @@ def test_port_never_imports_jax():
 
 def test_unported_modes_raise():
     img = _natural(0, 16, 16)
-    with pytest.raises(NotImplementedError, match="items 9-11"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         api.compress_tiled(img, near=2, effort=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="items 9-11"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         tiled.encode_batch([img], near=1, effort=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="items 9-11"):
-        api.compress_tiled(img, effort=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="items 9-11"):
-        tiled.encode_corpus([img], effort=3, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tiled.encode_corpus([img], near=3, effort=3, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tiled.encode_batches([[img]], near=1, effort=3, device="cpu")
     p3 = j_tiled.NbtcHeader(profile=3, near=0, height=16, width=16, tile_h=16,
                             tile_w=0, n_tiles=1, bias_len=0, hist_len=0)
     with pytest.raises(NotImplementedError, match="item 10"):
         api.decompress(p3.to_bytes() + bytes(64), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        api.decompress(api.compress_tiled(img, effort=3, device="cpu"), device="cpu")
     with pytest.raises(ValueError, match="tile size"):
         api.compress_tiled(img, tile_h=0, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
@@ -222,5 +226,5 @@ def test_cli_effort2_matches_jax_container(tmp_path, capsys):
     assert cli.main(["-d", "--device=cpu", enc, dec]) == 0
     np.testing.assert_array_equal(imageio.load_image(dec), img)
     capsys.readouterr()
-    assert cli.main(["-c", "--tiled", "-e3", "--device=cpu", src, enc]) == -1
-    assert "item" in capsys.readouterr().out
+    assert cli.main(["-c", "--tiled", "-e3", "-n1", "--device=cpu", src, enc]) == -1
+    assert "item 11" in capsys.readouterr().out
