@@ -32,16 +32,24 @@ Phases, one line each; any failure exits non-zero:
      timed; K2's near instances (<1, false>, <2, false>, the latter at 64x64
      and 16x16 tiles) against the plain decoder, exact, <1, false> beside
      <1, true>.  (kernel_probe.py near-stages times a near encode's stages.)
- 12. profile 3 (effort 3, lossless; plain PyTorch, no kernel of its own):
-     the card's containers equal the CPU's for a 48x64 and a 64x48 image
-     as one batch at strip heights 16 and 64, and each alone at 16, under
-     TUNE_V4, TUNE_MAX and TUNE_V4S; the whole corpus as one strips.encode_batch at
+ 12. profile 3 (effort 3; plain PyTorch, no kernel of its own): the card's
+     containers equal the CPU's for a 48x64 and a 64x48 image as one batch
+     at strip heights 16 and 64, and each alone at 16, under TUNE_V4,
+     TUNE_MAX and TUNE_V4S; the whole corpus as one strips.encode_batch at
      strip height 64 (288 strip lanes), with its bpp, MPix/s, peak device
      memory and the time of each stage (modeling, row scan, fold, packing
      and containers; each stage function wrapped here to sync the card when
      it returns), two of its containers held against the CPU's; one image
-     through api.compress_tiled(effort=3).  (kernel_probe.py p3-stages
-     times one 768x512 image at the default strip height.)
+     through api.compress_tiled(effort=3).  Decode: each of those six
+     batches on the card equal to the images, the three committed fixtures
+     (near 2, legacy, static bias; tests/data_torch_p3) equal to nblic_tpu's
+     pixels, the corpus at strip height 16 (1152 lanes, 8192 pixel steps)
+     through tiled.decode_batch, exact, with its MPix/s, the walk's time a
+     pixel step, the peak device memory and the projected time of one image
+     at strip height 768, and api.decompress of the effort-3 container; a
+     process of its own decodes the same containers on the CPU meanwhile,
+     which must agree.  (kernel_probe.py p3-stages times one 768x512 encode
+     at the default strip height.)
 Each kernel's time stands beside its bound (the whole card's roofline:
 bytes over the memory rate, integer operations over the int32 rate) and
 its floor (the least time at the launch's own parallelism: the issue of
@@ -307,9 +315,42 @@ def p3_stage_targets(strips):
             (rans_bin, "fold", "fold"), (strips, "_finalize", "packing and containers")]
 
 
-def _p3_phase(api, corpus, dev, card) -> bool:
+def _cpu_decode(groups):
+    """The port's plain profile-3 decode on the CPU, one strips.decode_batch
+    per group of containers; runs in a process of its own beside the card's
+    work."""
+    import torch
+
+    torch.set_num_threads(1)
+    from nblic_tpu_torch.models import strips
+
+    return [strips.decode_batch(g, device="cpu") for g in groups]
+
+
+def _p3_fixtures():
+    """{name: (container, nblic_tpu's decode)}: the committed profile-3
+    containers the port cannot write yet (near 2, legacy without a Tune
+    block, a legacy static-bias table; tests/test_torch_p3_fixtures.py
+    regenerates them with nblic_tpu)."""
+    import os
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data_torch_p3")
+    out = {}
+    for name in ("near2", "legacy", "static"):
+        with open(os.path.join(data, name + ".nbtc"), "rb") as f:
+            out[name] = (f.read(), np.load(os.path.join(data, name + ".npy")))
+    return out
+
+
+def _p3_phase(api, tiled, corpus, dev, card) -> bool:
     """Profile 3: the card against the CPU on small images, the corpus as
-    one batch stage by stage, and the public route."""
+    one batch stage by stage, the public route; then decode: every small
+    container and the fixtures on the card against the image (or nblic_tpu's
+    pixels) and the CPU, the corpus at th = 16 through tiled.decode_batch
+    with the walk's time a pixel step, and api.decompress."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import torch
 
     from nblic_tpu_torch.models import strips
@@ -319,6 +360,7 @@ def _p3_phase(api, corpus, dev, card) -> bool:
 
     rng = np.random.default_rng(5)
     pair = [synth_image(rng, 48, 64), synth_image(rng, 64, 48)]
+    pair_conts = {}
     default = strips.TUNE
     try:
         for tune in ("TUNE_V4", "TUNE_MAX", "TUNE_V4S"):
@@ -332,6 +374,7 @@ def _p3_phase(api, corpus, dev, card) -> bool:
                 singles = ([strips.encode(im, th=th, device=dev) for im in pair]
                            if th == 16 else on_card)
                 ok = on_card == on_cpu and singles == on_cpu
+                pair_conts[tune, th] = on_card
                 print(f"[p3 reference] {tune} th {th}: the 48x64 and 64x48 images as a "
                       f"batch{' and alone' if th == 16 else ''}, card == cpu containers "
                       f"{ok} (batch on the card {batch_s:.2f} s)", flush=True)
@@ -374,7 +417,82 @@ def _p3_phase(api, corpus, dev, card) -> bool:
     routed = via_api == strips.encode(img, device=dev) and via_api[10] == 3
     print(f"[p3 api] compress_tiled(effort=3) on a 40x56 image: profile {via_api[10]}, "
           f"{len(via_api)} B, equal to strips.encode {routed}", flush=True)
-    return same and routed
+    if not (same and routed):
+        return False
+
+    # ---- decode.  The corpus at th = 16 (the depth cut: 16 rows a strip
+    # keep the walk at 16 x 512 pixel steps; a 768-row strip is 393,216)
+    th16 = 16
+    conts16 = strips.encode_batch(corpus, th=th16, device=dev)
+    fixtures = _p3_fixtures()
+    # the CPU's decodes run in a process of their own meanwhile
+    cpu_groups = ([pair_conts[k] for k in pair_conts] + [[c] for c, _ in fixtures.values()]
+                  + [[conts16[i] for i in picks]])
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_job = pool.submit(_cpu_decode, cpu_groups)
+        card_groups = []
+        for (tune, th_), batch in pair_conts.items():
+            t0 = time.perf_counter()
+            back = strips.decode_batch(batch, device=dev)
+            dec_s = time.perf_counter() - t0
+            card_groups.append(back)
+            ok = all(np.array_equal(b, im) for b, im in zip(back, pair))
+            print(f"[p3 decode] {tune} th {th_}: the pair decoded on the card as one batch "
+                  f"equal to the images {ok} ({dec_s:.2f} s)", flush=True)
+            if not ok:
+                return False
+        for name, (c, want) in fixtures.items():
+            back = strips.decode(c, device=dev)
+            card_groups.append([back])
+            ok = np.array_equal(back, want)
+            print(f"[p3 decode] fixture {name} ({len(c)} B, near "
+                  f"{strips._parse(c)[0][6]}): decoded on the card equal to nblic_tpu's "
+                  f"pixels {ok}", flush=True)
+            if not ok:
+                return False
+
+        torch.cuda.reset_peak_memory_stats()
+        with StageClock([(strips, "_decode_walk", "walk")]) as clock:
+            t0 = time.perf_counter()
+            decoded = tiled.decode_batch(conts16, device=dev)
+            dec_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        walk_ms = clock.stages()["walk"]
+        exact = all(np.array_equal(d, im) for d, im in zip(decoded, corpus))
+        n_steps = th16 * w
+        ms_step = walk_ms / n_steps
+        lanes16 = len(corpus) * -(-h // th16)
+        print(f"[p3 decode corpus] {len(corpus)} images th {th16}, {lanes16} strip lanes, "
+              f"{n_steps} pixel steps: round trip {exact}, "
+              f"{8.0 * sum(map(len, conts16)) / n_px:.4f} bpp at th {th16}, "
+              f"tiled.decode_batch {n_px / dec_s / 1e6:.4f} MPix/s ({dec_s:.2f} s), walk "
+              f"{walk_ms / 1e3:.2f} s = {ms_step:.3f} ms a pixel step, peak device memory "
+              f"{peak:.2f} GiB; one 768x512 image at th 768 ({768 * 512} steps) would take "
+              f"{768 * 512 * ms_step / 6e4:.1f} min at this step time ({card})", flush=True)
+        if not exact:
+            return False
+        card_groups.append([decoded[i] for i in picks])
+
+        t0 = time.perf_counter()
+        back = api.decompress(via_api, device=dev)
+        ok = np.array_equal(back, img)
+        print(f"[p3 decode api] api.decompress of the 40x56 effort-3 container equal to "
+              f"the image {ok} ({time.perf_counter() - t0:.2f} s)", flush=True)
+        if not ok:
+            return False
+
+        t0 = time.perf_counter()
+        cpu = cpu_job.result()
+        wait_s = time.perf_counter() - t0
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    same = all(np.array_equal(a, b) for g_cpu, g_card in zip(cpu, card_groups)
+               for a, b in zip(g_cpu, g_card))
+    print(f"[p3 decode] the cpu's decodes of the {len(cpu_groups)} groups (each pair, each "
+          f"fixture, corpus images {picks}) equal the card's {same} (waited {wait_s:.1f} s "
+          f"for them)", flush=True)
+    return same
 
 
 def _main_path(api, tiled, corpus, frame, dev, effort, tag, card):
@@ -652,8 +770,9 @@ def main() -> int:
 
     # ---- profile 3: plain PyTorch on the card, no kernel of its own
     t0 = time.perf_counter()
-    if not _p3_phase(api, corpus, dev, card):
-        print("[p3] failed: a container differed from the CPU's or the route")
+    if not _p3_phase(api, tiled, corpus, dev, card):
+        print("[p3] failed: a container or a decode differed from the CPU's, the image "
+              "or nblic_tpu's pixels, or the route")
         return 1
     print(f"[p3] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
 

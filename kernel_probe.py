@@ -30,6 +30,19 @@ PROBE is one of:
              scan, fold, packing and containers; with each stage's time a
              step (a row's column segment, a fold step).  Builds no
              variant.
+  p3-corpus  profile-3 encode of a synthetic corpus shaped as chip_smoke.py's
+             (18 512x768 and 6 768x512 images) as one strips.encode_batch at
+             strip height 64, after a small warm-up, twice, stage by stage as
+             chip_smoke.py times it.  Runs on the package beside it, so a
+             copy of this file beside an older checkout times that one.
+             Builds no variant.
+  p3-decode  the profile-3 decode walk (plain PyTorch) on the card: a
+             48x64 and a 64x48 image as one batch at strip height 16 under
+             TUNE_V4, TUNE_MAX, TUNE_V4S and TUNE_V1, each round trip held
+             to the images, with the walk's time a pixel step; then TUNE_V4
+             on 1, 64 and 1024 images of 64x16 (4, 256 and 4096 strip lanes,
+             256 steps each), the step time against the lane count.  Builds
+             no variant.
 
 Each variant is a copy of a source with some lines replaced, built by nvcc
 into build/probe/ (all builds run at once) and called through ctypes; none
@@ -362,10 +375,66 @@ def p3_stages(card: str) -> bool:
     return len(cont) > 0
 
 
+def p3_corpus(card: str) -> bool:
+    from chip_smoke import StageClock, p3_stage_targets
+    from nblic_tpu_torch.models import strips
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    corpus = [synth_image(rng, 512, 768) for _ in range(18)]
+    corpus += [synth_image(rng, 768, 512) for _ in range(6)]
+    n_px = sum(im.size for im in corpus)
+    strips.encode_batch([im[:64, :48] for im in corpus[:2]], th=64, device=dev)  # warm-up
+    for rep in range(2):
+        with StageClock(p3_stage_targets(strips)) as clock:
+            conts = strips.encode_batch(corpus, th=64, device=dev)
+        stages = clock.stages()
+        total = sum(stages.values())
+        print(f"[p3-corpus] rep {rep}: {len(corpus)} images th 64, "
+              f"{8.0 * sum(map(len, conts)) / n_px:.4f} bpp, {total / 1e3:.2f} s "
+              f"({n_px / total / 1e3:.4f} MPix/s); "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items()) + f" ({card})",
+              flush=True)
+    return len(conts) == len(corpus)
+
+
+def p3_decode(card: str) -> bool:
+    from chip_smoke import StageClock
+    from nblic_tpu_torch.models import strips
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    pair = [synth_image(rng, 48, 64), synth_image(rng, 64, 48)]
+    small = [synth_image(rng, 64, 16) for _ in range(1024)]
+    cases = [(t, pair) for t in ("TUNE_V4", "TUNE_MAX", "TUNE_V4S", "TUNE_V1")]
+    cases += [("TUNE_V4", small[:k]) for k in (1, 64, 1024)]
+    default, ok = strips.TUNE, True
+    try:
+        for tune, imgs in cases:
+            strips.TUNE = getattr(strips, tune)
+            conts = strips.encode_batch(imgs, th=16, device=dev)
+            with StageClock([(strips, "_parse", "parse"),
+                             (strips, "_decode_walk", "walk")]) as clock:
+                back = strips.decode_batch(conts, device=dev)
+            walk_ms = clock.stages()["walk"]
+            same = all(np.array_equal(b, im) for b, im in zip(back, imgs))
+            ok &= same
+            h, w = max(imgs[0].shape), min(imgs[0].shape)
+            steps = 16 * w
+            print(f"[p3-decode] {tune} {len(imgs)}x{imgs[0].shape} th 16, "
+                  f"{len(imgs) * -(-h // 16)} lanes, {steps} steps: exact {same}, walk "
+                  f"{walk_ms / 1e3:.2f} s, {walk_ms / steps:.3f} ms a pixel step ({card})",
+                  flush=True)
+    finally:
+        strips.TUNE = default
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probes", nargs="+", choices=("cut-chain", "slot-bits", "fold",
-                                                     "near-stages", "p3-stages"))
+                                                     "near-stages", "p3-stages",
+                                                     "p3-corpus", "p3-decode"))
     ap.add_argument("--parent", type=Path,
                     help="cut-chain: also cut this group_decode.cu of the parent design")
     args = ap.parse_args(argv)
@@ -410,6 +479,10 @@ def main(argv=None) -> int:
         ok &= near_stages(card)
     if "p3-stages" in args.probes:
         ok &= p3_stages(card)
+    if "p3-corpus" in args.probes:
+        ok &= p3_corpus(card)
+    if "p3-decode" in args.probes:
+        ok &= p3_decode(card)
     return 0 if ok else 1
 
 

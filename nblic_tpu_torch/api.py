@@ -4,8 +4,8 @@
 container, the same format as ``nblic_tpu`` (see ``models/tiled.py`` for
 where the bytes may differ at effort 2): profile 1 at effort 0-1 and
 profile 2 at effort 2, lossless or, with ``near`` > 0, near-lossless; and
-profile 3 (the strip engine) at effort 3, lossless, which ``decompress``
-does not read yet.
+profile 3 (the strip engine) at effort 3, lossless.  The decoders read every
+profile-3 container, near-lossless ones included.
 ``decompress`` sniffs the container magic.  Every entry takes ``device``,
 "cuda" by default; asking for CUDA where there is none raises.
 """

@@ -6,8 +6,9 @@ Usage:
 
 Switches: ``-v`` verbose, ``-n<int>`` near (0 lossless; k > 0 near-lossless,
 max error k), ``-e<digit>`` effort (0-1 profile 1, 2 profile 2, 3 profile 3,
-lossless only), ``--tile-h=N`` / ``--tile-w=N`` tile geometry (default 64x64;
-profile 3 cuts full-width strips instead).
+whose encoder is lossless only), ``--tile-h=N`` / ``--tile-w=N`` tile geometry
+(default 64x64; profile 3 cuts full-width strips instead).  ``-d`` reads
+profiles 1-3, near-lossless profile 3 included.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ nblic_tpu_torch: the PyTorch / CUDA port of the NBTC tiled codec
     -v           verbose
     -n<number>   near: 0 lossless (default), k > 0 near-lossless (max error k)
     -e<number>   effort: 0 or 1 (profile 1), 2 (profile 2: per-tile least squares),
-                 3 (profile 3: adaptive strips, lossless; not yet decoded)
+                 3 (profile 3: adaptive strips; encodes lossless only)
     --tiled      the tile-parallel NBTC container (the only one ported)
     --device=D   torch device, default cuda
     --tile-h=N / --tile-w=N   NBTC tile geometry (default 64x64)

@@ -1,7 +1,9 @@
-"""NBTC profile 3, lossless encode: the adaptive-coding strip engine.
+"""NBTC profile 3: the adaptive-coding strip engine.
 
-Counterpart of the encoder's half of ``nblic_tpu/models/strips.py``; writes
-the same containers byte for byte.  Images are normalized to portrait (the
+Counterpart of ``nblic_tpu/models/strips.py``: the lossless encoder writes
+the same containers byte for byte, and the decoder reads every profile-3
+container that package writes or reads, lossless or near-lossless, to the
+same pixels.  Images are normalized to portrait (the
 long axis scans as rows; the header flags a transpose) and cut into
 full-width strips of ``th`` rows.  Every strip of every same-shape image of
 a call is one lane, and all lanes run in lockstep:
@@ -19,13 +21,19 @@ a call is one lane, and all lanes run in lockstep:
 - Fold (``ops/rans_bin.py``): binary rANS over 16 phase states a strip,
   slots assigned to phases statically, then ``rans.pack_streams``.
 
+Decode (:func:`_decode_walk`) is one lockstep step a pixel over every strip
+lane of every image of a call: the AVP prediction from the reconstructed
+window, the bias correction, up to n_unary + 8 binary decisions read from
+the 16 phase states, the AutoMapper and the unfold, then the same segment
+and row updates of the adaptive state as the encoder's.
+
 Container (``NBTC0001``, profile 3): header | 32-byte Tune block | u32
 word count per state | the states' u16 streams.  ``tile_h`` is the strip
 height; ``tile_w`` bit 0 the transpose, bit 1 the legacy tune-version bit,
 bits 2 and 3 the extended Tune block, bits 4+ the AVP feature count;
 ``n_tiles`` the strip count; ``bias_len`` 0 (the bias is replayed, not
-sent).  Decode and near-lossless are not ported yet (ROADMAP Queue 1 items
-10 and 11).
+sent; a legacy container carries a zlib'd static table there and still
+decodes).  Near-lossless encode is not ported yet (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -38,17 +46,21 @@ import torch
 from ..constants import MAX_VAL, Q_N_CONTEXT
 from ..convert import resolve_device
 from ..ops import coder3, pavp, rans, rans_bin, zcodec3
-from ..ops.context import quantize_bias, residual_fold
-from ..ops.neighbors import sample
+from ..ops.avp import BETA, FB1, FIT_BASE
+from ..ops.context import BIAS_FRAC_BITS, quantize_bias, residual_fold, residual_unfold
+from ..ops.neighbors import Neighbors, sample
 from ..ops.predict import (
     activity, context_address, n_quantize_activity, quantize_activity, shift_err,
+    simple_predict,
 )
-from ..utils.container import NbtcHeader, check_size
+from ..ops.window import row_start_window, slide_window
+from ..utils.container import NbtcHeader, check_size, inflate
 
 # default strip height: a whole 768-row Kodak-shaped image is one strip
 TH_DEFAULT = 768
 AVP_N = 10          # AVP feature count; containers record it
 K_STEP = 3          # lossless k_step
+N_TAPS = 12         # AVP taps a container may name (bits 4+ of tile_w)
 N_PHASE = rans_bin.N_PHASE
 L_R = zcodec3.ESCAPE_BITS  # the refine grid carries the escape bits too
 PROFILE = 3
@@ -133,6 +145,11 @@ TUNE_V3S = TUNE_V3._replace(n_seg=64, seg_stats=1)
 TUNE_V4S = TUNE_V3S._replace(w_pred=1, n_unary=10, seg_bias=0, seg_map=0)
 # what new containers are encoded with
 TUNE = TUNE_V4
+
+
+def _k_step(near: int) -> int:
+    """k_step from near, the reference's rule: min(3 + 2 near, 16)."""
+    return min(K_STEP + 2 * near, zcodec3.N_ROW)
 
 
 def _eff_seg(n_seg: int, w: int) -> int:
@@ -458,3 +475,434 @@ def encode_batches(image_groups, th: int = TH_DEFAULT, near: int = 0,
                    device="cuda") -> list[list[bytes]]:
     """Encode several batches, one :func:`encode_batch` each."""
     return [encode_batch(g, th=th, near=near, device=device) for g in image_groups]
+
+
+# ---------------------------------------------------------------------------
+# the per-pixel model (the decoder's, and the near encoder's)
+# ---------------------------------------------------------------------------
+
+
+def _pixel_taps(regs, prev1, i: int, j: int, w: int, n: int):
+    """Neighbor taps, the simple prediction and the n AVP features (taps
+    minus FIT_BASE, int64 (n, L)) of pixel (i, j) from the causal window.
+    The t tap (feature 7) is (i - 1, j + 2) of the reconstructed row
+    above, d out of range."""
+    nb = Neighbors(*regs)
+    px_s = simple_predict(nb)
+    t_tap = prev1[:, j + 2] if i >= 1 and j + 2 < w else nb.d
+    taps = (nb.a, nb.b, nb.c, nb.d, nb.e, nb.f, t_tap, nb.h, nb.q, nb.g, nb.r, nb.s)
+    return nb, px_s, torch.stack([v.to(torch.int64) for v in taps[:n]]) - FIT_BASE
+
+
+def _round_px(px_f, ok, px_s):
+    """An FB1 fixed-point prediction rounded to a pixel; px_s where the
+    solve failed."""
+    return torch.where(ok, (px_f + (1 << (FB1 - 1))) >> FB1, px_s)
+
+
+def _pixel_px0_from_solve(diag, num, ok, feats, px_s):
+    """Prediction of a pixel from its solved ridge system."""
+    return _round_px(pavp.predict_from_solve(diag, num, feats), ok, px_s)
+
+
+def _pixel_ctx(nb, err, px0):
+    """Activity quantizers and the context address of one pixel column."""
+    delta = activity(nb, err)
+    qu, qv, qw = n_quantize_activity(delta)
+    return qu, qv, qw, context_address(nb, px0, quantize_activity(delta))
+
+
+def _pixel_features(regs, prev1, err, f_row_j, e_acc, i: int, j: int, w: int, n: int):
+    """Prediction and contexts of pixel (i, j): AVP over the running
+    moment chains (stats = E + F) with the simple-prediction fallback."""
+    nb, px_s, feats = _pixel_taps(regs, prev1, i, j, w, n)
+    stats = e_acc + f_row_j
+    px0 = _round_px(*pavp.predict_from_stats(stats, feats, n), px_s)
+    qu, qv, qw, adr = _pixel_ctx(nb, err, px0)
+    return nb, px_s, feats, stats, px0, qu, qv, qw, adr
+
+
+def _pixel_correct(px0, bias):
+    """Bias-corrected prediction, the bias's half bit as the preferred
+    sign, and the mapper key: (sign, pxc, key)."""
+    sign = (bias >> (BIAS_FRAC_BITS - 1)) & 1
+    pxc = torch.clamp(px0 + (bias >> BIAS_FRAC_BITS) + sign, 0, MAX_VAL)
+    return sign, pxc, pxc * 2 + sign
+
+
+def _pixel_update(x, px_s, feats, stats, e_acc, b_row, j: int, ab, n: int):
+    """Fold the reconstructed pixel x into the moment chains: column j of
+    B (``b_row`` (W, m, L), written in place) and E.  The sample weight
+    comes from the simple predictor's error.  Returns E after column j."""
+    s_curr = torch.abs(x - px_s).to(torch.int64) << FB1
+    s_sum = stats[0] + torch.div(s_curr * BETA, BETA - 1, rounding_mode="trunc")
+    b_col = pavp.decay(b_row[j], ab) + pavp.contributions(
+        x.to(torch.int64), feats, s_curr, s_sum, n)
+    b_row[j] = b_col
+    return pavp.decay(e_acc, ab) + b_col
+
+
+def _mix_update(x, px_hard, px_s, e_mix, b_mix, j: int, ab_m):
+    """Fold both predictors' |error| at x into the two mix chains: column j
+    of ``b_mix`` (W, 2, L), written in place, and E.  Returns E."""
+    x = x.to(torch.int64)
+    col = pavp.decay(b_mix[j], ab_m) + torch.stack(
+        [torch.abs(x - px_hard) << FB1, torch.abs(x - px_s) << FB1])
+    b_mix[j] = col
+    return pavp.decay(e_mix, ab_m) + col
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def _decode_walk(words, bias_tab, th: int, w: int, s: int, n_imgs: int, n_feat: int,
+                 near: int, tune: Tune):
+    """Lockstep decode of every strip lane, one step a pixel.
+
+    words: (N_PHASE, L, wmax) int64 streams of the L = n_imgs * s lanes,
+    image-major; ``bias_tab``: None for the row-adaptive bias, else the
+    legacy static tables (n_imgs * C,).  ``tune`` is the container's replay
+    contract.  Returns the (L, th, w) uint8 reconstruction on words'
+    device.  The pixel loop never waits for the host: every index that
+    varies is a tensor, (i, j) and the phase of each bin are Python ints.
+    """
+    dev = words.device
+    lanes = n_imgs * s
+    n = n_feat
+    m = pavp.get_m(n)
+    k_step = _k_step(near)
+    l_u = tune.n_unary
+    l_tot = l_u + L_R
+    lc = zcodec3.layer_consts(k_step, l_u)
+    n_class = lc.n_class
+    adaptive = bias_tab is None
+    n_seg = _eff_seg(tune.n_seg, w)
+    ws = w // n_seg
+    seg_bias = bool(tune.seg_bias) and n_seg > 1 and adaptive
+    seg_map = bool(tune.seg_map) and n_seg > 1
+    seg_stats = bool(tune.seg_stats)
+    sym_cnt = bool(tune.sym_cnt)
+    mix_e = bool(tune.mix_e) and not seg_stats
+    w_pred = bool(tune.w_pred) and seg_stats
+    i64 = dict(dtype=torch.int64, device=dev)
+
+    # constants, made once: none is copied from the host in the loop
+    img = torch.arange(n_imgs, **i64).repeat_interleave(s)
+    li = torch.arange(lanes, **i64)
+    lane = li[:, None]
+    bias_off = img * Q_N_CONTEXT
+    map_off = img * coder3.MAP_KEYS
+    ab = pavp.ab_vec(m, dev)
+    ab_m = pavp.ab_vec(pavp.mix_ab(), dev)
+    esc = zcodec3.layer_axis(lc.esc_counts, torch.int64, dev, 1)  # (l_u, 1)
+    cls = zcodec3.layer_axis(lc.cls_vals, torch.int64, dev, 1)
+    i_vals = zcodec3.layer_axis(lc.i_vals, torch.int64, dev, 0)
+    lane_rows = li[None] * zcodec3.N_ROW  # each lane's first counter row
+    r_layers = torch.arange(L_R, **i64)[:, None]
+    esc_weight = 1 << (zcodec3.ESCAPE_BITS - 1 - r_layers)
+    msb_pair = torch.arange(2, **i64)
+    bypass = torch.full((lanes,), rans_bin.BYPASS_P1, **i64)
+    zero = torch.zeros((lanes,), **i64)
+    no = torch.zeros((lanes,), dtype=torch.bool, device=dev)
+    yes = ~no
+
+    # the carry
+    prev1 = torch.zeros((lanes, w), **i64)
+    prev2 = prev1
+    b_row = torch.zeros((w, m, lanes), **i64)
+    b_mix = torch.zeros((w, 2, lanes), **i64) if mix_e else None
+    utab = coder3.init_unary(lanes, n_class, tune.cnt_init, dev)
+    rtab = coder3.init_refine(lanes, tune.cnt_init, dev)
+    mhist = coder3.init_mapper(n_imgs, dev)
+    bsums = torch.zeros(n_imgs * Q_N_CONTEXT, **i64)
+    bcnts = torch.zeros_like(bsums)
+    state0, ptr0 = rans_bin.dec_init(words)
+    phase_words = list(words.unbind(0))
+    states, ptrs = list(state0.unbind(0)), list(ptr0.unbind(0))
+    out = torch.empty((lanes, th, w), dtype=torch.uint8, device=dev)
+
+    def code_bin(c: int, p1, active):
+        """Decode one bin of phase c on the lanes where ``active``."""
+        b, states[c], ptrs[c] = rans_bin.dec_masked(states[c], ptrs[c], p1, active,
+                                                    phase_words[c])
+        return b
+
+    for i in range(th):
+        if not seg_bias:
+            btab = quantize_bias(bsums, bcnts, tune.bias_shrink) if adaptive else bias_tab
+        if not seg_map:
+            order = coder3.mapper_order(mhist).reshape(-1)
+        f_row = pavp.f_chain(b_row, ab=ab)  # (W, m, L), from the row above's B
+        f_mix = pavp.f_chain(b_mix, ab=ab_m) if mix_e else None
+        regs = row_start_window(i, prev1, prev2, w)
+        err = zero
+        e_acc = torch.zeros((m, lanes), **i64)
+        e_mix = torch.zeros((2, lanes), **i64) if mix_e else None
+        row_parts = []
+        for j0 in range(0, w, ws):
+            if not sym_cnt:
+                uprob = coder3.prob_table(utab).reshape(-1)
+                rprob = coder3.prob_table(rtab).reshape(-1)
+            if seg_bias:
+                btab = quantize_bias(bsums, bcnts, tune.bias_shrink)
+            if seg_map:
+                order = coder3.mapper_order(mhist).reshape(-1)
+            if w_pred:
+                # the statistics held at the segment's first column: one
+                # solve and one weight quantization a segment
+                stats0 = e_acc + f_row[j0]
+                diag, num, ok_seg = pavp.solve_stats(stats0, n)
+                wq_seg = pavp.quantize_weights(diag, num)
+            elif seg_stats:
+                # E frozen at the segment start and decay-extended (the
+                # encoder's e_freeze_extend): the segment's solves batch here
+                e_lag = [e_acc]
+                for _ in range(ws - 1):
+                    e_lag.append(pavp.decay(e_lag[-1], ab))
+                stats_seg = torch.stack(e_lag) + f_row[j0 : j0 + ws]  # (ws, m, L)
+                diag, num, ok_x = pavp.solve_stats(stats_seg.transpose(0, 1).reshape(m, -1), n)
+                diag, num, ok_x = diag.view(n, ws, lanes), num.view(n, ws, lanes), \
+                    ok_x.view(ws, lanes)
+            cols = []
+            for j in range(j0, j0 + ws):
+                if seg_stats:
+                    nb, px_s, feats = _pixel_taps(regs, prev1, i, j, w, n)
+                    if w_pred:
+                        px0 = torch.where(ok_seg, pavp.predict_wq(wq_seg, feats.to(torch.int32)),
+                                          px_s)
+                    else:
+                        k = j - j0
+                        px0 = _pixel_px0_from_solve(diag[:, k], num[:, k], ok_x[k], feats, px_s)
+                    qu, qv, qw, adr = _pixel_ctx(nb, err, px0)
+                elif mix_e:
+                    # the hard-fallback AVP and the simple prediction blended
+                    # by their squared decayed |error| energies
+                    nb, px_s, feats = _pixel_taps(regs, prev1, i, j, w, n)
+                    stats = e_acc + f_row[j]
+                    px_f, ok = pavp.predict_from_stats(stats, feats, n)
+                    px_hard = _round_px(px_f, ok, px_s)
+                    em = e_mix + f_mix[j]
+                    px0 = pavp.mix_blend(px_hard, px_s, em[0], em[1], ok)
+                    qu, qv, qw, adr = _pixel_ctx(nb, err, px0)
+                else:
+                    nb, px_s, feats, stats, px0, qu, qv, qw, adr = _pixel_features(
+                        regs, prev1, err, f_row[j], e_acc, i, j, w, n)
+                sign, pxc, key = _pixel_correct(px0, btab[bias_off + adr])
+                base = (i * w + j) * l_tot  # the pixel's first slot
+
+                # the unary walk: layer l reads rows escalated l's way; a
+                # lane walks on while it decodes ones, so the layer it
+                # stopped at is its count of ones
+                ru = zcodec3.escalated_row(qu[None], esc, k_step)  # (l_u, L)
+                rv = zcodec3.escalated_row(zcodec3.adjust_qv(qu, qv, k_step)[None], esc,
+                                           k_step)
+                ucell_u = (lane_rows + ru) * n_class + cls
+                ucell_v = (lane_rows + rv) * n_class + cls
+                if sym_cnt:
+                    w_u, w_v = coder3.QW_MAX - qw, qw
+                else:
+                    p1_u = coder3.mix_prob(uprob[ucell_u], uprob[ucell_v], qw)
+                active = yes
+                n_ones = zero
+                for l in range(l_u):
+                    if sym_cnt:  # live counters: every bin's update feeds the next
+                        ucnt = utab.view(-1, 2)
+                        p1 = coder3.mix_prob(_pair_prob(ucnt[ucell_u[l]]),
+                                             _pair_prob(ucnt[ucell_v[l]]), qw)
+                    else:
+                        p1 = p1_u[l]
+                    b = code_bin((base + l) % N_PHASE, p1, active)
+                    if sym_cnt:
+                        flat = utab.view(-1)
+                        flat.index_add_(0, 2 * ucell_u[l] + b, w_u * active)
+                        flat.index_add_(0, 2 * ucell_v[l] + b, w_v * active)
+                    n_ones = n_ones + b
+                    active = b
+                escaped = active
+                stopped = ~escaped
+                stop_layer = torch.clamp(n_ones, max=l_u - 1)
+                stop_row = ru.gather(0, stop_layer[None])[0]
+                k_end = torch.where(stopped, torch.div(stop_row, k_step, rounding_mode="floor"),
+                                    0)
+                z = torch.where(stopped, (i_vals[stop_layer] >> lc.k_max) << k_end, 0)
+
+                # refinement bits, MSB first (bit position kk, context: the
+                # row, kk and whether a higher bit was 1), or an escaped
+                # symbol's 8 raw bits
+                kk = k_end - 1 - r_layers  # (L_R, L)
+                act_r = (kk >= 0) & stopped  # none past layer N_REFINE - 1
+                kk = torch.clamp(kk, 0, zcodec3.N_REFINE - 1)
+                # counter pair of each layer at msb 0
+                rpair = ((lane_rows + stop_row) * zcodec3.N_REFINE + kk) * 2
+                if not sym_cnt:
+                    p_refine = rprob[rpair[: zcodec3.N_REFINE, :, None] + msb_pair]
+                # a decoded 1 adds 1 << kk, or an escaped symbol's 1 << (7 - l)
+                weight = torch.where(escaped, esc_weight, 1 << kk)
+                msb = no
+                for l in range(L_R):
+                    if l < zcodec3.N_REFINE:
+                        if sym_cnt:
+                            pair = rpair[l] + msb
+                            p_ad = _pair_prob(rtab.view(-1, 2)[pair])
+                        else:
+                            p_ad = torch.where(msb, p_refine[l, :, 1], p_refine[l, :, 0])
+                        p1 = torch.where(escaped, rans_bin.BYPASS_P1, p_ad)
+                    else:
+                        p1 = bypass
+                    b = code_bin((base + l_u + l) % N_PHASE, p1, act_r[l] | escaped)
+                    if sym_cnt and l < zcodec3.N_REFINE:
+                        rtab.view(-1).index_add_(0, 2 * pair + b, act_r[l].to(torch.int64))
+                    msb = msb | b
+                    z = z + b * weight[l]
+
+                # the AutoMapper's order, the unfold and the chains
+                y_map = order[(map_off + key) * coder3.N_MAP
+                              + torch.clamp(z, 0, coder3.N_MAP - 1)]
+                y = torch.where(z < coder3.N_MAP, y_map, z)
+                x = residual_unfold(y, pxc, sign, near)
+                err = torch.clamp(x - px0, -MAX_PX_INC, MAX_PX_INC)
+                if not seg_stats:
+                    e_acc = _pixel_update(x, px_s, feats, stats, e_acc, b_row, j, ab, n)
+                if mix_e:
+                    e_mix = _mix_update(x, px_hard, px_s, e_mix, b_mix, j, ab_m)
+                regs = slide_window(regs, x, i, j, prev1, prev2, w)
+                cols.append((x, y, z, qu, qv, qw, key, adr, px0, px_s, feats))
+
+            x_c, y_c, z_c, qu_c, qv_c, qw_c, key_c, adr_c, px0_c = (
+                torch.stack(v, 1) for v in list(zip(*cols))[:9])  # (L, ws)
+            if seg_stats:
+                # the segment's moments, folded column by column at once
+                x64, px_s_c = x_c.t(), torch.stack([c[9] for c in cols])  # (ws, L)
+                feats_c = torch.stack([c[10] for c in cols], 1)  # (n, ws, L)
+                s_curr = torch.abs(x64 - px_s_c) << FB1
+                e0 = stats0[0][None] if w_pred else stats_seg[:, 0]
+                s_sum = e0 + torch.div(s_curr * BETA, BETA - 1, rounding_mode="trunc")
+                contrib = pavp.contributions(x64.reshape(-1), feats_c.reshape(n, -1),
+                                             s_curr.reshape(-1), s_sum.reshape(-1), n)
+                b_new = pavp.decay(b_row[j0 : j0 + ws], ab) \
+                    + contrib.view(m, ws, lanes).transpose(0, 1)
+                b_row[j0 : j0 + ws] = b_new
+                for b_col in b_new:
+                    e_acc = pavp.decay(e_acc, ab) + b_col
+            # the segment's adaptive-state replay, as the encoder's
+            if sym_cnt:  # the walk counted every bin; only the halving is left
+                utab = coder3.halve_pairs(utab, tune.cnt_halve)
+                rtab = coder3.halve_pairs(rtab, tune.cnt_halve)
+            else:
+                unary, refine, row_end, k_end, _ = _code_events(z_c, qu_c, qv_c, k_step, l_u)
+                utab, rtab = coder3.row_updates(
+                    utab, rtab, qw_c, unary, refine,
+                    coder3.unary_cells(lane, unary, k_step, l_u, n_class),
+                    coder3.refine_cells(lane, row_end, k_end, refine[2]), tune.cnt_halve)
+            if seg_map:
+                mhist = coder3.mapper_updates(mhist, img, key_c, y_c, tune.map_bump,
+                                              tune.map_halve)
+            if seg_bias:
+                bsums, bcnts = _bias_update(bsums, bcnts, bias_off[:, None] + adr_c,
+                                            x_c - px0_c, tune.bias_cap)
+            row_parts.append((x_c, y_c, key_c, adr_c, px0_c))
+
+        x_r, y_r, key_r, adr_r, px0_r = (torch.cat(v, 1) for v in zip(*row_parts))
+        if not seg_map:
+            mhist = coder3.mapper_updates(mhist, img, key_r, y_r, tune.map_bump,
+                                          tune.map_halve)
+        if adaptive and not seg_bias:
+            bsums, bcnts = _bias_update(bsums, bcnts, bias_off[:, None] + adr_r,
+                                        x_r - px0_r, tune.bias_cap)
+        out[:, i] = x_r
+        prev1, prev2 = x_r, prev1
+    return out
+
+
+def _parse(stream: bytes):
+    """Header, replay contract and streams of a profile-3 container, every
+    field checked before anything is sized from it.  Returns (geometry
+    (height, width, strips, th, transposed, n_feat, near, tune), the
+    static bias table or None, the per-state word counts, the u16
+    payload)."""
+    hdr = NbtcHeader.from_bytes(stream)
+    if hdr.profile != PROFILE:
+        raise ValueError(f"not a profile-3 container: profile {hdr.profile}")
+    check_size(hdr.height, hdr.width)
+    pos = NbtcHeader.SIZE
+    if hdr.tile_w & 4:  # a serialized replay contract
+        ext = bool(hdr.tile_w & 8)  # the 32-byte extended block
+        size = Tune.SIZE2 if ext else Tune.SIZE
+        tune = Tune.from_bytes(stream[pos : pos + size], ext).validate()
+        pos += size
+    else:  # legacy: the version bit names a fixed contract
+        tune = TUNE_V2 if hdr.tile_w & 2 else TUNE_V1
+    # the strip geometry bounds the decode plane: the strips must cover the
+    # portrait height once, and the encoder never cuts a strip taller than
+    # that height rounded up to 16 rows
+    hh = hdr.width if hdr.tile_w & 1 else hdr.height
+    if (hdr.tile_h < 1 or hdr.n_tiles != -(-hh // hdr.tile_h)
+            or hdr.tile_h > -(-hh // N_PHASE) * N_PHASE):
+        raise ValueError("inconsistent profile-3 strip geometry")
+    n_feat = (hdr.tile_w >> 4) or 6  # containers before the count held 6
+    if n_feat > N_TAPS:
+        raise ValueError(f"invalid profile-3 AVP feature count {n_feat}")
+    bias = None
+    if hdr.bias_len:  # legacy transmitted static-bias table
+        raw = inflate(stream[pos : pos + hdr.bias_len], "profile-3 bias table")
+        bias = np.frombuffer(raw, dtype="<i2").astype(np.int64)
+        if bias.shape != (Q_N_CONTEXT,):
+            raise ValueError("malformed profile-3 bias table")
+    pos += hdr.bias_len
+    n_states = hdr.n_tiles * N_PHASE
+    lengths = np.frombuffer(stream[pos : pos + 4 * n_states], dtype="<u4").astype(np.int64)
+    if lengths.size != n_states:
+        raise ValueError("truncated profile-3 length table")
+    pos += 4 * n_states
+    payload = np.frombuffer(stream, dtype="<u2", offset=pos, count=(len(stream) - pos) // 2)
+    # every stream opens with two state words, and the table must fit the
+    # payload (a corrupt length would size the stream matrix)
+    if (lengths < 2).any() or int(lengths.sum()) > payload.size:
+        raise ValueError("invalid profile-3 stream lengths")
+    geom = (hdr.height, hdr.width, hdr.n_tiles, hdr.tile_h, bool(hdr.tile_w & 1), n_feat,
+            hdr.near, tune)
+    return geom, bias, lengths, payload
+
+
+def _plane_geom(geom):
+    """What lanes of one walk share: the encoded (portrait) plane and the
+    model; each image's orientation only changes its crop."""
+    h0, w0, s, th, transposed, n_feat, near, tune = geom
+    return (s, th, h0 if transposed else w0, n_feat, near, tune)
+
+
+def decode(stream: bytes, device="cuda") -> np.ndarray:
+    """Decode one profile-3 container."""
+    return decode_batch([stream], device=device)[0]
+
+
+def decode_batch(streams: list[bytes], device="cuda") -> list[np.ndarray]:
+    """Decode profile-3 containers.  Those of one encoded plane geometry,
+    model and bias mode run as the image-major lanes of one walk; any other
+    mix decodes one by one."""
+    dev = resolve_device(device)
+    if not streams:
+        return []
+    parsed = [_parse(x) for x in streams]
+    adaptive = parsed[0][1] is None
+    if any(_plane_geom(p[0]) != _plane_geom(parsed[0][0]) or (p[1] is None) != adaptive
+           for p in parsed[1:]):
+        return [decode(x, device=dev) for x in streams]
+    s, th, ww, n_feat, near, tune = _plane_geom(parsed[0][0])
+    n_imgs = len(parsed)
+    wmax = max(2, max(int(p[2].max()) for p in parsed))
+    wmax = -(-wmax // 64) * 64
+    smat = np.concatenate([rans.pad_streams(p[3], p[2], wmax) for p in parsed])
+    words = torch.from_numpy(smat).to(dev).view(n_imgs * s, N_PHASE, wmax)
+    words = words.transpose(0, 1).to(torch.int64).contiguous()
+    bias = None if adaptive else torch.from_numpy(
+        np.concatenate([p[1] for p in parsed])).to(dev)
+    px = _decode_walk(words, bias, th, ww, s, n_imgs, n_feat, near, tune).cpu().numpy()
+    out = []
+    for b, (geom, *_) in enumerate(parsed):
+        h0, w0, _, _, transposed, *_ = geom
+        plane = px[b * s : (b + 1) * s].reshape(s * th, ww)[: w0 if transposed else h0]
+        out.append(np.ascontiguousarray(plane.T if transposed else plane))
+    return out

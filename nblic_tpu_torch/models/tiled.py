@@ -29,10 +29,11 @@ a container still decodes exactly (within ``near``) in both packages.
   included.
 
 Effort 3 writes profile 3 through ``models/strips.py`` (lossless only), as
-the JAX package routes it.  Every entry point takes ``device`` ("cuda" by
-default); a CUDA device on a machine without CUDA raises.  Profile-0 and
-profile-3 decode and profile-3 near-lossless are not ported and raise
-``NotImplementedError`` naming their ROADMAP item.
+the JAX package routes it, and the decoders send profile-3 containers there.
+Every entry point takes ``device`` ("cuda" by default); a CUDA device on a
+machine without CUDA raises.  Profile-0 decode and profile-3 near-lossless
+encode are not ported and raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ from ..ops.fold import encode_fold
 from ..ops.neighbors import sample
 from ..ops.predict import context_planes, model_stage1, simple_predict
 from ..ops.window import pixel_model, row_start_window, slide_window
-from ..utils.container import NbtcHeader, check_size
+from ..utils.container import NbtcHeader, check_size, inflate
 from . import strips
 
 DEFAULT_TILE = (64, 64)
@@ -629,13 +630,6 @@ def _orientation_batches(imgs, transpose: bool = True):
 # ---------------------------------------------------------------------------
 
 
-def _inflate(data: bytes, what: str) -> bytes:
-    try:
-        return zlib.decompress(data)
-    except zlib.error as exc:
-        raise ValueError(f"corrupt {what}: {exc}") from None
-
-
 class _Parsed:
     """Host-side view of one NBTC profile-1 or profile-2 container."""
 
@@ -643,11 +637,11 @@ class _Parsed:
         self.hdr = hdr = NbtcHeader.from_bytes(stream)
         if hdr.profile not in (0, 1, 2, 3):
             raise ValueError(f"unknown NBTC profile {hdr.profile}")
-        if hdr.profile in (0, 3):
-            raise NotImplementedError({
-                0: "profile-0 containers are not ported (ROADMAP Queue 1 item 14)",
-                3: "profile-3 decode is not ported yet: ROADMAP Queue 1 item 10",
-            }[hdr.profile])
+        if hdr.profile == 0:
+            raise NotImplementedError(
+                "profile-0 containers are not ported (ROADMAP Queue 1 item 14)")
+        if hdr.profile == 3:
+            raise ValueError("a profile-3 container decodes through models/strips.py")
         check_size(hdr.height, hdr.width)
         # the tile grid before any decode: a hostile header is refused here
         if hdr.tile_h < 1 or hdr.tile_w < 1 or hdr.n_tiles != np.prod(
@@ -656,7 +650,7 @@ class _Parsed:
                              f"{hdr.width} image does not hold {hdr.n_tiles} tiles")
         pos = NbtcHeader.SIZE
         self.bias = np.frombuffer(
-            _inflate(stream[pos : pos + hdr.bias_len], "bias table"), dtype=np.int16
+            inflate(stream[pos : pos + hdr.bias_len], "bias table"), dtype=np.int16
         ).astype(np.int32)
         if self.bias.shape != (Q_N_CONTEXT,):
             raise ValueError("malformed bias table")
@@ -665,7 +659,7 @@ class _Parsed:
         if hdr.profile == 2:
             (wlen,) = np.frombuffer(stream[pos : pos + 4], dtype=np.uint32)
             pos += 4
-            raw = _inflate(stream[pos : pos + int(wlen)], "weight block")
+            raw = inflate(stream[pos : pos + int(wlen)], "weight block")
             pos += int(wlen) + (int(wlen) & 1)
             t = hdr.n_tiles
             self.flags = np.frombuffer(raw[:t], dtype=np.uint8)
@@ -717,15 +711,22 @@ class _Parsed:
 
 
 def decode(stream: bytes, device="cuda") -> np.ndarray:
-    """Decode one NBTC profile-1 or profile-2 container."""
+    """Decode one NBTC container of any profile the port writes."""
     return decode_batch([stream], device=device)[0]
 
 
 def decode_batch(streams: list[bytes], device="cuda") -> list[np.ndarray]:
-    """Decode same-geometry containers in one lockstep group decode."""
+    """Decode same-geometry containers in one lockstep group decode; profile
+    3 goes to :func:`strips.decode_batch`, and a batch may not mix it with
+    profiles 1-2."""
     dev = resolve_device(device)
     if not streams:
         return []
+    p3 = [NbtcHeader.from_bytes(s).profile == 3 for s in streams]
+    if any(p3):
+        if not all(p3):
+            raise ValueError("a decode batch mixes profile 3 with profiles 1-2")
+        return strips.decode_batch(streams, device=dev)
     parsed = [_Parsed(s) for s in streams]
     h0 = parsed[0].hdr
 

@@ -21,5 +21,11 @@ def tdiv(a, b):
     """C-truncating (round-toward-zero) integer division, as the reference's
     int64 math: the quotient of the magnitudes, negated where the signs
     differ.  Never divides by -1, so no operand can trap."""
-    q = torch.div(torch.abs(a), torch.abs(b), rounding_mode="floor")
-    return torch.where((a < 0) ^ (b < 0), -q, q)
+    return tdiv_by(a, torch.abs(b), b < 0)
+
+
+def tdiv_by(a, b_abs, b_neg):
+    """:func:`tdiv` by a divisor given as its magnitude and sign, for many
+    numerators over one divisor."""
+    q = torch.div(torch.abs(a), b_abs, rounding_mode="floor")
+    return torch.where((a < 0) ^ b_neg, -q, q)

@@ -67,6 +67,12 @@ def mapper_ranks(mhist):
     return ranks
 
 
+def mapper_order(mhist):
+    """(B, 512, N_MAP) counts -> order z -> y: the inverse of
+    :func:`mapper_ranks`, what the decoder reads."""
+    return torch.argsort(-mhist, dim=-1, stable=True)
+
+
 def halve_pairs(tab, thresh: int):
     over = (tab[..., 0] + tab[..., 1]) > thresh
     return torch.where(over[..., None], (tab + 1) >> 1, tab)

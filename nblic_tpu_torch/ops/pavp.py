@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import MAX_VAL
-from .avp import ALPHA, BETA, FB1, FB2, FB3, FIT_BASE, tdiv
+from .avp import ALPHA, BETA, FB1, FB2, FB3, FIT_BASE, tdiv, tdiv_by
 from .neighbors import sample
 from .predict import simple_predict
 
@@ -59,7 +59,17 @@ def mix_ab():
     return (BETA, BETA)
 
 
-def _decay(v, ab):
+def ab_vec(ab, device=None):
+    """Per-channel decay denominators as an int64 (C, 1) tensor, made once
+    for a loop that decays (C, L) columns: ``ab`` is m, for the energy
+    channel's BETA then m - 1 moment channels' ALPHA, or a tuple of
+    denominators."""
+    if isinstance(ab, int):
+        ab = (BETA,) + (ALPHA,) * (ab - 1)
+    return torch.tensor(ab, dtype=torch.int64, device=device).view(-1, 1)
+
+
+def decay(v, ab):
     # tdiv by a positive divisor: the numerators here never near 2^63
     return torch.div(v * (ab - 1) + (ab >> 1), ab, rounding_mode="trunc")
 
@@ -70,7 +80,7 @@ def col_chain(contrib, first_beta: bool = True, ab=None):
     out = torch.empty_like(contrib)
     b = torch.zeros_like(contrib[0])
     for i in range(contrib.shape[0]):
-        b = _decay(b, ab) + contrib[i]
+        b = decay(b, ab) + contrib[i]
         out[i] = b
     return out
 
@@ -83,7 +93,7 @@ def e_chain(b_new, first_beta: bool = True, ab=None):
     e = torch.zeros_like(b_new[0])
     for j in range(b_new.shape[0]):
         out[j] = e
-        e = _decay(e, ab) + b_new[j]
+        e = decay(e, ab) + b_new[j]
     return out
 
 
@@ -94,7 +104,7 @@ def f_chain(b_prev, first_beta: bool = True, ab=None):
     out = torch.empty_like(b_prev)
     f = torch.zeros_like(b_prev[0])
     for j in range(b_prev.shape[0] - 1, -1, -1):
-        f = _decay(f, ab) + b_prev[j]
+        f = decay(f, ab) + b_prev[j]
         out[j] = f
     return out
 
@@ -110,7 +120,7 @@ def e_freeze_extend(e, seg_w: int, first_beta: bool = True, ab=None):
     full = e.reshape((w // seg_w, seg_w) + e.shape[1:]).clone()
     st = full[:, 0]
     for k in range(1, seg_w):
-        st = _decay(st, ab)
+        st = decay(st, ab)
         full[:, k] = st
     return full.reshape(e.shape)
 
@@ -129,34 +139,34 @@ def solve_batch(a, b, n: int):
 
     Partial pivoting by |A[i, k]| (the first maximum wins), C-truncating
     quotients of full products.  Returns (diag, x_num, ok): solution k is
-    x_num[k] / diag[k]; ok is false where a pivot was 0.
+    x_num[k] / diag[k]; ok is false where a pivot was 0.  The system is
+    eliminated as one augmented (n, n + 1, P) matrix, each level's
+    quotients over its one divisor at once.
     """
-    a = a.clone()
-    b = b.clone()
     p = a.shape[2]
+    m = torch.cat([a, b[:, None]], 1)
+    rows = torch.arange(n, device=a.device)[:, None, None]
     ok = torch.ones(p, dtype=torch.bool, device=a.device)
+
+    def divisor(akk):
+        nonlocal ok
+        ok = ok & (akk != 0)
+        safe = torch.where(akk == 0, 1, akk)
+        return torch.abs(safe), safe < 0
+
     for k in range(n - 1):
-        piv = k + torch.argmax(torch.abs(a[k:, k]), dim=0)  # (P,)
-        row_p = a.gather(0, piv.view(1, 1, p).expand(1, n, p))[0]
-        b_p = b.gather(0, piv.view(1, p))[0]
-        swap = torch.arange(n, device=a.device)[:, None] == piv[None]  # (n, P)
-        a = torch.where(swap[:, None], a[k][None], a)
-        b = torch.where(swap, b[k][None], b)
-        a[k] = row_p
-        b[k] = b_p
-        akk = a[k, k]
-        ok &= akk != 0
-        safe = torch.where(akk == 0, 1, akk)
-        fac = a[k + 1 :, k]  # (n - k - 1, P)
-        a[k + 1 :, k + 1 :] -= tdiv(a[k, k + 1 :][None] * fac[:, None], safe)
-        b[k + 1 :] -= tdiv(b[k][None] * fac, safe)
-        a[k + 1 :, k] = 0
+        piv = k + torch.argmax(torch.abs(m[k:, k]), dim=0)  # (P,)
+        row_p = m.gather(0, piv.view(1, 1, p).expand(1, n + 1, p))
+        m = torch.where(rows == piv, m[k : k + 1], m)  # row piv takes row k
+        m[k] = row_p[0]
+        d_abs, d_neg = divisor(m[k, k])
+        m[k + 1 :, k + 1 :] -= tdiv_by(m[k, k + 1 :][None] * m[k + 1 :, k : k + 1], d_abs,
+                                       d_neg)
+        m[k + 1 :, k] = 0
     for k in range(n - 1, 0, -1):
-        akk = a[k, k]
-        ok &= akk != 0
-        safe = torch.where(akk == 0, 1, akk)
-        b[:k] -= tdiv(b[k][None] * a[:k, k], safe)
-    return torch.diagonal(a).t(), b, ok
+        d_abs, d_neg = divisor(m[k, k])
+        m[:k, n] -= tdiv_by(m[k, n][None] * m[:k, k], d_abs, d_neg)
+    return torch.diagonal(m[:, :n]).t(), m[:, n], ok
 
 
 def quantize_weights(diag, num):
@@ -197,27 +207,34 @@ def mix_blend(px_a, px_s, e_a, e_s, ok):
                        px_s)
 
 
-def _solve_stats(stats, n: int):
+def solve_stats(stats, n: int):
+    """The ridge system of (m, P) E + F statistics, solved: (diag, x_num,
+    ok) of :func:`solve_batch`."""
     bvec = stats[1 : 1 + n] + (RIDGE_BIAS << FB3)
     eye = torch.eye(n, dtype=torch.int64, device=stats.device)[:, :, None]
     amat = stats[1 + n :].reshape(n, n, -1) + eye * (RIDGE_BIAS * n)
     return solve_batch(amat, bvec, n)
 
 
+def predict_from_solve(diag, num, feats):
+    """Fixed-point prediction (FB1) from a solved system and features
+    (n, P)."""
+    safe = torch.where(diag == 0, 1, diag)
+    terms = tdiv(((num * feats) << FB2) + (safe >> 1), safe)
+    return torch.clamp((FIT_BASE << FB1) + terms.sum(0), 0, MAX_VAL << FB1)
+
+
 def predict_from_stats(stats, feats, n: int):
     """Ridge solve + fixed-point prediction.  stats: (m, P) = E + F;
     feats: (n, P).  Returns (px in FB1 fixed point, ok)."""
-    diag, num, ok = _solve_stats(stats, n)
-    safe = torch.where(diag == 0, 1, diag)
-    terms = tdiv(((num * feats) << FB2) + (safe >> 1), safe)
-    px = (FIT_BASE << FB1) + terms.sum(0)
-    return torch.clamp(px, 0, MAX_VAL << FB1), ok
+    diag, num, ok = solve_stats(stats, n)
+    return predict_from_solve(diag, num, feats), ok
 
 
 def predict_from_stats_wq(stats, feats, n: int):
     """Ridge solve + w_pred quantized-weight prediction: (px0 in pixel
     units int32, ok)."""
-    diag, num, ok = _solve_stats(stats, n)
+    diag, num, ok = solve_stats(stats, n)
     return predict_wq(quantize_weights(diag, num), feats.to(torch.int32)), ok
 
 

@@ -7,6 +7,8 @@ tensor math over whole planes; and profile 3's dual-bin activity quantizer.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..constants import MAX_VAL, Q_MID, Q_PT_THRESH, Q_QD_THRESH
@@ -76,9 +78,16 @@ def quantize_activity(delta: torch.Tensor) -> torch.Tensor:
 N_QW = 32  # interpolation weight range of the dual-bin quantizer
 
 
+@functools.lru_cache(maxsize=None)
+def _mids(dtype, device):
+    # made once per device: a copy per call would wait for the card's queue
+    # inside the per-pixel decode walk
+    return torch.tensor(Q_MID, dtype=dtype, device=device)
+
+
 def n_quantize_activity(delta: torch.Tensor):
     """Dual-bin activity quantizer with 5-bit interpolation: (qu, qv, qw)."""
-    mids = torch.tensor(Q_MID, dtype=delta.dtype, device=delta.device)
+    mids = _mids(delta.dtype, delta.device)
     # first qd in [0, 15) with delta <= mid[qd], else 15
     qd = (delta[..., None] > mids[:15]).sum(-1).to(delta.dtype)
     mid_lo = mids[torch.clamp(qd - 1, min=0)]

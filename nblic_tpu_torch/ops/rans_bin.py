@@ -1,6 +1,6 @@
 """Binary rANS with 12-bit probabilities: the NBTC profile-3 entropy stage.
 
-Counterpart of ``nblic_tpu/ops/rans_bin.py`` (the encoder's half).  Every
+Counterpart of ``nblic_tpu/ops/rans_bin.py``.  Every
 (strip, phase) pair owns an independent rANS state; slots go to phases
 statically (phase = slot index mod N_PHASE), so each state's slot sequence
 is a reshape of the dense slot grid.  Masked slots pass the state through
@@ -57,3 +57,38 @@ def fold(p1, bins, mask):
         state = ((torch.div(state, f, rounding_mode="floor") << PROB_BITS)
                  + torch.remainder(state, f) + acc[k])
     return (before & ANS_MASK).to(torch.int32).t(), emits.t(), state
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+U32 = (1 << 32) - 1
+
+
+def dec_init(words):
+    """words: (..., W) stream rows [hi, lo, ...].  Returns (state int64,
+    ptr int64), the pointer at the first renormalization word."""
+    w = words.to(torch.int64) & U32
+    state = ((w[..., 0] << ANS_BITS) | w[..., 1]) & U32
+    return state, torch.full_like(state, 2)
+
+
+def dec_masked(state, ptr, p1, active, words):
+    """One decode step on the lanes where ``active``: the binary symbol
+    from each lane's state, then the renorm against the lane's own stream
+    row (a state below 2^16 takes the word at ``ptr``; reads past the row's
+    end clamp to its last word).  The other lanes keep their state and
+    pointer and decode 0.  nblic_tpu's ``dec_bit`` then ``dec_renorm``,
+    which clips ``p1`` to [1, 4095]: here it must already lie there.
+    state/ptr/p1/active: (...,); words: (..., W) of u16 values, int64.
+    Returns (bin bool, state, ptr)."""
+    p0 = PROB_MAX - p1
+    lb = state & (PROB_MAX - 1)
+    one = lb >= p0
+    st = (state >> PROB_BITS) * torch.where(one, p1, p0) + lb - torch.where(one, p0, 0)
+    need = (st < ANS_LOW) & active
+    nxt = words.gather(-1, torch.clamp(ptr, max=words.shape[-1] - 1)[..., None])[..., 0]
+    state = torch.where(need, (st << ANS_BITS) | nxt, torch.where(active, st, state))
+    return one & active, state, ptr + need

@@ -7,6 +7,7 @@ both write and read the same bytes.
 from __future__ import annotations
 
 import struct
+import zlib
 from dataclasses import dataclass
 
 # image limits of the format family
@@ -25,6 +26,14 @@ def check_size(height: int, width: int) -> None:
         raise ValueError(f"invalid image size {height}x{width}")
     if height > MAX_HEIGHT or width > MAX_WIDTH or height * width > MAX_IMG_SIZE:
         raise ValueError(f"image too large: {height}x{width}")
+
+
+def inflate(data: bytes, what: str) -> bytes:
+    """zlib-decompress a container block; a corrupt one is a ValueError."""
+    try:
+        return zlib.decompress(data)
+    except zlib.error as exc:
+        raise ValueError(f"corrupt {what}: {exc}") from None
 
 
 @dataclass(frozen=True)

@@ -265,3 +265,33 @@ def test_profile3_on_card_matches_cpu(cuda_device, monkeypatch, tune, th):
     card = strips.encode_batch(imgs, th=th, device=cuda_device)
     assert card == strips.encode_batch(imgs, th=th, device="cpu")
     assert card[0] == strips.encode(imgs[0], th=th, device=cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tune", ["TUNE_V4", "TUNE_MAX", "TUNE_V4S"])
+@pytest.mark.parametrize("th", [16, 64])
+def test_profile3_decode_on_card_matches_cpu(cuda_device, monkeypatch, tune, th):
+    monkeypatch.setattr(strips, "TUNE", getattr(strips, tune))
+    rng = np.random.default_rng(th + 1)
+    # 70 rows: two strips at either height (th is clamped to the image)
+    imgs = [rng.integers(0, 256, size=(70, 24), dtype=np.uint8),
+            np.clip(np.add.outer(np.arange(24), np.arange(70)) * 3 + rng.integers(
+                0, 6, size=(24, 70)), 0, 255).astype(np.uint8)]
+    conts = strips.encode_batch(imgs, th=th, device="cpu")
+    card = strips.decode_batch(conts, device=cuda_device)
+    cpu = strips.decode_batch(conts, device="cpu")
+    for a, b, im in zip(card, cpu, imgs):
+        np.testing.assert_array_equal(a, im)
+        np.testing.assert_array_equal(b, im)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["near2", "legacy", "static"])
+def test_profile3_fixtures_decode_on_card(cuda_device, name):
+    import os
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_torch_p3")
+    with open(os.path.join(data, name + ".nbtc"), "rb") as f:
+        stream = f.read()
+    np.testing.assert_array_equal(strips.decode(stream, device=cuda_device),
+                                  np.load(os.path.join(data, name + ".npy")))

@@ -2,7 +2,8 @@
 
 Byte-identical containers at strip heights 16 and 64, for a same-shape
 batch mixing orientations (one image transposed to portrait), an odd
-height (edge-padded strips) and several strips.  Synthetic images only.
+height (edge-padded strips) and several strips; the port's decoder reads
+each of nblic_tpu's containers back to the image.  Synthetic images only.
 """
 
 import numpy as np
@@ -33,6 +34,8 @@ def test_batch_mixed_orientation_th16():
     hdrs = [NbtcHeader.from_bytes(c) for c in port]
     assert [h.tile_w & 1 for h in hdrs] == [1, 0] and hdrs[0].n_tiles == 4
     assert strips.encode(imgs[0], th=16, device="cpu") == port[0]
+    for got, img in zip(strips.decode_batch(port, device="cpu"), imgs):
+        np.testing.assert_array_equal(got, img)
 
 
 def test_odd_height_padded_strips_th16():
@@ -42,6 +45,7 @@ def test_odd_height_padded_strips_th16():
     port = strips.encode(img, th=16, device="cpu")
     assert port == j_strips.encode(img, th=16)
     assert NbtcHeader.from_bytes(port).n_tiles == 3
+    np.testing.assert_array_equal(strips.decode(port, device="cpu"), img)
 
 
 def test_multi_strip_th64():
@@ -50,3 +54,4 @@ def test_multi_strip_th64():
     assert port == j_strips.encode(img, th=64)
     hdr = NbtcHeader.from_bytes(port)
     assert (hdr.tile_h, hdr.n_tiles) == (64, 2)
+    np.testing.assert_array_equal(strips.decode(port, device="cpu"), img)

@@ -4,18 +4,22 @@ near values the other tests do not reach, against nblic_tpu.
 The port's decoder must never hang, crash or leak a library error:
 decoding bad input raises ``ValueError`` or returns pixels of the image's
 shape, within a few seconds.  A header whose tile grid does not hold its
-tile count is refused before any decode.  Non-square tiles and ``near``
+tile count is refused before any decode, as is a profile-3 header whose
+strips, Tune block, feature count, static-bias block or length table is
+out of range.  Non-square tiles and ``near``
 above 9 write the JAX package's bytes.
 """
 
 import time
+import zlib
 
 import numpy as np
 import pytest
 import torch
+from test_torch_p3_fixtures import splice_static_bias
 
 from nblic_tpu.models import tiled as j_tiled
-from nblic_tpu_torch.models import tiled
+from nblic_tpu_torch.models import strips, tiled
 from nblic_tpu_torch.utils.container import NbtcHeader
 from nblic_tpu_torch.utils.synth import synth_image
 
@@ -125,3 +129,77 @@ def test_large_near_byte_identical(near, effort):
     assert port == j_tiled.encode(img, near=near, tile_h=16, tile_w=16, effort=effort)
     err = np.abs(tiled.decode(port, device="cpu").astype(np.int32) - img)
     assert err.max() <= near
+
+
+# ---------------------------------------------------------------------------
+# profile 3 (the strip engine)
+# ---------------------------------------------------------------------------
+
+P3_LIMIT_S = 30.0  # a decode of this 128-step image takes about a second alone
+
+
+@pytest.fixture(scope="module")
+def p3():
+    img = synth_image(np.random.default_rng(64), 16, 8)
+    return img, strips.encode(img, th=16, device="cpu")
+
+
+def _p3_decode_or_value_error(stream: bytes, shape):
+    t0 = time.perf_counter()
+    try:
+        assert tiled.decode(stream, device="cpu").shape == shape
+    except ValueError:
+        pass
+    assert time.perf_counter() - t0 < P3_LIMIT_S
+
+
+def test_p3_truncations_raise(p3):
+    _, stream = p3
+    for cut in (1, 8, NbtcHeader.SIZE - 1, NbtcHeader.SIZE + 4, NbtcHeader.SIZE + 40,
+                NbtcHeader.SIZE + 32 + 30, int(len(stream) * 0.7), len(stream) - 2):
+        with pytest.raises(ValueError):
+            tiled.decode(stream[:cut], device="cpu")
+
+
+# offsets: Tune fields after the 36-byte header (u16 each); height u32 at 12,
+# tile_h u16 at 20, tile_w u16 at 22, n_tiles u32 at 24
+P3_HOSTILE = {
+    "n_unary 0xFFFF": (NbtcHeader.SIZE + 6, 0xFFFF, 2),
+    "seg_bias 7": (NbtcHeader.SIZE + 12, 7, 2),
+    "spare 1": (NbtcHeader.SIZE + 30, 1, 2),
+    "height 2^32 - 1": (12, 0xFFFFFFFF, 4),
+    "n_tiles 4096": (24, 0x1000, 4),
+    "tile_h 65535": (20, 0xFFFF, 2),
+    "tile_h 0": (20, 0, 2),
+    "15 AVP features": (22, (15 << 4) | 14, 2),
+    "profile 3 -> 4": (10, 4, 1),
+}
+
+
+@pytest.mark.parametrize("field", list(P3_HOSTILE))
+def test_p3_hostile_fields_raise(p3, field):
+    t0 = time.perf_counter()
+    with pytest.raises(ValueError):
+        tiled.decode(_patched(p3[1], *P3_HOSTILE[field]), device="cpu")
+    assert time.perf_counter() - t0 < LIMIT_S
+
+
+def test_p3_corrupt_static_bias_raises(p3):
+    _, stream = p3
+    for block in (b"\x78\x9c" + bytes(30), zlib.compress(bytes(200))):  # bad zlib, short table
+        with pytest.raises(ValueError):
+            tiled.decode(splice_static_bias(stream, 0, block), device="cpu")
+
+
+def test_p3_flipped_payload_bytes(p3):
+    img, stream = p3
+    rng = np.random.default_rng(65)
+    payload_at = len(stream) - 2 * int(strips._parse(stream)[2].sum())
+    for pos in rng.choice(np.arange(payload_at, len(stream)), size=4, replace=False):
+        s = bytearray(stream)
+        s[pos] ^= int(rng.integers(1, 256))
+        _p3_decode_or_value_error(bytes(s), img.shape)
+    # the length table's own bytes
+    s = bytearray(stream)
+    s[payload_at - 3] ^= 0x40
+    _p3_decode_or_value_error(bytes(s), img.shape)
