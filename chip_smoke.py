@@ -39,32 +39,50 @@ Phases, one line each; any failure exits non-zero:
      strip height 64 (288 strip lanes), with its bpp, MPix/s, peak device
      memory and the time of each stage (modeling, row scan, fold, packing
      and containers; each stage function wrapped here to sync the card when
-     it returns), two of its containers held against the CPU's; one image
-     through api.compress_tiled(effort=3).  Decode: each of those six
-     batches on the card equal to the images, the three committed fixtures
-     (near 2, legacy, static bias; tests/data_torch_p3) equal to nblic_tpu's
-     pixels, the corpus at strip height 16 (1152 lanes, 8192 pixel steps)
-     through tiled.decode_batch, exact, with its MPix/s, the walk's time a
-     pixel step, the peak device memory and the projected time of one image
-     at strip height 768, and api.decompress of the effort-3 container; a
-     process of its own decodes the same containers on the CPU meanwhile,
-     which must agree.  (kernel_probe.py p3-stages times one 768x512 encode
-     at the default strip height.)
+     it returns), two of its containers held against the CPU's; one 16x32
+     image through api.compress_tiled(effort=3).  Decode: the pairs on the
+     card equal to the images (at strip height 64 under TUNE_V4 only), the
+     three committed fixtures (near 2, legacy, static bias;
+     tests/data_torch_p3) equal to nblic_tpu's pixels, the corpus at strip
+     height 16 (1152 lanes, 8192 pixel steps) through tiled.decode_batch,
+     exact, with its MPix/s, the walk's time a pixel step, the peak device
+     memory and the projected time of one image at strip height 768, and
+     api.decompress of the effort-3 container; a process of its own decodes
+     the same containers on the CPU meanwhile, which must agree.
+     (kernel_probe.py p3-stages times one 768x512 encode at the default
+     strip height.)
+ 13. profile 3, near-lossless (the feedback walk, plain PyTorch): the card's
+     near-2 container of the committed fixture's image equals nblic_tpu's
+     bytes (tests/data_torch_p3/near2.nbtc); the 48x64 / 64x48 pair as one
+     batch at strip height 16, near 1 and near 3, equal to the CPU's and
+     decoded on the card within near; the whole corpus at near 2 through
+     tiled.encode_corpus(effort=3) at strip height 16 (1152 lanes, 8192
+     pixel steps), with its bpp, MPix/s, peak device memory, the walk's time
+     a pixel step, the row coder's and the fold's times and the projected
+     time of one 768x512 image at strip height 768, two of its containers
+     held against the CPU's, then decoded on the card through
+     tiled.decode_batch within 2.  The CPU's encodes of phases 12 and 13
+     and its decodes run in a pool of two processes started before phase
+     12, beside the card's work.  (kernel_probe.py p3-near times the stages
+     against the lane count.)
 Each kernel's time stands beside its bound (the whole card's roofline:
 bytes over the memory rate, integer operations over the int32 rate) and
 its floor (the least time at the launch's own parallelism: the issue of
 one SM's schedulers for K2 and K2', the serial chain for K1).  Then one
-JSON line of the kernels' measured numbers and bounds, and as the last line
-{"ok": true, "device": {...}}.  Needs no network; imports no JAX.
+JSON line of the kernels' measured numbers and bounds, the whole command's
+time, and as the last line {"ok": true, "device": {...}}.  Needs no
+network; imports no JAX.
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -91,6 +109,7 @@ K2_OPS_PER_PIXEL = {1: 364, 2: 396}
 # fold bound, divides it by the step and multiplies the magnitude by it
 K2_NEAR_OPS = 3
 NEAR = 2  # the near phase's max error
+T_START = time.perf_counter()
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -327,11 +346,50 @@ def _cpu_decode(groups):
     return [strips.decode_batch(g, device="cpu") for g in groups]
 
 
+def _cpu_encode(jobs):
+    """The port's profile-3 encode on the CPU, one strips.encode_batch per
+    (images, th, near, contract name); runs in a process of its own beside
+    the card's work."""
+    import torch
+
+    torch.set_num_threads(1)
+    from nblic_tpu_torch.models import strips
+
+    out = []
+    for imgs, th, near, tune in jobs:
+        strips.TUNE = getattr(strips, tune)
+        out.append(strips.encode_batch(imgs, th=th, near=near, device="cpu"))
+    return out
+
+
+def _p3_pair():
+    """The 48x64 and 64x48 images the profile-3 phases code as one batch."""
+    from nblic_tpu_torch.utils.synth import synth_image
+
+    rng = np.random.default_rng(5)
+    return [synth_image(rng, 48, 64), synth_image(rng, 64, 48)]
+
+
+PICKS = (0, 23)  # corpus images held against the CPU: transposed landscape, portrait
+P3_TUNES = ("TUNE_V4", "TUNE_MAX", "TUNE_V4S")
+
+
+def _p3_cpu_jobs(corpus):
+    """The CPU encodes the card's profile-3 containers are held to, as
+    :func:`_cpu_encode` jobs: (lossless, near-lossless).  Lossless: the pair
+    under each contract at th 16 and 64, then the picked corpus images at
+    th 64; near: the pair at near 1 and 3, the picks at near 2, th 16."""
+    pair, picks = _p3_pair(), [corpus[i] for i in PICKS]
+    lossless = [(pair, th, 0, t) for t in P3_TUNES for th in (16, 64)]
+    near = [(pair, 16, 1, "TUNE_V4"), (pair, 16, 3, "TUNE_V4"), (picks, 16, NEAR, "TUNE_V4")]
+    return lossless + [(picks, 64, 0, "TUNE_V4")], near
+
+
 def _p3_fixtures():
     """{name: (container, nblic_tpu's decode)}: the committed profile-3
-    containers the port cannot write yet (near 2, legacy without a Tune
-    block, a legacy static-bias table; tests/test_torch_p3_fixtures.py
-    regenerates them with nblic_tpu)."""
+    containers (near 2, legacy without a Tune block, a legacy static-bias
+    table; tests/test_torch_p3_fixtures.py regenerates them with
+    nblic_tpu)."""
     import os
 
     data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data_torch_p3")
@@ -342,15 +400,14 @@ def _p3_fixtures():
     return out
 
 
-def _p3_phase(api, tiled, corpus, dev, card) -> bool:
-    """Profile 3: the card against the CPU on small images, the corpus as
-    one batch stage by stage, the public route; then decode: every small
-    container and the fixtures on the card against the image (or nblic_tpu's
-    pixels) and the CPU, the corpus at th = 16 through tiled.decode_batch
-    with the walk's time a pixel step, and api.decompress."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
+def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job) -> bool:
+    """Profile 3: the card against the CPU (``cpu_job``, a future of the
+    lossless :func:`_p3_cpu_jobs`) on small images, the corpus as one batch
+    stage by stage, the public route; then decode: the small containers and
+    the fixtures on the card against the image (or nblic_tpu's pixels) and
+    the CPU (a job of ``pool``), the corpus at th = 16 through
+    tiled.decode_batch with the walk's time a pixel step, and
+    api.decompress."""
     import torch
 
     from nblic_tpu_torch.models import strips
@@ -358,28 +415,19 @@ def _p3_phase(api, tiled, corpus, dev, card) -> bool:
     from nblic_tpu_torch.ops.fold import encode_fold
     from nblic_tpu_torch.utils.synth import synth_image
 
-    rng = np.random.default_rng(5)
-    pair = [synth_image(rng, 48, 64), synth_image(rng, 64, 48)]
-    pair_conts = {}
+    pair = _p3_pair()
+    pair_conts, singles, batch_s = {}, {}, {}
     default = strips.TUNE
     try:
-        for tune in ("TUNE_V4", "TUNE_MAX", "TUNE_V4S"):
+        for tune in P3_TUNES:
             strips.TUNE = getattr(strips, tune)
             for th in (16, 64):
-                on_cpu = strips.encode_batch(pair, th=th, device="cpu")
                 t0 = time.perf_counter()
-                on_card = strips.encode_batch(pair, th=th, device=dev)
-                batch_s = time.perf_counter() - t0
+                pair_conts[tune, th] = strips.encode_batch(pair, th=th, device=dev)
+                batch_s[tune, th] = time.perf_counter() - t0
                 # each image alone as well, at the short strip height
-                singles = ([strips.encode(im, th=th, device=dev) for im in pair]
-                           if th == 16 else on_card)
-                ok = on_card == on_cpu and singles == on_cpu
-                pair_conts[tune, th] = on_card
-                print(f"[p3 reference] {tune} th {th}: the 48x64 and 64x48 images as a "
-                      f"batch{' and alone' if th == 16 else ''}, card == cpu containers "
-                      f"{ok} (batch on the card {batch_s:.2f} s)", flush=True)
-                if not ok:
-                    return False
+                singles[tune, th] = ([strips.encode(im, th=th, device=dev) for im in pair]
+                                     if th == 16 else pair_conts[tune, th])
     finally:
         strips.TUNE = default
 
@@ -405,17 +453,26 @@ def _p3_phase(api, tiled, corpus, dev, card) -> bool:
           + ", ".join(f"{k} {v:.1f} ({100 * v / total:.1f}%)" for k, v in stages.items())
           + f"; launches K1 {encode_fold.launches} K2 {decode_groups.launches} ({card})",
           flush=True)
-    picks = [0, len(corpus) - 1]  # a transposed landscape image, a portrait one
-    on_cpu = strips.encode_batch([corpus[i] for i in picks], th=th, device="cpu")
+    t0 = time.perf_counter()
+    *cpu_pairs, on_cpu = cpu_job.result()
+    wait_s = time.perf_counter() - t0
+    for (tune, th_), cpu in zip(pair_conts, cpu_pairs):
+        ok = pair_conts[tune, th_] == cpu and singles[tune, th_] == cpu
+        print(f"[p3 reference] {tune} th {th_}: the 48x64 and 64x48 images as a "
+              f"batch{' and alone' if th_ == 16 else ''}, card == cpu containers {ok} (batch "
+              f"on the card {batch_s[tune, th_]:.2f} s)", flush=True)
+        if not ok:
+            return False
+    picks = list(PICKS)
     same = on_cpu == [conts[i] for i in picks]
-    print(f"[p3 corpus] images {picks} encoded on the cpu: containers equal {same}",
-          flush=True)
+    print(f"[p3 corpus] images {picks} encoded on the cpu: containers equal {same} (the "
+          f"cpu's encodes waited for {wait_s:.1f} s)", flush=True)
 
-    # ---- the public route
-    img = synth_image(rng, 40, 56)
+    # ---- the public route (a 16x32 image: 512 steps to decode)
+    img = synth_image(np.random.default_rng(6), 16, 32)
     via_api = api.compress_tiled(img, effort=3, device=dev)
     routed = via_api == strips.encode(img, device=dev) and via_api[10] == 3
-    print(f"[p3 api] compress_tiled(effort=3) on a 40x56 image: profile {via_api[10]}, "
+    print(f"[p3 api] compress_tiled(effort=3) on a 16x32 image: profile {via_api[10]}, "
           f"{len(via_api)} B, equal to strips.encode {routed}", flush=True)
     if not (same and routed):
         return False
@@ -425,74 +482,186 @@ def _p3_phase(api, tiled, corpus, dev, card) -> bool:
     th16 = 16
     conts16 = strips.encode_batch(corpus, th=th16, device=dev)
     fixtures = _p3_fixtures()
+    # the pairs decode on the card at th 16 under each contract and at th 64
+    # under TUNE_V4 (the th-64 decodes of the others are cut for time; their
+    # encodes were held to the CPU's above)
+    decoded_pairs = {k: v for k, v in pair_conts.items() if k[1] == 16 or k[0] == "TUNE_V4"}
     # the CPU's decodes run in a process of their own meanwhile
-    cpu_groups = ([pair_conts[k] for k in pair_conts] + [[c] for c, _ in fixtures.values()]
+    cpu_groups = (list(decoded_pairs.values()) + [[c] for c, _ in fixtures.values()]
                   + [[conts16[i] for i in picks]])
-    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
-    try:
-        cpu_job = pool.submit(_cpu_decode, cpu_groups)
-        card_groups = []
-        for (tune, th_), batch in pair_conts.items():
-            t0 = time.perf_counter()
-            back = strips.decode_batch(batch, device=dev)
-            dec_s = time.perf_counter() - t0
-            card_groups.append(back)
-            ok = all(np.array_equal(b, im) for b, im in zip(back, pair))
-            print(f"[p3 decode] {tune} th {th_}: the pair decoded on the card as one batch "
-                  f"equal to the images {ok} ({dec_s:.2f} s)", flush=True)
-            if not ok:
-                return False
-        for name, (c, want) in fixtures.items():
-            back = strips.decode(c, device=dev)
-            card_groups.append([back])
-            ok = np.array_equal(back, want)
-            print(f"[p3 decode] fixture {name} ({len(c)} B, near "
-                  f"{strips._parse(c)[0][6]}): decoded on the card equal to nblic_tpu's "
-                  f"pixels {ok}", flush=True)
-            if not ok:
-                return False
-
-        torch.cuda.reset_peak_memory_stats()
-        with StageClock([(strips, "_decode_walk", "walk")]) as clock:
-            t0 = time.perf_counter()
-            decoded = tiled.decode_batch(conts16, device=dev)
-            dec_s = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        walk_ms = clock.stages()["walk"]
-        exact = all(np.array_equal(d, im) for d, im in zip(decoded, corpus))
-        n_steps = th16 * w
-        ms_step = walk_ms / n_steps
-        lanes16 = len(corpus) * -(-h // th16)
-        print(f"[p3 decode corpus] {len(corpus)} images th {th16}, {lanes16} strip lanes, "
-              f"{n_steps} pixel steps: round trip {exact}, "
-              f"{8.0 * sum(map(len, conts16)) / n_px:.4f} bpp at th {th16}, "
-              f"tiled.decode_batch {n_px / dec_s / 1e6:.4f} MPix/s ({dec_s:.2f} s), walk "
-              f"{walk_ms / 1e3:.2f} s = {ms_step:.3f} ms a pixel step, peak device memory "
-              f"{peak:.2f} GiB; one 768x512 image at th 768 ({768 * 512} steps) would take "
-              f"{768 * 512 * ms_step / 6e4:.1f} min at this step time ({card})", flush=True)
-        if not exact:
-            return False
-        card_groups.append([decoded[i] for i in picks])
-
+    cpu_job = pool.submit(_cpu_decode, cpu_groups)
+    card_groups = []
+    for (tune, th_), batch in decoded_pairs.items():
         t0 = time.perf_counter()
-        back = api.decompress(via_api, device=dev)
-        ok = np.array_equal(back, img)
-        print(f"[p3 decode api] api.decompress of the 40x56 effort-3 container equal to "
-              f"the image {ok} ({time.perf_counter() - t0:.2f} s)", flush=True)
+        back = strips.decode_batch(batch, device=dev)
+        dec_s = time.perf_counter() - t0
+        card_groups.append(back)
+        ok = all(np.array_equal(b, im) for b, im in zip(back, pair))
+        print(f"[p3 decode] {tune} th {th_}: the pair decoded on the card as one batch "
+              f"equal to the images {ok} ({dec_s:.2f} s)", flush=True)
+        if not ok:
+            return False
+    for name, (c, want) in fixtures.items():
+        back = strips.decode(c, device=dev)
+        card_groups.append([back])
+        ok = np.array_equal(back, want)
+        print(f"[p3 decode] fixture {name} ({len(c)} B, near "
+              f"{strips._parse(c)[0][6]}): decoded on the card equal to nblic_tpu's "
+              f"pixels {ok}", flush=True)
         if not ok:
             return False
 
+    torch.cuda.reset_peak_memory_stats()
+    with StageClock([(strips, "_decode_walk", "walk")]) as clock:
         t0 = time.perf_counter()
-        cpu = cpu_job.result()
-        wait_s = time.perf_counter() - t0
-    finally:
-        pool.shutdown(wait=True, cancel_futures=True)
+        decoded = tiled.decode_batch(conts16, device=dev)
+        dec_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    walk_ms = clock.stages()["walk"]
+    exact = all(np.array_equal(d, im) for d, im in zip(decoded, corpus))
+    n_steps = th16 * w
+    ms_step = walk_ms / n_steps
+    lanes16 = len(corpus) * -(-h // th16)
+    print(f"[p3 decode corpus] {len(corpus)} images th {th16}, {lanes16} strip lanes, "
+          f"{n_steps} pixel steps: round trip {exact}, "
+          f"{8.0 * sum(map(len, conts16)) / n_px:.4f} bpp at th {th16}, "
+          f"tiled.decode_batch {n_px / dec_s / 1e6:.4f} MPix/s ({dec_s:.2f} s), walk "
+          f"{walk_ms / 1e3:.2f} s = {ms_step:.3f} ms a pixel step, peak device memory "
+          f"{peak:.2f} GiB; one 768x512 image at th 768 ({768 * 512} steps) would take "
+          f"{768 * 512 * ms_step / 6e4:.1f} min at this step time ({card})", flush=True)
+    if not exact:
+        return False
+    card_groups.append([decoded[i] for i in picks])
+
+    t0 = time.perf_counter()
+    back = api.decompress(via_api, device=dev)
+    ok = np.array_equal(back, img)
+    print(f"[p3 decode api] api.decompress of the 16x32 effort-3 container equal to "
+          f"the image {ok} ({time.perf_counter() - t0:.2f} s)", flush=True)
+    if not ok:
+        return False
+
+    t0 = time.perf_counter()
+    cpu = cpu_job.result()
+    wait_s = time.perf_counter() - t0
     same = all(np.array_equal(a, b) for g_cpu, g_card in zip(cpu, card_groups)
                for a, b in zip(g_cpu, g_card))
-    print(f"[p3 decode] the cpu's decodes of the {len(cpu_groups)} groups (each pair, each "
+    print(f"[p3 decode] the cpu's decodes of the {len(cpu_groups)} groups (the pairs, each "
           f"fixture, corpus images {picks}) equal the card's {same} (waited {wait_s:.1f} s "
           f"for them)", flush=True)
     return same
+
+
+def _p3_near_phase(tiled, corpus, dev, card, cpu_job) -> bool:
+    """Profile-3 near-lossless encode: the committed fixture's bytes, the
+    pair at near 1 and 3 against the CPU (``cpu_job``, a future of the
+    near-lossless :func:`_p3_cpu_jobs`), the corpus at near 2
+    through tiled.encode_corpus at th = 16 stage by stage, then its decode
+    on the card through tiled.decode_batch."""
+    import torch
+
+    from nblic_tpu_torch.models import strips
+    from nblic_tpu_torch.ops import rans_bin
+    from nblic_tpu_torch.ops.decode import decode_groups
+    from nblic_tpu_torch.ops.fold import encode_fold
+    from nblic_tpu_torch.utils.synth import synth_image
+
+    # ---- (a) nblic_tpu's bytes without JAX: the committed near-2 fixture
+    # (tests/test_torch_p3_fixtures.py: fixture_image(), th 16)
+    img = synth_image(np.random.default_rng(71), 40, 24)
+    want = _p3_fixtures()["near2"][0]
+    t0 = time.perf_counter()
+    got = strips.encode(img, th=16, near=NEAR, device=dev)
+    ok = got == want
+    print(f"[p3 near fixture] strips.encode of the fixture image (40x24, th 16, near "
+          f"{NEAR}) on the card equal to nblic_tpu's committed bytes {ok} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    if not ok:
+        return False
+
+    # ---- (b) the pair as one batch at near 1 and 3, against the CPU's
+    pair = _p3_pair()
+    t0 = time.perf_counter()
+    cpu = cpu_job.result()
+    wait_s = time.perf_counter() - t0
+    for k, near in enumerate((1, 3)):
+        t0 = time.perf_counter()
+        on_card = strips.encode_batch(pair, th=16, near=near, device=dev)
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = strips.decode_batch(on_card, device=dev)
+        dec_s = time.perf_counter() - t0
+        err = max(_max_err(b, im) for b, im in zip(back, pair))
+        ok = on_card == cpu[k] and 0 < err <= near
+        print(f"[p3 near reference] near {near} th 16: the 48x64 and 64x48 images as a "
+              f"batch, card == cpu containers {on_card == cpu[k]} (the cpu's encodes "
+              f"waited for {wait_s:.1f} s), max error decoded on the card {err} (encode "
+              f"{enc_s:.2f} s, decode {dec_s:.2f} s)", flush=True)
+        if not ok:
+            return False
+
+    # ---- (c) the corpus at near 2 through the entry point, strip height 16
+    # (the depth cut: th x 512 walk steps, 8192 against 393,216 at th 768)
+    th = 16
+    n_px = sum(im.size for im in corpus)
+    h, w = max(corpus[0].shape), min(corpus[0].shape)  # portrait-normalized
+    lanes = len(corpus) * -(-h // th)
+    n_steps = th * w
+    saved = strips.TH_DEFAULT
+    strips.TH_DEFAULT = th
+    encode_fold.launches = decode_groups.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with StageClock([(strips, "_near_walk", "walk"), (strips, "_near_code", "row coder"),
+                         (rans_bin, "fold", "fold"),
+                         (strips, "_finalize", "packing and containers")]) as clock:
+            t0 = time.perf_counter()
+            conts = tiled.encode_corpus(corpus, near=NEAR, effort=3, device=dev)
+            enc_s = time.perf_counter() - t0
+    finally:
+        strips.TH_DEFAULT = saved
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = clock.stages()
+    total = sum(st.values())
+    tune = strips._near_tune(strips.TUNE)
+    fold_steps = n_steps * (tune.n_unary + strips.L_R) // strips.N_PHASE
+    walk_step = st["walk"] / n_steps
+    # one 768x512 image at th 768: 48x the rows of each stage at one strip
+    proj_min = (768 * w * walk_step + 768 * st["row coder"] / th
+                + 768 * st["fold"] / th) / 6e4
+    hdrs = [tiled.NbtcHeader.from_bytes(c) for c in conts]
+    form = all((hd.profile, hd.near, hd.tile_h) == (3, NEAR, th) for hd in hdrs)
+    print(f"[p3 near corpus] {len(corpus)} images ({n_px / 1e6:.2f} MPix) near {NEAR} th "
+          f"{th}, {lanes} strip lanes, {n_steps} pixel steps: "
+          f"{8.0 * sum(map(len, conts)) / n_px:.4f} bpp, tiled.encode_corpus "
+          f"{n_px / enc_s / 1e6:.4f} MPix/s ({enc_s:.2f} s), peak device memory {peak:.2f} "
+          f"GiB; stages ms " + ", ".join(f"{k} {v:.1f} ({100 * v / total:.1f}%)"
+                                         for k, v in st.items())
+          + f"; walk {walk_step:.3f} ms a pixel step, row coder {st['row coder'] / th:.1f} ms "
+          f"a row ({strips._eff_seg(tune.n_seg, w)} segments), fold "
+          f"{1e3 * st['fold'] / fold_steps:.1f} us a step ({fold_steps} steps); one 768x512 "
+          f"image at th 768 ({768 * w} steps) would take {proj_min:.1f} min at these "
+          f"times; profile 3, near {NEAR}, th {th} in every header {form}; launches K1 "
+          f"{encode_fold.launches} K2 {decode_groups.launches} ({card})", flush=True)
+    same = cpu[2] == [conts[i] for i in PICKS]
+    print(f"[p3 near corpus] images {list(PICKS)} encoded on the cpu: containers equal "
+          f"{same}", flush=True)
+    if not (form and same):
+        return False
+
+    torch.cuda.reset_peak_memory_stats()
+    with StageClock([(strips, "_decode_walk", "walk")]) as clock:
+        t0 = time.perf_counter()
+        decoded = tiled.decode_batch(conts, device=dev)
+        dec_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    walk_ms = clock.stages()["walk"]
+    err = max(_max_err(d, im) for d, im in zip(decoded, corpus))
+    print(f"[p3 near decode corpus] {len(corpus)} images near {NEAR} th {th}: max error "
+          f"{err}, tiled.decode_batch {n_px / dec_s / 1e6:.4f} MPix/s ({dec_s:.2f} s), walk "
+          f"{walk_ms / 1e3:.2f} s = {walk_ms / n_steps:.3f} ms a pixel step, peak device "
+          f"memory {peak:.2f} GiB ({card})", flush=True)
+    return 0 < err <= NEAR
 
 
 def _main_path(api, tiled, corpus, frame, dev, effort, tag, card):
@@ -768,13 +937,27 @@ def main() -> int:
         return 1
     near_k1, near_k2_e1, near_k2_e2 = near
 
-    # ---- profile 3: plain PyTorch on the card, no kernel of its own
-    t0 = time.perf_counter()
-    if not _p3_phase(api, tiled, corpus, dev, card):
-        print("[p3] failed: a container or a decode differed from the CPU's, the image "
-              "or nblic_tpu's pixels, or the route")
-        return 1
-    print(f"[p3] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    # ---- profile 3: plain PyTorch on the card, no kernel of its own; a
+    # process pool of the CPU's encodes and decodes for comparison
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        lossless_jobs, near_jobs = _p3_cpu_jobs(corpus)
+        lossless_job = pool.submit(_cpu_encode, lossless_jobs)
+        near_job = pool.submit(_cpu_encode, near_jobs)
+        t0 = time.perf_counter()
+        if not _p3_phase(api, tiled, corpus, dev, card, pool, lossless_job):
+            print("[p3] failed: a container or a decode differed from the CPU's, the image "
+                  "or nblic_tpu's pixels, or the route")
+            return 1
+        print(f"[p3] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        if not _p3_near_phase(tiled, corpus, dev, card, near_job):
+            print("[p3 near] failed: a container differed from nblic_tpu's or the CPU's, "
+                  "a header, or an error past near")
+            return 1
+        print(f"[p3 near] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
 
     def row(name_, source, replaces, launches, stats):
         err_, ms_, pms_, (bound_ms, bound_by) = stats
@@ -784,6 +967,8 @@ def main() -> int:
                 "bound_by": bound_by, "library_ms": None}
 
     k2_src = "nblic_tpu_torch/csrc/group_decode.cu"
+    print(f"[time] the whole command {time.perf_counter() - T_START:.1f} s ({card})",
+          flush=True)
     print(json.dumps({"kernels": [
         row("rans_fold", "nblic_tpu_torch/csrc/rans_fold.cu",
             "nblic_tpu/ops/pallas_fold.py:93",

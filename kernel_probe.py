@@ -43,6 +43,17 @@ PROBE is one of:
              on 1, 64 and 1024 images of 64x16 (4, 256 and 4096 strip lanes,
              256 steps each), the step time against the lane count.  Builds
              no variant.
+  p3-near    the profile-3 near-lossless encode (near 2, plain PyTorch) on
+             the card, stage by stage (the feedback walk, the row coder, the
+             fold, packing and containers; the stage functions called
+             directly on strips of synthetic images, each lane its own
+             image): 4, 256 and 1152 lanes of 16-column strips 16 rows tall
+             and of 512-column strips 4 rows tall, the walk's time a pixel
+             step against the lane count (the host's share against the
+             lanes'); the smallest case's container held against the CPU's;
+             then a walk row of 32 columns at 1152 lanes under
+             torch.profiler: its device time against the wall time and its
+             device launches a step.  Builds no variant.
 
 Each variant is a copy of a source with some lines replaced, built by nvcc
 into build/probe/ (all builds run at once) and called through ctypes; none
@@ -430,11 +441,96 @@ def p3_decode(card: str) -> bool:
     return ok
 
 
+def _near_strips(x: np.ndarray, near: int, dev) -> list[bytes]:
+    """Near-lossless profile-3 containers of (L, th, w) strips, each lane
+    its own image, through the encoder's stage functions."""
+    from nblic_tpu_torch.models import strips
+
+    lanes, th, w = x.shape
+    tune = strips._near_tune(strips.TUNE)
+    planes = strips._near_walk(torch.from_numpy(x).to(dev), lanes, near, strips.AVP_N, tune)
+    slots = strips._near_code(*planes, lanes, strips._k_step(near), tune)
+    lengths, flat = strips._fold_pack(*slots, lanes)
+    return strips._finalize(lengths, flat, [(th, w)] * lanes, [False] * lanes, 1, th, near,
+                            tune)
+
+
+def _device_kernels(prof) -> tuple[float, int]:
+    """(summed ms, count) of the device-side events (kernels, copies) of a
+    torch.profiler run; (0, 0) where the profiler saw none."""
+    from torch.autograd import DeviceType
+
+    ms, n = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            ms += getattr(ev, "self_device_time_total", 0.0) / 1e3
+            n += ev.count
+    return ms, n
+
+
+def p3_near(card: str) -> bool:
+    from chip_smoke import StageClock
+    from nblic_tpu_torch.models import strips
+    from nblic_tpu_torch.ops import rans_bin
+
+    dev = torch.device("cuda")
+    near = 2
+    rng = np.random.default_rng(12)
+    targets = [(strips, "_near_walk", "walk"), (strips, "_near_code", "row coder"),
+               (rans_bin, "fold", "fold"), (strips, "_finalize", "packing and containers")]
+    l_tot = strips._near_tune(strips.TUNE).n_unary + strips.L_R
+    _near_strips(synth_image(rng, 4, 16).reshape(1, 4, 16), near, dev)  # warm-up
+    ok = True
+    for w, th in ((16, 16), (512, 4)):
+        for lanes in (4, 256, 1152):
+            x = synth_image(rng, lanes * th, w).reshape(lanes, th, w)
+            torch.cuda.reset_peak_memory_stats()
+            with StageClock(targets) as clock:
+                conts = _near_strips(x, near, dev)
+            st = clock.stages()
+            total = sum(st.values())
+            steps = th * w
+            fold_steps = steps * l_tot // strips.N_PHASE
+            same = ""
+            if lanes == 4 and w == 16:
+                cpu = _near_strips(x, near, torch.device("cpu"))
+                same = f"; card == cpu containers {cpu == conts}"
+                ok &= cpu == conts
+            print(f"[p3-near] {lanes} lanes x {th}x{w} near {near}: {total / 1e3:.2f} s, "
+                  f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                  + ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.1f}%)" for k, v in st.items())
+                  + f"; walk {st['walk'] / steps:.3f} ms a pixel step ({steps} steps), row "
+                  f"coder {st['row coder'] / th:.1f} ms a row "
+                  f"({strips._eff_seg(strips.TUNE.n_seg, w)} segments), fold "
+                  f"{1e3 * st['fold'] / fold_steps:.1f} us a step ({fold_steps} steps)"
+                  f"{same} ({card})", flush=True)
+    # a walk row under the profiler (its post-processing takes minutes for
+    # every ~300k events, so 32 columns): the device's busy time
+    w = 32
+    x = torch.from_numpy(synth_image(rng, 1152, w).reshape(1152, 1, w)).to(dev)
+    tune = strips._near_tune(strips.TUNE)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        strips._near_walk(x, 1152, near, strips.AVP_N, tune)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    dev_ms, n_dev = _device_kernels(prof)
+    busy = (f"device time {dev_ms:.1f} ms, busy {100 * dev_ms / wall:.1f}%, {n_dev / w:.0f} "
+            f"device launches a step" if n_dev else "device time not measured (the "
+            "profiler saw no device event)")
+    print(f"[p3-near profile] one walk row, 1152 lanes x {w} columns: wall {wall:.1f} ms "
+          f"under the profiler ({wall / w:.3f} ms a step), {busy} ({card})", flush=True)
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probes", nargs="+", choices=("cut-chain", "slot-bits", "fold",
                                                      "near-stages", "p3-stages",
-                                                     "p3-corpus", "p3-decode"))
+                                                     "p3-corpus", "p3-decode",
+                                                     "p3-near"))
     ap.add_argument("--parent", type=Path,
                     help="cut-chain: also cut this group_decode.cu of the parent design")
     args = ap.parse_args(argv)
@@ -483,6 +579,8 @@ def main(argv=None) -> int:
         ok &= p3_corpus(card)
     if "p3-decode" in args.probes:
         ok &= p3_decode(card)
+    if "p3-near" in args.probes:
+        ok &= p3_near(card)
     return 0 if ok else 1
 
 

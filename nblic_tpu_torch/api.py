@@ -3,9 +3,9 @@
 ``compress_tiled`` / ``decompress_tiled`` write and read the ``NBTC``
 container, the same format as ``nblic_tpu`` (see ``models/tiled.py`` for
 where the bytes may differ at effort 2): profile 1 at effort 0-1 and
-profile 2 at effort 2, lossless or, with ``near`` > 0, near-lossless; and
-profile 3 (the strip engine) at effort 3, lossless.  The decoders read every
-profile-3 container, near-lossless ones included.
+profile 2 at effort 2 and profile 3 (the strip engine) at effort 3, each
+lossless or, with ``near`` > 0, near-lossless.  The decoders read every
+profile-3 container the JAX package writes or reads.
 ``decompress`` sniffs the container magic.  Every entry takes ``device``,
 "cuda" by default; asking for CUDA where there is none raises.
 """
@@ -21,8 +21,8 @@ from .utils.container import sniff_format
 def compress_tiled(img: np.ndarray, near: int = 0, device="cuda", **kwargs) -> bytes:
     """Encode into an NBTC container; ``effort=2`` selects profile 2
     (per-tile least-squares predictors), ``effort=3`` profile 3 (the
-    adaptive strip engine, lossless), ``near`` > 0 near-lossless coding with
-    max error ``near``."""
+    adaptive strip engine), ``near`` > 0 near-lossless coding with max error
+    ``near``."""
     return tiled.encode(img, near=near, device=device, **kwargs)
 
 

@@ -5,10 +5,9 @@ Usage:
     python -m nblic_tpu_torch -d [--device=cuda] in.nbtc out.{bmp,pgm,pnm}
 
 Switches: ``-v`` verbose, ``-n<int>`` near (0 lossless; k > 0 near-lossless,
-max error k), ``-e<digit>`` effort (0-1 profile 1, 2 profile 2, 3 profile 3,
-whose encoder is lossless only), ``--tile-h=N`` / ``--tile-w=N`` tile geometry
-(default 64x64; profile 3 cuts full-width strips instead).  ``-d`` reads
-profiles 1-3, near-lossless profile 3 included.
+max error k), ``-e<digit>`` effort (0-1 profile 1, 2 profile 2, 3 profile 3),
+``--tile-h=N`` / ``--tile-w=N`` tile geometry (default 64x64; profile 3 cuts
+full-width strips instead).  ``-d`` reads profiles 1-3.
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ nblic_tpu_torch: the PyTorch / CUDA port of the NBTC tiled codec
     -v           verbose
     -n<number>   near: 0 lossless (default), k > 0 near-lossless (max error k)
     -e<number>   effort: 0 or 1 (profile 1), 2 (profile 2: per-tile least squares),
-                 3 (profile 3: adaptive strips; encodes lossless only)
+                 3 (profile 3: adaptive strips)
     --tiled      the tile-parallel NBTC container (the only one ported)
     --device=D   torch device, default cuda
     --tile-h=N / --tile-w=N   NBTC tile geometry (default 64x64)

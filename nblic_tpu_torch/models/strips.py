@@ -1,12 +1,12 @@
 """NBTC profile 3: the adaptive-coding strip engine.
 
-Counterpart of ``nblic_tpu/models/strips.py``: the lossless encoder writes
-the same containers byte for byte, and the decoder reads every profile-3
-container that package writes or reads, lossless or near-lossless, to the
-same pixels.  Images are normalized to portrait (the
-long axis scans as rows; the header flags a transpose) and cut into
-full-width strips of ``th`` rows.  Every strip of every same-shape image of
-a call is one lane, and all lanes run in lockstep:
+Counterpart of ``nblic_tpu/models/strips.py``: the encoder writes the same
+containers byte for byte, lossless or near-lossless, and the decoder reads
+every profile-3 container that package writes or reads to the same pixels.
+Images are normalized to portrait (the long axis scans as rows; the header
+flags a transpose) and cut into full-width strips of ``th`` rows.  Every
+strip of every same-shape image of a call is one lane, and all lanes run in
+lockstep:
 
 - Modeling (:func:`_model_planes`): the parallel AVP prediction
   (``ops/pavp.py``), then the activity quantizers and the context address,
@@ -21,6 +21,14 @@ a call is one lane, and all lanes run in lockstep:
 - Fold (``ops/rans_bin.py``): binary rANS over 16 phase states a strip,
   slots assigned to phases statically, then ``rans.pack_streams``.
 
+Near-lossless encode (``near`` > 0) cannot model whole planes: each pixel
+is predicted from the reconstruction of the pixels before it.
+:func:`_near_walk` steps through the pixels of every lane in lockstep,
+folding each residual with step 2 near + 1 and feeding the reconstruction
+back; :func:`_near_code` then runs the coding model a row at a time
+(:func:`_row_code`: bias and mapper row-frozen, counters a segment, with
+k_step = min(3 + 2 near, 16)), and the fold is the lossless one.
+
 Decode (:func:`_decode_walk`) is one lockstep step a pixel over every strip
 lane of every image of a call: the AVP prediction from the reconstructed
 window, the bias correction, up to n_unary + 8 binary decisions read from
@@ -33,7 +41,7 @@ height; ``tile_w`` bit 0 the transpose, bit 1 the legacy tune-version bit,
 bits 2 and 3 the extended Tune block, bits 4+ the AVP feature count;
 ``n_tiles`` the strip count; ``bias_len`` 0 (the bias is replayed, not
 sent; a legacy container carries a zlib'd static table there and still
-decodes).  Near-lossless encode is not ported yet (ROADMAP Queue 1 item 11).
+decodes); ``near`` the max error.
 """
 
 from __future__ import annotations
@@ -56,7 +64,8 @@ from ..ops.predict import (
 from ..ops.window import row_start_window, slide_window
 from ..utils.container import NbtcHeader, check_size, inflate
 
-# default strip height: a whole 768-row Kodak-shaped image is one strip
+# default strip height: a whole 768-row Kodak-shaped image is one strip;
+# read when an encode is called, as TUNE is
 TH_DEFAULT = 768
 AVP_N = 10          # AVP feature count; containers record it
 K_STEP = 3          # lossless k_step
@@ -251,18 +260,19 @@ def _sym_refine_probs(rtab, refine, rcells):
     return _pair_prob(c)
 
 
-def _seg_slots_update(utab, rtab, z, qu, qv, qw, lane, tune: Tune):
+def _seg_slots_update(utab, rtab, z, qu, qv, qw, lane, k_step: int, tune: Tune):
     """Per-slot (prob, bin, mask) of one column segment from the current
     counter tables, then the tables after the segment's events.
 
-    z/qu/qv/qw: (L, ws) planes; ``lane``: (L, 1) lane indexes.  With
-    ``tune.sym_cnt`` the probabilities are per symbol; the tables still
-    update (and halve) at the segment's end.  Returns ((probs, bins,
-    masks), each (n_unary + L_R, L, ws), (utab, rtab)).
+    z/qu/qv/qw: (L, ws) planes; ``lane``: (L, 1) lane indexes; ``k_step``
+    the escalation step (:func:`_k_step`).  With ``tune.sym_cnt`` the
+    probabilities are per symbol; the tables still update (and halve) at
+    the segment's end.  Returns ((probs, bins, masks), each (n_unary + L_R,
+    L, ws), (utab, rtab)).
     """
     n_class = utab.shape[2]
-    unary, refine, row_end, k_end, escaped = _code_events(z, qu, qv, K_STEP, tune.n_unary)
-    ucells = coder3.unary_cells(lane, unary, K_STEP, tune.n_unary, n_class)
+    unary, refine, row_end, k_end, escaped = _code_events(z, qu, qv, k_step, tune.n_unary)
+    ucells = coder3.unary_cells(lane, unary, k_step, tune.n_unary, n_class)
     rcells = coder3.refine_cells(lane, row_end, k_end, refine[2])
     if tune.sym_cnt:
         u_probs = _sym_unary_probs(utab, unary, qw, ucells)
@@ -284,6 +294,30 @@ def _seg_slots_update(utab, rtab, z, qu, qv, qw, lane, tune: Tune):
     utab, rtab = coder3.row_updates(utab, rtab, qw, unary, refine, ucells, rcells,
                                     tune.cnt_halve)
     return (probs, bins, masks), (utab, rtab)
+
+
+def _row_code(utab, rtab, mhist, img_of_lane, lane, y, qu, qv, qw, key, k_step: int,
+              tune: Tune):
+    """One row of the coding model with a row-frozen mapper, as the near
+    encoder codes it: the mapper ranks at the row start, then each column
+    segment's slots through :func:`_seg_slots_update` with the counters
+    updated a segment, then the mapper history once.
+
+    y/qu/qv/qw/key: (L, W) int64 planes of the row.  Returns ((probs, bins,
+    masks), each (n_unary + L_R, L, W), (utab, rtab, mhist)).
+    """
+    ranks = coder3.mapper_ranks(mhist)
+    z = torch.where(y < coder3.N_MAP, coder3.mapper_lookup(ranks, img_of_lane, key, y), y)
+    w = y.shape[1]
+    ws = w // _eff_seg(tune.n_seg, w)
+    segs = []
+    for c0 in range(0, w, ws):
+        cols = slice(c0, c0 + ws)
+        slots, (utab, rtab) = _seg_slots_update(utab, rtab, z[:, cols], qu[:, cols],
+                                                qv[:, cols], qw[:, cols], lane, k_step, tune)
+        segs.append(slots)
+    mhist = coder3.mapper_updates(mhist, img_of_lane, key, y, tune.map_bump, tune.map_halve)
+    return tuple(torch.cat(v, -1) for v in zip(*segs)), (utab, rtab, mhist)
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +385,8 @@ def _row_scan(x, px0, adr, qu, qv, qw, n_imgs: int, tune: Tune):
             z = torch.where(y < coder3.N_MAP,
                             coder3.mapper_lookup(ranks, img_of_lane, key, y), y)
             (p, b, m), (utab, rtab) = _seg_slots_update(
-                utab, rtab, z, qu[:, r, cols], qv[:, r, cols], qw[:, r, cols], lane, tune)
+                utab, rtab, z, qu[:, r, cols], qv[:, r, cols], qw[:, r, cols], lane, K_STEP,
+                tune)
             probs[r, :, :, cols] = p
             bins[r, :, :, cols] = b
             masks[r, :, :, cols] = m
@@ -380,11 +415,10 @@ def _fold_layout(a):
     return a.reshape(n_l, -1, N_PHASE).transpose(1, 2).reshape(n_l * N_PHASE, -1)
 
 
-def _code_impl(x, px0, adr, qu, qv, qw, n_imgs: int, tune: Tune = TUNE):
-    """Row scan + fold + pack of modeled planes.  Returns (lengths
+def _fold_pack(probs, bins, masks, n_imgs: int):
+    """Fold + pack of the slot planes (th, slots, L, W).  Returns (lengths
     (n_imgs, S * N_PHASE) int64, flat u16 words of every state back to back
     as int32), both on the planes' device."""
-    probs, bins, masks = _row_scan(x, px0, adr, qu, qv, qw, n_imgs, tune)
     words, emits, state = rans_bin.fold(_fold_layout(probs), _fold_layout(bins),
                                         _fold_layout(masks))
     flat, lengths = rans.pack_streams(words, emits, state)
@@ -398,11 +432,11 @@ def _to_strips(img: np.ndarray, th: int) -> np.ndarray:
     return padded.reshape(s, th, w)
 
 
-def _container(lengths, words, h0, w0, s, th, transposed, tune: Tune) -> bytes:
+def _container(lengths, words, h0, w0, s, th, transposed, near: int, tune: Tune) -> bytes:
     tune.validate()
     n_states = s * N_PHASE
     hdr = NbtcHeader(
-        profile=PROFILE, near=0, height=h0, width=w0, tile_h=th,
+        profile=PROFILE, near=near, height=h0, width=w0, tile_h=th,
         # bit 0: transposed; bit 1: legacy tune-version bit; bits 2 and 3:
         # an extended Tune block follows; bits 4+: AVP feature count
         tile_w=int(transposed) | (2 * (tune != TUNE_V1)) | 4 | 8 | (AVP_N << 4),
@@ -414,12 +448,15 @@ def _container(lengths, words, h0, w0, s, th, transposed, tune: Tune) -> bytes:
 
 
 def _check_near(near: int) -> None:
-    if not 0 <= near <= 255:
+    if not 0 <= near <= 255:  # the header keeps near in one byte
         raise ValueError(f"near must be in [0, 255], got {near}")
-    if near:
-        raise NotImplementedError(
-            "profile-3 near-lossless (effort >= 3, near > 0) is not ported yet: "
-            "ROADMAP Queue 1 item 11")
+
+
+def _near_tune(tune: Tune) -> Tune:
+    """The contract a near-lossless container records: ``tune`` with the
+    bias and mapper row-frozen and the AVP statistics live (the feedback
+    walk reads the tables a whole row and solves every pixel)."""
+    return tune._replace(seg_bias=0, seg_map=0, seg_stats=0, sym_bias=0, w_pred=0)
 
 
 def _prepare(imgs, th: int):
@@ -438,40 +475,49 @@ def _prepare(imgs, th: int):
     return np.stack([_to_strips(im, th) for im in imgs]), dims, tflags, th
 
 
-def _finalize(lengths, flat, dims, tflags, s: int, th: int, tune: Tune) -> list[bytes]:
+def _finalize(lengths, flat, dims, tflags, s: int, th: int, near: int,
+              tune: Tune) -> list[bytes]:
     """Fetch each image's streams and emit its container."""
     lens = lengths.cpu().numpy()
     ends = np.cumsum(lens.sum(axis=1))
     words = flat[: int(ends[-1])].cpu().numpy()
     return [_container(lens[b], words[ends[b] - lens[b].sum() : ends[b]], dims[b][0],
-                       dims[b][1], s, th, tflags[b], tune)
+                       dims[b][1], s, th, tflags[b], near, tune)
             for b in range(len(dims))]
 
 
-def encode(img: np.ndarray, th: int = TH_DEFAULT, near: int = 0, device="cuda") -> bytes:
-    """Profile-3 lossless encode of one gray-8 image."""
+def encode(img: np.ndarray, th: int | None = None, near: int = 0, device="cuda") -> bytes:
+    """Profile-3 encode of one gray-8 image: lossless, or near-lossless
+    with max error ``near`` through the feedback walk."""
     return encode_batch([img], th=th, near=near, device=device)[0]
 
 
-def encode_batch(imgs, th: int = TH_DEFAULT, near: int = 0, device="cuda") -> list[bytes]:
+def encode_batch(imgs, th: int | None = None, near: int = 0, device="cuda") -> list[bytes]:
     """Encode images whose shapes agree after portrait normalization: all
-    their strips run as lanes of one modeling pass, one row scan and one
-    fold.  Each image gets the container it would get alone."""
+    their strips run as lanes of one modeling pass (at ``near`` > 0, one
+    feedback walk), one coding pass and one fold.  Each image gets the
+    container it would get alone.  ``th`` is the strip height,
+    :data:`TH_DEFAULT` if None."""
     _check_near(near)
     dev = resolve_device(device)
     if not imgs:
         return []
-    tune = TUNE.validate()
-    strips, dims, tflags, th = _prepare(imgs, th)
+    tune = (_near_tune(TUNE) if near else TUNE).validate()
+    strips, dims, tflags, th = _prepare(imgs, TH_DEFAULT if th is None else th)
     b, s, _, w = strips.shape
-    seg_w = w // _eff_seg(tune.n_seg, w) if tune.seg_stats else 0
-    planes = _model_planes(torch.from_numpy(strips).to(dev).reshape(b * s, th, w), AVP_N,
-                           seg_w, bool(tune.mix_e), bool(tune.w_pred))
-    lengths, flat = _code_impl(*planes, b, tune)
-    return _finalize(lengths, flat, dims, tflags, s, th, tune)
+    x = torch.from_numpy(strips).to(dev).reshape(b * s, th, w)
+    if near:
+        planes = _near_walk(x, b, near, AVP_N, tune)
+        slots = _near_code(*planes, b, _k_step(near), tune)
+    else:
+        seg_w = w // _eff_seg(tune.n_seg, w) if tune.seg_stats else 0
+        planes = _model_planes(x, AVP_N, seg_w, bool(tune.mix_e), bool(tune.w_pred))
+        slots = _row_scan(*planes, b, tune)
+    lengths, flat = _fold_pack(*slots, b)
+    return _finalize(lengths, flat, dims, tflags, s, th, near, tune)
 
 
-def encode_batches(image_groups, th: int = TH_DEFAULT, near: int = 0,
+def encode_batches(image_groups, th: int | None = None, near: int = 0,
                    device="cuda") -> list[list[bytes]]:
     """Encode several batches, one :func:`encode_batch` each."""
     return [encode_batch(g, th=th, near=near, device=device) for g in image_groups]
@@ -522,6 +568,27 @@ def _pixel_features(regs, prev1, err, f_row_j, e_acc, i: int, j: int, w: int, n:
     return nb, px_s, feats, stats, px0, qu, qv, qw, adr
 
 
+def _pixel_predict(regs, prev1, err, f_row_j, f_mix_j, e_acc, e_mix, i: int, j: int, w: int,
+                   n: int):
+    """Prediction and contexts of pixel (i, j) over live moment chains:
+    plain AVP (:func:`_pixel_features`) without mix chains (``f_mix_j``
+    None), else the hard-fallback AVP blended with the simple prediction by
+    their squared decayed |error| energies.  Returns (px_s, feats, stats,
+    px0, px_hard, qu, qv, qw, adr); px_hard None without mixing."""
+    if f_mix_j is None:
+        _, px_s, feats, stats, px0, qu, qv, qw, adr = _pixel_features(
+            regs, prev1, err, f_row_j, e_acc, i, j, w, n)
+        return px_s, feats, stats, px0, None, qu, qv, qw, adr
+    nb, px_s, feats = _pixel_taps(regs, prev1, i, j, w, n)
+    stats = e_acc + f_row_j
+    px_f, ok = pavp.predict_from_stats(stats, feats, n)
+    px_hard = _round_px(px_f, ok, px_s)
+    em = e_mix + f_mix_j
+    px0 = pavp.mix_blend(px_hard, px_s, em[0], em[1], ok)
+    qu, qv, qw, adr = _pixel_ctx(nb, err, px0)
+    return px_s, feats, stats, px0, px_hard, qu, qv, qw, adr
+
+
 def _pixel_correct(px0, bias):
     """Bias-corrected prediction, the bias's half bit as the preferred
     sign, and the mapper key: (sign, pxc, key)."""
@@ -550,6 +617,96 @@ def _mix_update(x, px_hard, px_s, e_mix, b_mix, j: int, ab_m):
         [torch.abs(x - px_hard) << FB1, torch.abs(x - px_s) << FB1])
     b_mix[j] = col
     return pavp.decay(e_mix, ab_m) + col
+
+
+# ---------------------------------------------------------------------------
+# near-lossless encode: the feedback walk, then the row coder
+# ---------------------------------------------------------------------------
+
+
+def _near_walk(x, n_imgs: int, near: int, n_feat: int, tune: Tune):
+    """Reconstruction-feedback walk of (L, th, W) strips, L = n_imgs strips
+    of each image, image-major: one lockstep step a pixel over every lane.
+
+    Each pixel is predicted from the reconstructed window and chains as the
+    decoder will (:func:`_pixel_predict`), corrected by the row-frozen bias,
+    folded with step 2 near + 1 and unfolded to its reconstruction xr; the
+    chains, the window, the next pixel's error and each row's bias moments
+    take xr, never x.  The coding model reads none of the walk's state, so
+    it runs after it (:func:`_near_code`).  Returns the int64 (L, th, W)
+    planes (y, qu, qv, qw, key) on x's device.  The pixel loop never waits
+    for the host: (i, j) are Python ints, every constant is made once.
+    """
+    dev = x.device
+    lanes, th, w = x.shape
+    n = n_feat
+    m = pavp.get_m(n)
+    mix_e = bool(tune.mix_e)
+    i64 = dict(dtype=torch.int64, device=dev)
+    bias_off = torch.arange(n_imgs, **i64).repeat_interleave(lanes // n_imgs) * Q_N_CONTEXT
+    ab = pavp.ab_vec(m, dev)
+    ab_m = pavp.ab_vec(pavp.mix_ab(), dev)
+    zero = torch.zeros((lanes,), **i64)
+    x_px = x.to(torch.int64).permute(1, 2, 0).contiguous()  # (th, W, L)
+
+    prev1 = torch.zeros((lanes, w), **i64)
+    prev2 = prev1
+    b_row = torch.zeros((w, m, lanes), **i64)
+    b_mix = torch.zeros((w, 2, lanes), **i64) if mix_e else None
+    bsums = torch.zeros(n_imgs * Q_N_CONTEXT, **i64)
+    bcnts = torch.zeros_like(bsums)
+    planes = torch.empty((5, lanes, th, w), **i64)
+    for i in range(th):
+        btab = quantize_bias(bsums, bcnts, tune.bias_shrink)
+        f_row = pavp.f_chain(b_row, ab=ab)
+        f_mix = pavp.f_chain(b_mix, ab=ab_m) if mix_e else None
+        regs = row_start_window(i, prev1, prev2, w)
+        err = zero
+        e_acc = torch.zeros((m, lanes), **i64)
+        e_mix = torch.zeros((2, lanes), **i64) if mix_e else None
+        cols = []
+        for j in range(w):
+            px_s, feats, stats, px0, px_hard, qu, qv, qw, adr = _pixel_predict(
+                regs, prev1, err, f_row[j], f_mix[j] if mix_e else None, e_acc, e_mix,
+                i, j, w, n)
+            sign, pxc, key = _pixel_correct(px0, btab[bias_off + adr])
+            y = residual_fold(x_px[i, j], pxc, sign, near)
+            xr = residual_unfold(y, pxc, sign, near)
+            err = torch.clamp(xr - px0, -MAX_PX_INC, MAX_PX_INC)
+            e_acc = _pixel_update(xr, px_s, feats, stats, e_acc, b_row, j, ab, n)
+            if mix_e:
+                e_mix = _mix_update(xr, px_hard, px_s, e_mix, b_mix, j, ab_m)
+            regs = slide_window(regs, xr, i, j, prev1, prev2, w)
+            cols.append((xr, px0, adr, y, qu, qv, qw, key))
+        xr_r, px0_r, adr_r, *coded = (torch.stack(v, 1).to(torch.int64) for v in zip(*cols))
+        planes[:, :, i] = torch.stack(coded)
+        bsums, bcnts = _bias_update(bsums, bcnts, bias_off[:, None] + adr_r, xr_r - px0_r,
+                                    tune.bias_cap)
+        prev1, prev2 = xr_r, prev1
+    return planes.unbind(0)
+
+
+def _near_code(y, qu, qv, qw, key, n_imgs: int, k_step: int, tune: Tune):
+    """The coding model over the walk's (L, th, W) planes, one
+    :func:`_row_code` a row.  Returns (probs, bins, masks), each (th,
+    n_unary + L_R, L, W), for :func:`_fold_pack`."""
+    n_l, th, w = y.shape
+    dev = y.device
+    l_tot = tune.n_unary + L_R
+    img_of_lane = torch.arange(n_imgs, device=dev).repeat_interleave(n_l // n_imgs)
+    lane = torch.arange(n_l, device=dev)[:, None]
+    n_class = zcodec3.layer_consts(k_step, tune.n_unary).n_class
+    utab = coder3.init_unary(n_l, n_class, tune.cnt_init, dev)
+    rtab = coder3.init_refine(n_l, tune.cnt_init, dev)
+    mhist = coder3.init_mapper(n_imgs, dev)
+    probs = torch.empty((th, l_tot, n_l, w), dtype=torch.int16, device=dev)
+    bins = torch.empty((th, l_tot, n_l, w), dtype=torch.int8, device=dev)
+    masks = torch.empty((th, l_tot, n_l, w), dtype=torch.bool, device=dev)
+    for r in range(th):
+        (probs[r], bins[r], masks[r]), (utab, rtab, mhist) = _row_code(
+            utab, rtab, mhist, img_of_lane, lane, y[:, r], qu[:, r], qv[:, r], qw[:, r],
+            key[:, r], k_step, tune)
+    return probs, bins, masks
 
 
 # ---------------------------------------------------------------------------
@@ -676,19 +833,10 @@ def _decode_walk(words, bias_tab, th: int, w: int, s: int, n_imgs: int, n_feat: 
                         k = j - j0
                         px0 = _pixel_px0_from_solve(diag[:, k], num[:, k], ok_x[k], feats, px_s)
                     qu, qv, qw, adr = _pixel_ctx(nb, err, px0)
-                elif mix_e:
-                    # the hard-fallback AVP and the simple prediction blended
-                    # by their squared decayed |error| energies
-                    nb, px_s, feats = _pixel_taps(regs, prev1, i, j, w, n)
-                    stats = e_acc + f_row[j]
-                    px_f, ok = pavp.predict_from_stats(stats, feats, n)
-                    px_hard = _round_px(px_f, ok, px_s)
-                    em = e_mix + f_mix[j]
-                    px0 = pavp.mix_blend(px_hard, px_s, em[0], em[1], ok)
-                    qu, qv, qw, adr = _pixel_ctx(nb, err, px0)
                 else:
-                    nb, px_s, feats, stats, px0, qu, qv, qw, adr = _pixel_features(
-                        regs, prev1, err, f_row[j], e_acc, i, j, w, n)
+                    px_s, feats, stats, px0, px_hard, qu, qv, qw, adr = _pixel_predict(
+                        regs, prev1, err, f_row[j], f_mix[j] if mix_e else None, e_acc, e_mix,
+                        i, j, w, n)
                 sign, pxc, key = _pixel_correct(px0, btab[bias_off + adr])
                 base = (i * w + j) * l_tot  # the pixel's first slot
 

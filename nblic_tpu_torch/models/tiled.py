@@ -28,12 +28,11 @@ a container still decodes exactly (within ``near``) in both packages.
   shared stream cursor (kernel K2 on CUDA), near-lossless containers
   included.
 
-Effort 3 writes profile 3 through ``models/strips.py`` (lossless only), as
-the JAX package routes it, and the decoders send profile-3 containers there.
-Every entry point takes ``device`` ("cuda" by default); a CUDA device on a
-machine without CUDA raises.  Profile-0 decode and profile-3 near-lossless
-encode are not ported and raise ``NotImplementedError`` naming their ROADMAP
-item.
+Effort 3 writes profile 3 through ``models/strips.py``, lossless or
+near-lossless, as the JAX package routes it, and the decoders send
+profile-3 containers there.  Every entry point takes ``device`` ("cuda" by
+default); a CUDA device on a machine without CUDA raises.  Profile-0 decode
+is not ported and raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -73,14 +72,9 @@ RACE_INVALID = 3e38
 NEAR_BIAS_ITERS = 1
 
 
-def _check_encode_mode(near: int, effort: int) -> None:
+def _check_encode_mode(near: int) -> None:
     if not 0 <= near <= 255:  # the header keeps near in one byte
         raise ValueError(f"near must lie in 0..255, got {near}")
-    if effort >= 3 and near:
-        raise NotImplementedError(
-            "profile-3 near-lossless (effort >= 3, near > 0) is not ported yet: "
-            "ROADMAP Queue 1 item 11"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +456,7 @@ def encode(img: np.ndarray, near: int = 0, tile_h: int = DEFAULT_TILE[0],
            device="cuda") -> bytes:
     """Encode a gray-8 image into an NBTC container: profile 1 at effort
     0-1, profile 2 (per-tile least-squares predictors) at effort 2,
-    profile 3 (the strip engine, lossless; no tiles) at effort 3 and above;
+    profile 3 (the strip engine; no tiles) at effort 3 and above;
     near-lossless (max error ``near``) when ``near`` > 0."""
     return encode_batch([img], near=near, tile_h=tile_h, tile_w=tile_w,
                         effort=effort, device=device)[0]
@@ -477,9 +471,9 @@ def encode_batch(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
     0); at ``near`` > 0 it is ignored, as the JAX package ignores it there.
     At effort 3 the images go to :func:`strips.encode_batch`, which
     normalizes their orientation itself."""
-    _check_encode_mode(near, effort)
+    _check_encode_mode(near)
     if effort >= 3:
-        return strips.encode_batch(imgs, device=device)
+        return strips.encode_batch(imgs, near=near, device=device)
     return _encode_batch(imgs, tile_h, tile_w, 2 if effort >= 2 else 1,
                          transposed if near == 0 else None, resolve_device(device),
                          near=near)
@@ -576,9 +570,9 @@ def encode_corpus(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
     At effort 3 the strip engine normalizes images to portrait instead, and
     the images of each portrait shape share one batch.
     """
-    _check_encode_mode(near, effort)
+    _check_encode_mode(near)
     if effort >= 3:
-        return _encode_corpus_p3(imgs, device)
+        return _encode_corpus_p3(imgs, near, device)
     idx_groups, batches, flag_groups = _orientation_batches(imgs, transpose=near == 0)
     streams_by_group = encode_batches(
         batches, near=near, tile_h=tile_h, tile_w=tile_w, effort=effort,
@@ -591,7 +585,7 @@ def encode_corpus(imgs, near: int = 0, tile_h: int = DEFAULT_TILE[0],
     return out
 
 
-def _encode_corpus_p3(imgs, device) -> list[bytes]:
+def _encode_corpus_p3(imgs, near: int, device) -> list[bytes]:
     """Profile-3 containers of ``imgs`` in input order, one
     :func:`strips.encode_batch` per portrait-normalized shape."""
     groups: dict[tuple, list[int]] = {}
@@ -599,7 +593,8 @@ def _encode_corpus_p3(imgs, device) -> list[bytes]:
         groups.setdefault(tuple(sorted(np.shape(im), reverse=True)), []).append(i)
     out: list[bytes] = [b""] * len(imgs)
     for idx in groups.values():
-        for i, c in zip(idx, strips.encode_batch([imgs[i] for i in idx], device=device)):
+        for i, c in zip(idx, strips.encode_batch([imgs[i] for i in idx], near=near,
+                                                      device=device)):
             out[i] = c
     return out
 

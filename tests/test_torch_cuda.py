@@ -17,6 +17,7 @@ import torch
 from nblic_tpu_torch.convert import group_args, tables_from_numpy
 from nblic_tpu_torch.models import strips, tiled
 from nblic_tpu_torch.ops import decode, fold, rans
+from nblic_tpu_torch.utils.synth import synth_image
 
 
 @pytest.fixture
@@ -295,3 +296,29 @@ def test_profile3_fixtures_decode_on_card(cuda_device, name):
         stream = f.read()
     np.testing.assert_array_equal(strips.decode(stream, device=cuda_device),
                                   np.load(os.path.join(data, name + ".npy")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tune", ["TUNE_V4", "TUNE_MAX", "TUNE_V4S"])
+@pytest.mark.parametrize("near", [1, 2, 3])
+def test_profile3_near_on_card_matches_cpu(cuda_device, monkeypatch, tune, near):
+    monkeypatch.setattr(strips, "TUNE", getattr(strips, tune))
+    rng = np.random.default_rng(30 + near)
+    imgs = [synth_image(rng, 24, 32), synth_image(rng, 32, 24)]
+    card = strips.encode_batch(imgs, th=16, near=near, device=cuda_device)
+    assert card == strips.encode_batch(imgs, th=16, near=near, device="cpu")
+    assert all(strips._parse(c)[0][6] == near for c in card)
+    for got, im in zip(strips.decode_batch(card, device=cuda_device), imgs):
+        assert np.abs(got.astype(int) - im.astype(int)).max() <= near
+
+
+@pytest.mark.cuda
+def test_profile3_near2_fixture_encoded_on_card(cuda_device):
+    import os
+
+    # the image of test_torch_p3_fixtures.fixture_image(), whose near-2
+    # container nblic_tpu wrote
+    img = synth_image(np.random.default_rng(71), 40, 24)
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_torch_p3")
+    with open(os.path.join(data, "near2.nbtc"), "rb") as f:
+        assert strips.encode(img, th=16, near=2, device=cuda_device) == f.read()

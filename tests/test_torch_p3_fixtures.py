@@ -1,9 +1,10 @@
 """The profile-3 containers that the port's smoke run decodes on the card,
 where no JAX is installed, regenerated here by nblic_tpu.
 
-``tests/data_torch_p3/`` holds three containers nblic_tpu writes or reads
-that the port cannot write yet, each beside its pixels: a near-lossless
-container (near 2) with nblic_tpu's decode of it, a legacy container with
+``tests/data_torch_p3/`` holds three containers nblic_tpu writes or reads,
+each beside its pixels: a near-lossless container (near 2) with nblic_tpu's
+decode of it, which the port also writes (``test_torch_p3_near_encode.py``
+and the smoke run hold the port's bytes to it), a legacy container with
 no Tune block (the TUNE_V1 version bit) with the image it encodes, and
 that legacy container with a transmitted static-bias table, with
 nblic_tpu's decode.  This test rebuilds each container with nblic_tpu and

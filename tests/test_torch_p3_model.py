@@ -1,7 +1,8 @@
 """The port's profile-3 modeling planes and coding scan against nblic_tpu's.
 
 ``strips._model_planes`` must give the six planes of the JAX package's, and
-``strips._code_impl`` its stream lengths and words, on the CPU with
+the row scan with the fold (``strips._row_scan``, ``strips._fold_pack``)
+the stream lengths and words of its ``_code_impl``, on the CPU with
 tolerance 0.  The JAX side runs under ``jax.enable_x64`` as its encoder does.
 """
 
@@ -39,7 +40,7 @@ def test_model_planes_and_coding_scan():
     planes_p = strips._model_planes(torch.from_numpy(strip_arr[0]), 10, mix=True)
     for p, r in zip(planes_p, planes_j):
         np.testing.assert_array_equal(p.numpy(), r)
-    len_p, flat_p = strips._code_impl(*planes_p, 1, tune)
+    len_p, flat_p = strips._fold_pack(*strips._row_scan(*planes_p, 1, tune), 1)
     np.testing.assert_array_equal(len_p[0].numpy(), len_j)
     words_j = np.stack([flat_j & 0xFFFF, (flat_j >> 16) & 0xFFFF], 1).reshape(-1)
     n = int(len_j.sum())

@@ -111,7 +111,7 @@ def test_segment_slots_and_counter_updates(tune):
         jnp.asarray(utab), jnp.asarray(rtab), jnp.asarray(z), jnp.asarray(qw), *ev, 3, tj)
     (p_p, b_p, m_p), (u_p, r_p) = strips._seg_slots_update(
         _t(utab), _t(rtab), _t(z), _t(qu), _t(qv), _t(qw),
-        torch.arange(lanes)[:, None], tp)
+        torch.arange(lanes)[:, None], 3, tp)
     for p, r in ((p_p, p_j), (b_p, b_j), (m_p, m_j), (u_p, u_j), (r_p, r_j)):
         _eq(p, r)
     assert bool((np.asarray(u_j) < utab).any())  # some pairs halved
