@@ -65,6 +65,24 @@ Phases, one line each; any failure exits non-zero:
      and its decodes run in a pool of two processes started before phase
      12, beside the card's work.  (kernel_probe.py p3-near times the stages
      against the lane count.)
+ 14. interop (Q0.2, NBLIC0.3): the port's copy of the native runtime built
+     with g++; the 24-image corpus through api.compress / decompress(
+     backend="native") at effort 0 (1 and 4 threads), 1, 2, 3 and effort 1
+     near 2 in a pool of four processes, with host MPix/s and bpp, all
+     collected before the card's walks are timed (the walks are bound by
+     the host's issue rate); the runtime copy's containers equal the committed
+     nblic_tpu fixtures (tests/data_torch_interop); the device engines on
+     the card (plain PyTorch walks, one lane) on the fixture's 2x768 crop of
+     a Kodak-shaped image: Q0.2, effort 1 near 0 and 2, effort 3, each
+     container equal to the fixture's and the native copy's and decoded on
+     the card as the native copy decodes it, in ms a pixel with the
+     projected time of one 768x512 image; the Q0.2 encode of a whole corpus
+     image on the card (the context chain's lanes, then K1 at S = 1, L =
+     393,216), equal to the native copy's; K1 at S = 1 held to its plain
+     version on the crop's tables (on the card) and on the image's (the
+     plain fold on the CPU), and timed on the image's beside its bound and
+     its serial chain.  (kernel_probe.py interop also times a flat
+     image's chain.)
 Each kernel's time stands beside its bound (the whole card's roofline:
 bytes over the memory rate, integer operations over the int32 rate) and
 its floor (the least time at the launch's own parallelism: the issue of
@@ -555,9 +573,9 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job) -> bool:
 def _p3_near_phase(tiled, corpus, dev, card, cpu_job) -> bool:
     """Profile-3 near-lossless encode: the committed fixture's bytes, the
     pair at near 1 and 3 against the CPU (``cpu_job``, a future of the
-    near-lossless :func:`_p3_cpu_jobs`), the corpus at near 2
-    through tiled.encode_corpus at th = 16 stage by stage, then its decode
-    on the card through tiled.decode_batch."""
+    near-lossless :func:`_p3_cpu_jobs`) and decoded on the card, the corpus
+    at near 2 through tiled.encode_corpus at th = 16 stage by stage, then its
+    decode on the card through tiled.decode_batch."""
     import torch
 
     from nblic_tpu_torch.models import strips
@@ -662,6 +680,192 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job) -> bool:
           f"{walk_ms / 1e3:.2f} s = {walk_ms / n_steps:.3f} ms a pixel step, peak device "
           f"memory {peak:.2f} GiB ({card})", flush=True)
     return 0 < err <= NEAR
+
+
+# the native runtime's corpus runs: (label, near, effort, n_threads)
+NATIVE_MODES = (("e0 t1", 0, 0, 1), ("e0 t4", 0, 0, 4), ("e1", 0, 1, 0), ("e2", 0, 2, 0),
+                ("e3", 0, 3, 0), (f"e1 near {NEAR}", NEAR, 1, 0))
+# the device engines' runs on the fixture crop: (fixture mode, near, effort)
+INTEROP_WALKS = (("q0", 0, 0), ("e1", 0, 1), ("e1n2", NEAR, 1), ("e3", 0, 3))
+
+
+def _native_run(imgs, near, effort, n_threads):
+    """api.compress / decompress(backend="native") of each image, in a
+    process of its own: [(container, encode s, decode s, max error)]."""
+    from nblic_tpu_torch import api
+
+    out = []
+    for img in imgs:
+        t0 = time.perf_counter()
+        c = api.compress(img, near=near, effort=effort, backend="native", n_threads=n_threads)
+        t1 = time.perf_counter()
+        back = api.decompress(c, backend="native")
+        out.append((c, t1 - t0, time.perf_counter() - t1, _max_err(back, img)))
+    return out
+
+
+def _interop_fixtures():
+    """(images {name: array}, containers {(image, mode): bytes}): the
+    committed interop fixtures (tests/test_torch_runtime.py regenerates
+    them with nblic_tpu.runtime)."""
+    import os
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data_torch_interop")
+    imgs = {n: np.load(os.path.join(data, n + ".npy")) for n in ("crop", "small")}
+    conts = {}
+    for name in imgs:
+        for mode in ("q0", "e1", "e2", "e3", "e1n2"):
+            with open(os.path.join(data, f"{name}_{mode}.nblic"), "rb") as f:
+                conts[name, mode] = f.read()
+    return imgs, conts
+
+
+def _plain_fold(f, a):
+    """rans.encode_scan of int32 (1, L) tables on the CPU, in a process of
+    its own: (words, emits, state) as numpy arrays."""
+    import torch
+
+    from nblic_tpu_torch.ops import rans
+
+    return tuple(t.numpy() for t in rans.encode_scan(torch.from_numpy(f), torch.from_numpy(a)))
+
+
+def _interop_phase(api, corpus, dev, card):
+    """The interop containers: the port's native runtime copy on the corpus
+    (a pool of processes, collected before the card's walks are timed) and
+    on the fixtures; the device engines on the card on the fixture crop
+    (full width) and, for Q0.2, a whole corpus image; K1 at S = 1.  Returns
+    None on a failure, else K1's launches in the engines' runs."""
+    import torch
+
+    from nblic_tpu_torch import runtime
+    from nblic_tpu_torch.models import qnblic
+    from nblic_tpu_torch.ops import rans
+    from nblic_tpu_torch.ops.fold import encode_fold
+
+    def tables(im):
+        """K1's (1, h * w) int32 freq / cum tables of a Q0.2 encode of im."""
+        x = torch.from_numpy(im).to(dev).to(torch.int32)
+        px0, err_, qd, adr = qnblic.model_stage1(x)
+        y = qnblic._context_chain(x, px0, err_, adr)
+        sym = (qd * 256 + y).reshape(-1).to(torch.int64)
+        hist = torch.bincount(sym, minlength=12 * 256).view(12, 256).cpu().numpy()
+        hist_n = np.stack([qnblic.hist_ops.normalize(h_) for h_ in hist])
+        acc = np.stack([qnblic.hist_ops.accumulate(h_) for h_ in hist_n])
+        f = torch.from_numpy(hist_n.astype(np.int32)).to(dev).view(-1)[sym][None]
+        a = torch.from_numpy(acc.astype(np.int32)).to(dev).view(-1)[sym][None]
+        return f, a
+
+    t0 = time.perf_counter()
+    lib = runtime.build()
+    print(f"[interop build] the native runtime copy (g++) in {time.perf_counter() - t0:.2f} "
+          f"s -> {lib}, {runtime.version()}", flush=True)
+    img = corpus[0]
+    pool = ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        chunks = [corpus[k : k + 6] for k in range(0, len(corpus), 6)]
+        jobs = {m: [pool.submit(_native_run, ch, *m[1:]) for ch in chunks]
+                for m in NATIVE_MODES}
+        imgs, fixtures = _interop_fixtures()
+        same = all(
+            fixtures[name, mode] == api.compress(imgs[name], near=near, effort=effort,
+                                                 backend="native", n_threads=1)
+            for name in imgs for mode, near, effort in
+            (("q0", 0, 0), ("e1", 0, 1), ("e2", 0, 2), ("e3", 0, 3), ("e1n2", NEAR, 1)))
+        print(f"[interop fixtures] the native runtime copy's containers equal the "
+              f"committed nblic_tpu containers {same}", flush=True)
+        if not same:
+            return None
+        # the plain fold of the whole image's tables, on the CPU beside the
+        # native runs
+        f_img, a_img = tables(img)
+        plain_job = pool.submit(_plain_fold, f_img.cpu().numpy(), a_img.cpu().numpy())
+
+        # ---- the native corpus runs, all collected before the card's walks
+        # are timed
+        n_px = sum(im.size for im in corpus)
+        for m, futs in jobs.items():
+            res = [r for fut in futs for r in fut.result()]
+            enc_s, dec_s = sum(r[1] for r in res), sum(r[2] for r in res)
+            err = max(r[3] for r in res)
+            ok = err <= m[1] and (m[1] > 0 or err == 0)
+            print(f"[interop native] {m[0]}: {len(res)} images, "
+                  f"{8.0 * sum(len(r[0]) for r in res) / n_px:.4f} bpp, max error {err}, "
+                  f"encode {n_px / enc_s / 1e6:.2f} MPix/s, decode {n_px / dec_s / 1e6:.2f} "
+                  f"MPix/s (host time on the card's machine, one process a call, four "
+                  f"processes at once)", flush=True)
+            if not ok:
+                return None
+        t0 = time.perf_counter()
+        plain_img = plain_job.result()
+        print(f"[interop native] all collected; the plain fold of the image's tables on "
+              f"the CPU waited for {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+    # ---- the device engines on the card: the crop (full width, a depth cut
+    # of the rows: a walk takes 3-10 ms a pixel here)
+    crop = imgs["crop"]
+    encode_fold.launches = 0
+    for mode, near, effort in INTEROP_WALKS:
+        t0 = time.perf_counter()
+        c = api.compress(crop, near=near, effort=effort, device=dev)
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = api.decompress(c, device=dev)
+        dec_s = time.perf_counter() - t0
+        native = api.compress(crop, near=near, effort=effort, backend="native")
+        err = _max_err(back, crop)
+        ok = c == fixtures["crop", mode] == native and np.array_equal(
+            back, api.decompress(native, backend="native")) and err <= near
+        walk_s = dec_s if effort == 0 else enc_s + dec_s
+        print(f"[interop walk] {mode} {crop.shape} on the card: container equal to the "
+              f"fixture's and the native copy's, decode equal to the native's {ok} (max "
+              f"error {err}); encode {1e3 * enc_s / crop.size:.3f} ms a pixel, decode "
+              f"{1e3 * dec_s / crop.size:.3f} ms a pixel; one 768x512 image would take "
+              f"{768 * 512 * walk_s / crop.size / 60:.1f} min both ways at these times "
+              f"({card})", flush=True)
+        if not ok:
+            return None
+
+    # ---- Q0.2 encode of a whole image on the card: the context chain's
+    # lanes and K1 at S = 1 over all 393,216 symbols
+    with StageClock([(qnblic, "_context_chain", "stage 1 and chain"),
+                     (qnblic, "encode_fold", "fold (K1)"),
+                     (qnblic.rans, "finalize_streams", "stream")]) as clock:
+        t0 = time.perf_counter()
+        c = api.compress(img, effort=0, device=dev)
+        enc_s = time.perf_counter() - t0
+    ok = c == api.compress(img, effort=0, backend="native", n_threads=1)
+    launches = encode_fold.launches
+    print(f"[interop q0.2 image] {img.shape} encoded on the card in {enc_s:.3f} s, "
+          f"stages ms " + ", ".join(f"{k} {v:.1f}" for k, v in clock.stages().items())
+          + f", equal to the native copy's {ok}; K1 launches in the phase {launches} "
+          f"({card})", flush=True)
+    if not ok or launches <= 0:
+        return None
+
+    # ---- K1 at S = 1: held to its plain version on the crop's tables (on
+    # the card) and on the image's (the CPU's plain fold above), timed on
+    # the image's
+    f, a = tables(crop)
+    k_out, p_out = encode_fold(f, a), rans.encode_scan(f, a)
+    exact = all(torch.equal(u, v) for u, v in zip(k_out, p_out))
+    k_img = encode_fold(f_img, a_img)
+    exact_img = all(np.array_equal(u.cpu().numpy(), v) for u, v in zip(k_img, plain_img))
+    l_ = f_img.shape[1]
+    ms = _cuda_ms(lambda: encode_fold(f_img, a_img), 5)
+    bound = _bound(l_ * (4 + 4 + 4) + 4, l_ * K1_OPS_PER_SYMBOL)
+    floor = 1e3 * l_ * K1_OPS_PER_SYMBOL / CLOCK_HZ
+    print(f"[K1 rans_fold S=1] held to its plain version on the crop's tables "
+          f"(L={crop.size}) exact={exact}, on the image's (L={l_}, the plain fold on the "
+          f"CPU) exact={exact_img}; on the image's: kernel {ms:.3f} ms | bound "
+          f"{bound[0]:.4f} ms ({bound[1]}) | issue floor {floor:.4f} ms | at 182 cycles a "
+          f"step {1e3 * l_ * 182 / CLOCK_HZ:.1f} ms ({card})", flush=True)
+    if not (exact and exact_img):
+        return None
+    return launches
 
 
 def _main_path(api, tiled, corpus, frame, dev, effort, tag, card):
@@ -959,6 +1163,16 @@ def main() -> int:
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
+    # ---- the interop containers (Q0.2, NBLIC0.3): the native runtime copy,
+    # the device engines, K1 at S = 1
+    t0 = time.perf_counter()
+    interop_k1 = _interop_phase(api, corpus, dev, card)
+    if interop_k1 is None:
+        print("[interop] failed: a container differed from the fixture's or the native "
+              "copy's, a decode differed, or K1 never launched")
+        return 1
+    print(f"[interop] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
     def row(name_, source, replaces, launches, stats):
         err_, ms_, pms_, (bound_ms, bound_by) = stats
         return {"name": name_, "route": "cuda", "source": source,
@@ -972,7 +1186,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("rans_fold", "nblic_tpu_torch/csrc/rans_fold.cu",
             "nblic_tpu/ops/pallas_fold.py:93",
-            launches1["rans_fold"] + launches2["rans_fold"] + near_k1,
+            launches1["rans_fold"] + launches2["rans_fold"] + near_k1 + interop_k1,
             (fold_err, fold_ms, fold_plain_ms, fold_bound)),
         row("group_decode_p1", k2_src, "nblic_tpu/ops/pallas_decode.py:247",
             launches1["group_decode"] + near_k2_e1, dec[1]),

@@ -54,6 +54,16 @@ PROBE is one of:
              then a walk row of 32 columns at 1152 lanes under
              torch.profiler: its device time against the wall time and its
              device launches a step.  Builds no variant.
+  interop    the interop engines (plain PyTorch, one lane) on the card: the
+             Q0.2 encode of a synthetic 768x512 image and of a flat one (every
+             pixel one context: the context chain's longest walk) with the
+             chain and the fold (K1 at S = 1) timed, K1 held against its
+             plain version on a crop's tables; the Q0.2 decode walk and the
+             NBLIC0.3 walk (effort 1 near 0 and 2, effort 3; encode and
+             decode) on full-width crops, each container held against the
+             port's native runtime, in ms a pixel; one profiled
+             NBLIC0.3 row: device time and launches a pixel.  Builds the
+             native runtime, no variant.
 
 Each variant is a copy of a source with some lines replaced, built by nvcc
 into build/probe/ (all builds run at once) and called through ctypes; none
@@ -525,12 +535,83 @@ def p3_near(card: str) -> bool:
     return ok
 
 
+def interop(card: str) -> bool:
+    from chip_smoke import StageClock
+    from nblic_tpu_torch import runtime
+    from nblic_tpu_torch.models import nblic, qnblic
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    runtime.build()
+    print(f"[interop] native runtime built in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(11)
+    img = synth_image(rng, 512, 768)
+    ok = True
+    qnblic.encode(img[:8], device=dev)  # warm-up
+    for name, im in (("synthetic", img), ("flat", np.full((512, 768), 97, np.uint8))):
+        fold.encode_fold.launches = 0
+        with StageClock([(qnblic, "_context_chain", "stage 1 and chain"),
+                         (qnblic, "encode_fold", "fold")]) as clock:
+            t0 = time.perf_counter()
+            c = qnblic.encode(im, device=dev)
+            enc_s = time.perf_counter() - t0
+        same = c == runtime.q_encode(im, n_threads=1)
+        ok &= same
+        print(f"[interop q0.2 encode] {name} 768x512 on the card {enc_s:.2f} s, stages ms "
+              f"{ {k: round(v, 1) for k, v in clock.stages().items()} }, K1 launches "
+              f"{fold.encode_fold.launches}, equal to native {same} ({card})", flush=True)
+    crop = img[:4]
+    sym = torch.from_numpy(rng.integers(1, 1 << 15, size=(2, crop.size))).to(dev)
+    k = fold.encode_fold(sym[:1], sym[1:] // 2)
+    p = rans.encode_scan(sym[:1], sym[1:] // 2)
+    same = all(torch.equal(a, b) for a, b in zip(k, p))
+    ok &= same
+    print(f"[interop K1 S=1] L={crop.size} kernel == plain {same}", flush=True)
+    for rows in (1, 2):
+        crop = img[:rows]
+        ref = runtime.q_encode(crop, n_threads=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = qnblic.decode(ref, device=dev)
+        s = time.perf_counter() - t0
+        same = np.array_equal(back, crop)
+        ok &= same
+        print(f"[interop q0.2 decode] {crop.shape} {s:.2f} s, {1e3 * s / crop.size:.3f} ms a "
+              f"pixel, exact {same} ({card})", flush=True)
+    for effort, near, rows in ((1, 0, 1), (1, 2, 1), (3, 0, 1)):
+        crop = img[:rows]
+        ref = runtime.n_encode(crop, near=near, effort=effort)
+        t0 = time.perf_counter()
+        c = nblic.encode(crop, near=near, effort=effort, device=dev)
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = nblic.decode(c, device=dev)
+        dec_s = time.perf_counter() - t0
+        same = c == ref and np.array_equal(back, runtime.n_decode(ref)[0])
+        ok &= same
+        print(f"[interop nblic] e{effort} near {near} {crop.shape}: "
+              f"encode {1e3 * enc_s / crop.size:.3f} ms a pixel, decode "
+              f"{1e3 * dec_s / crop.size:.3f} ms a pixel, {8 * len(c) / crop.size:.3f} "
+              f"bpp, equal to native {same} ({card})", flush=True)
+    crop = img[:1, :64]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        nblic.encode(crop, effort=1, device=dev)
+        wall = time.perf_counter() - t0
+    dev_ms, launches = _device_kernels(prof)
+    print(f"[interop profile] e1 encode of {crop.shape}: device {dev_ms:.1f} ms in "
+          f"{1e3 * wall:.1f} ms of wall ({100 * dev_ms / (1e3 * wall):.1f}%), "
+          f"{launches / crop.size:.0f} device launches a pixel ({card})", flush=True)
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probes", nargs="+", choices=("cut-chain", "slot-bits", "fold",
                                                      "near-stages", "p3-stages",
                                                      "p3-corpus", "p3-decode",
-                                                     "p3-near"))
+                                                     "p3-near", "interop"))
     ap.add_argument("--parent", type=Path,
                     help="cut-chain: also cut this group_decode.cu of the parent design")
     args = ap.parse_args(argv)
@@ -581,6 +662,8 @@ def main(argv=None) -> int:
         ok &= p3_decode(card)
     if "p3-near" in args.probes:
         ok &= p3_near(card)
+    if "interop" in args.probes:
+        ok &= interop(card)
     return 0 if ok else 1
 
 

@@ -1,13 +1,20 @@
-"""Command-line driver of the port: the ``--tiled`` path of nblic_tpu's CLI.
+"""Command-line interface of the port, flag-compatible with nblic_tpu's CLI.
 
 Usage:
+    python -m nblic_tpu_torch -c [-n0 -e1] [--device=cuda] in.{bmp,pgm,pnm} out.nblic
     python -m nblic_tpu_torch -c --tiled [--device=cuda] in.{bmp,pgm,pnm} out.nbtc
-    python -m nblic_tpu_torch -d [--device=cuda] in.nbtc out.{bmp,pgm,pnm}
+    python -m nblic_tpu_torch -d [--device=cuda] in.{nblic,nbtc} out.{bmp,pgm,pnm}
 
-Switches: ``-v`` verbose, ``-n<int>`` near (0 lossless; k > 0 near-lossless,
-max error k), ``-e<digit>`` effort (0-1 profile 1, 2 profile 2, 3 profile 3),
-``--tile-h=N`` / ``--tile-w=N`` tile geometry (default 64x64; profile 3 cuts
-full-width strips instead).  ``-d`` reads profiles 1-3.
+Switches, combinable (``-cn2e2V``): ``-v`` verbose, ``-V`` verbose with the
+native runtime's row progress, ``-n<int>`` near (0 lossless; k > 0
+near-lossless, max error k), ``-e<digit>`` effort, ``-t`` threads for the
+native effort-0 encoder.  Without ``--tiled`` the interop containers: Q0.2
+at effort 0 (near 0), NBLIC0.3 at efforts 1-3, by ``--backend=torch`` (the
+device engines on ``--device``, the default) or ``--backend=native`` (the
+C++ host runtime).  With ``--tiled`` the NBTC container: effort 0-1
+profile 1, 2 profile 2, 3 profile 3, ``--tile-h=N`` / ``--tile-w=N`` tile
+geometry (default 64x64; profile 3 cuts full-width strips instead).
+``-d`` reads every container.
 """
 
 from __future__ import annotations
@@ -20,30 +27,33 @@ from . import api
 from .utils import imageio
 
 USAGE = """\
-nblic_tpu_torch: the PyTorch / CUDA port of the NBTC tiled codec
-  compress:    python -m nblic_tpu_torch -c --tiled [-switches] <input-image> <output.nbtc>
-  decompress:  python -m nblic_tpu_torch -d [-switches] <input.nbtc> <output-image>
+nblic_tpu_torch: the PyTorch / CUDA port of the nblic_tpu codec
+  compress:    python -m nblic_tpu_torch -c [-switches] <input-image> <output>
+  decompress:  python -m nblic_tpu_torch -d [-switches] <input> <output-image>
   switches:
-    -v           verbose
+    -v / -V      verbose / verbose with the native runtime's row progress
     -n<number>   near: 0 lossless (default), k > 0 near-lossless (max error k)
-    -e<number>   effort: 0 or 1 (profile 1), 2 (profile 2: per-tile least squares),
-                 3 (profile 3: adaptive strips)
-    --tiled      the tile-parallel NBTC container (the only one ported)
+    -e<number>   effort: 0 (Q0.2) .. 3; with --tiled 0 or 1 (profile 1),
+                 2 (profile 2: per-tile least squares), 3 (profile 3: adaptive strips)
+    -t           multithread native effort-0 encode
+    --tiled      the tile-parallel NBTC container
+    --backend=B  'torch' (device engines, default) or 'native' (C++ host runtime)
     --device=D   torch device, default cuda
     --tile-h=N / --tile-w=N   NBTC tile geometry (default 64x64)
 """
 
 
 def parse_args(argv: list[str]) -> dict:
-    opts = {"decompress": None, "near": 0, "effort": 1, "verbose": False, "tiled": False,
-            "device": "cuda", "tile_h": 64, "tile_w": 64, "files": []}
+    opts = {"decompress": None, "near": 0, "effort": 1, "verbose": 0, "threads": 0,
+            "tiled": False, "backend": "torch", "device": "cuda", "tile_h": 64,
+            "tile_w": 64, "files": []}
     for arg in argv:
         if arg.startswith("--"):
             key, _, value = arg[2:].partition("=")
             if key == "tiled":
                 opts["tiled"] = True
-            elif key == "device":
-                opts["device"] = value
+            elif key in ("device", "backend"):
+                opts[key] = value
             elif key in ("tile-h", "tile-w"):
                 opts[key.replace("-", "_")] = int(value)
             else:
@@ -54,8 +64,12 @@ def parse_args(argv: list[str]) -> dict:
                     opts["decompress"] = False
                 elif ch in "dD":
                     opts["decompress"] = True
-                elif ch in "vV":
-                    opts["verbose"] = True
+                elif ch == "v":
+                    opts["verbose"] = max(opts["verbose"], 1)
+                elif ch == "V":
+                    opts["verbose"] = 2
+                elif ch in "tT":
+                    opts["threads"] = -1  # automatic
                 elif ch in "eE" and arg[k + 1 : k + 2].isdigit():
                     opts["effort"] = int(arg[k + 1])
                 elif ch in "nN":
@@ -80,27 +94,34 @@ def main(argv: list[str] | None = None) -> int:
     src, dst = opts["files"]
     t0 = time.time()
     try:
+        if opts["verbose"] >= 2 and opts["backend"] == "native" and not opts["tiled"]:
+            from . import runtime
+
+            runtime.set_verbose(opts["verbose"])
         if not opts["decompress"]:
-            if not opts["tiled"]:
-                raise NotImplementedError(
-                    "the interop containers are not ported yet: ROADMAP Queue 1 "
-                    "item 13 (pass --tiled)"
-                )
             img = imageio.load_image(src)
-            stream = api.compress_tiled(
-                img, near=opts["near"], effort=opts["effort"], tile_h=opts["tile_h"],
-                tile_w=opts["tile_w"], device=opts["device"],
-            )
+            if opts["tiled"]:
+                stream = api.compress_tiled(
+                    img, near=opts["near"], effort=opts["effort"], tile_h=opts["tile_h"],
+                    tile_w=opts["tile_w"], device=opts["device"],
+                )
+            else:
+                stream = api.compress(
+                    img, near=opts["near"], effort=opts["effort"], backend=opts["backend"],
+                    device=opts["device"], n_threads=opts["threads"],
+                )
             with open(dst, "wb") as f:
                 f.write(stream)
             if opts["verbose"]:
                 h, w = img.shape
+                print(f"  effort             = {opts['effort']}")
+                print(f"  near               = {opts['near']}")
                 print(f"  output size        = {len(stream)} B")
                 print(f"  compression bpp    = {8.0 * len(stream) / (w * h):.5f}")
         else:
             with open(src, "rb") as f:
                 stream = f.read()
-            img = api.decompress(stream, device=opts["device"])
+            img = api.decompress(stream, backend=opts["backend"], device=opts["device"])
             imageio.save_image(dst, img)
         if opts["verbose"]:
             px = img.shape[0] * img.shape[1]

@@ -1,9 +1,12 @@
-"""Static context bias and the residual fold, as tensor ops.
+"""Context bias (static and adaptive) and the residual fold, as tensor ops.
 
-Counterpart of ``nblic_tpu/ops/context.py`` (the NBTC half).  The encoder
-transmits the per-context mean prediction error, quantized to 1/16 px; its
-half-bit doubles as the preferred residual sign.  Segment sums are int64
+Counterpart of ``nblic_tpu/ops/context.py``.  The NBTC encoder transmits
+the per-context mean prediction error, quantized to 1/16 px; its half-bit
+doubles as the preferred residual sign.  Segment sums are int64
 ``scatter_add_``, exact at any image size; table reads are plain indexing.
+The interop engines instead adapt each context's bias online, an EWMA step
+a pixel; the Q0.2 and NBLIC0.3 steps differ in scale and in their rounding
+constant (2^(coef-1) - 1 against 2^(coef-1)).
 """
 
 from __future__ import annotations
@@ -53,6 +56,28 @@ def apply_static_bias(bias_tab: torch.Tensor, adr: torch.Tensor, px0: torch.Tens
     sign = (b >> (BIAS_FRAC_BITS - 1)) & 1
     px = torch.clamp(px0 + (b >> BIAS_FRAC_BITS) + sign, 0, MAX_VAL)
     return px, sign
+
+
+def q_correct_px(ctx, px0, *, scale=11):
+    """Q0.2 bias correction: (px, sign) from the context's EWMA state."""
+    sign = (ctx >> (scale - 1)) & 1
+    return torch.clamp(px0 + (ctx >> scale) + sign, 0, MAX_VAL), sign
+
+
+def q_update_ctx(ctx, err, *, coef=7, scale=11):
+    """Q0.2 EWMA step; rounding constant 2^(coef-1) - 1."""
+    return (ctx * ((1 << coef) - 1) + (err << scale) + ((1 << (coef - 1)) - 1)) >> coef
+
+
+def n_correct_px(ctx, px0, *, scale=8):
+    """NBLIC0.3 bias correction: (px, sign) from the context's EWMA state."""
+    sign = (ctx >> (scale - 1)) & 1
+    return torch.clamp(px0 + (ctx >> scale) + sign, 0, MAX_VAL), sign
+
+
+def n_update_ctx(ctx, err, *, coef=7, scale=8):
+    """NBLIC0.3 EWMA step; rounding constant 2^(coef-1)."""
+    return (ctx * ((1 << coef) - 1) + (err << scale) + (1 << (coef - 1))) >> coef
 
 
 def _fold_bound(px, near: int):

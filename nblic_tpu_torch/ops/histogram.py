@@ -1,8 +1,12 @@
-"""Histogram prefix sums and the 16-bit RLE table code (host-side numpy).
+"""Histogram normalization, prefix sums, the decode table and the 16-bit
+RLE table code (host-side numpy).
 
-Counterpart of the NBTC half of ``nblic_tpu/ops/histogram.py``, kept here
-because that module's package pulls in JAX.  The normalized histograms are a
-few KB of container metadata per image and never touch the device here.
+Counterpart of ``nblic_tpu/ops/histogram.py``, kept here because that
+module's package pulls in JAX.  The normalized histograms are a few KB of
+container metadata per image and never touch the device here.  The Q0.2
+engine's ``normalize`` scales in float64 with the reference's 0.49 rounding
+and cyclic fix-up loops; the NBTC path's float32 ``tiled._norm_hist_dev``
+is another function and rounds otherwise.
 """
 
 from __future__ import annotations
@@ -14,11 +18,50 @@ NORM_SUM = 1 << NORM_BITS
 N_SYM = 256
 
 
+def normalize(hist: np.ndarray) -> np.ndarray:
+    """Normalize one 256-bin histogram to sum exactly NORM_SUM."""
+    hist = hist.astype(np.uint32).copy()
+    nz = np.flatnonzero(hist)
+    if nz.size <= 1:
+        # empty or one symbol: that symbol (0 when empty) takes all but one
+        # slot and its successor the last one
+        j = int(nz[0]) if nz.size else 0
+        hist[j] = NORM_SUM - 1
+        hist[(j + 1) % N_SYM] = 1
+        return hist
+    scale = (1.0 * NORM_SUM) / int(hist.sum())
+    hist = np.where(hist > 0, np.maximum((0.49 + scale * hist).astype(np.uint32), 1),
+                    0).astype(np.uint32)
+    s = int(hist.sum())
+    i = 0
+    while s > NORM_SUM:
+        if hist[i] > 1:
+            hist[i] -= 1
+            s -= 1
+        i = (i + 1) % N_SYM
+    i = 0
+    while s < NORM_SUM:
+        if hist[i] > 0:
+            hist[i] += 1
+            s += 1
+        i = (i + 1) % N_SYM
+    return hist
+
+
 def accumulate(hist: np.ndarray) -> np.ndarray:
     """Exclusive prefix sum (hist_acc)."""
     acc = np.zeros(N_SYM, dtype=np.uint32)
     np.cumsum(hist[:-1], out=acc[1:])
     return acc
+
+
+def decode_lut(acc: np.ndarray) -> np.ndarray:
+    """2^15-entry state-slot -> symbol table."""
+    lut = np.full(NORM_SUM, N_SYM - 1, dtype=np.uint8)
+    bounds = np.append(acc, NORM_SUM).astype(np.int64)
+    for v in range(N_SYM):
+        lut[bounds[v] : bounds[v + 1]] = v
+    return lut
 
 
 def serialize(hist: np.ndarray) -> list[int]:

@@ -10,8 +10,8 @@ solve per pixel:
 - ``col_chain``: B, a per-column decay over rows;
 - ``e_chain``: E, the in-row left accumulation of B;
 - ``f_chain``: F, the right-to-left decayed prefix of the previous row's B;
-- ``solve_batch``: per-pixel Gaussian elimination with partial pivoting,
-  the pixel axis last.
+- ``avp.solve_batch``: per-pixel Gaussian elimination with partial
+  pivoting, the pixel axis last.
 
 All arithmetic is int64 with C-truncating division (``avp.tdiv``), wrapping
 as the reference's does, so every backend computes the same bits.  Chains
@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import MAX_VAL
-from .avp import ALPHA, BETA, FB1, FB2, FB3, FIT_BASE, tdiv, tdiv_by
+from .avp import ALPHA, BETA, FB1, FB2, FB3, FIT_BASE, predict_from_solve, solve_batch, tdiv
 from .neighbors import sample
 from .predict import simple_predict
 
@@ -134,41 +134,6 @@ def hold_starts(e, seg_w: int):
     return blocks[:, :1].expand(blocks.shape).reshape(e.shape)
 
 
-def solve_batch(a, b, n: int):
-    """int64 Gaussian elimination, pixel axis last.  a: (n, n, P), b: (n, P).
-
-    Partial pivoting by |A[i, k]| (the first maximum wins), C-truncating
-    quotients of full products.  Returns (diag, x_num, ok): solution k is
-    x_num[k] / diag[k]; ok is false where a pivot was 0.  The system is
-    eliminated as one augmented (n, n + 1, P) matrix, each level's
-    quotients over its one divisor at once.
-    """
-    p = a.shape[2]
-    m = torch.cat([a, b[:, None]], 1)
-    rows = torch.arange(n, device=a.device)[:, None, None]
-    ok = torch.ones(p, dtype=torch.bool, device=a.device)
-
-    def divisor(akk):
-        nonlocal ok
-        ok = ok & (akk != 0)
-        safe = torch.where(akk == 0, 1, akk)
-        return torch.abs(safe), safe < 0
-
-    for k in range(n - 1):
-        piv = k + torch.argmax(torch.abs(m[k:, k]), dim=0)  # (P,)
-        row_p = m.gather(0, piv.view(1, 1, p).expand(1, n + 1, p))
-        m = torch.where(rows == piv, m[k : k + 1], m)  # row piv takes row k
-        m[k] = row_p[0]
-        d_abs, d_neg = divisor(m[k, k])
-        m[k + 1 :, k + 1 :] -= tdiv_by(m[k, k + 1 :][None] * m[k + 1 :, k : k + 1], d_abs,
-                                       d_neg)
-        m[k + 1 :, k] = 0
-    for k in range(n - 1, 0, -1):
-        d_abs, d_neg = divisor(m[k, k])
-        m[:k, n] -= tdiv_by(m[k, n][None] * m[:k, k], d_abs, d_neg)
-    return torch.diagonal(m[:, :n]).t(), m[:, n], ok
-
-
 def quantize_weights(diag, num):
     """(diag, num) solve output -> int32 fixed-point weights (w_pred): the
     pixel-unit coefficient num * 2^(FB2 - FB1) / diag at step 2^-FBW, on
@@ -214,14 +179,6 @@ def solve_stats(stats, n: int):
     eye = torch.eye(n, dtype=torch.int64, device=stats.device)[:, :, None]
     amat = stats[1 + n :].reshape(n, n, -1) + eye * (RIDGE_BIAS * n)
     return solve_batch(amat, bvec, n)
-
-
-def predict_from_solve(diag, num, feats):
-    """Fixed-point prediction (FB1) from a solved system and features
-    (n, P)."""
-    safe = torch.where(diag == 0, 1, diag)
-    terms = tdiv(((num * feats) << FB2) + (safe >> 1), safe)
-    return torch.clamp((FIT_BASE << FB1) + terms.sum(0), 0, MAX_VAL << FB1)
 
 
 def predict_from_stats(stats, feats, n: int):

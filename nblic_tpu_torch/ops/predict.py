@@ -2,16 +2,23 @@
 
 Counterpart of ``nblic_tpu/ops/predict.py``: the blend predictor, the 12-bin
 activity quantizer and the 3072-entry context address, as branch-free int32
-tensor math over whole planes; and profile 3's dual-bin activity quantizer.
+tensor math over whole planes; the dual-bin activity quantizer of profile 3
+and NBLIC0.3; and NBLIC0.3's blend predictor and 2048-entry context address.
+
+The NBLIC0.3 functions stack the 11 taps on a last axis and take every
+linear combination they compare as one product with a coefficient table:
+a few tensor operations whatever the shape, so the interop walk, which
+calls them on single pixels, issues a few launches a pixel.
 """
 
 from __future__ import annotations
 
 import functools
+import re
 
 import torch
 
-from ..constants import MAX_VAL, Q_MID, Q_PT_THRESH, Q_QD_THRESH
+from ..constants import C_THRESHOLDS, MAX_VAL, Q_MID, Q_PT_THRESH, Q_QD_THRESH
 
 from .neighbors import Neighbors, sample
 
@@ -144,3 +151,70 @@ def model_stage1(img: torch.Tensor):
     n = sample(x)
     px0 = simple_predict(n)
     return (px0, *context_planes(n, x, px0))
+
+
+# NBLIC0.3 blend predictor, over the taps a b c d e f g h q r s: the 28
+# differences whose magnitudes make the 7 directional costs (4 each), the 7
+# candidate predictions, then the linear predictor
+_N_DIFFS = (
+    "a-e", "c-q", "b-c", "d-b",
+    "a-c", "c-h", "b-f", "d-g",
+    "a-q", "c-s", "b-h", "d-f",
+    "a-b", "c-f", "b-g", "d-r",
+    "2a-e-q", "2c-q-s", "2b-c-h", "2d-b-f",
+    "2a-q-c", "2c-s-h", "2b-h-f", "2d-f-g",
+    "2a-c-b", "2c-h-f", "2b-f-g", "2d-g-r",
+)
+_N_PREDS = ("2a", "2b", "2c", "2d", "a+c", "c+b", "b+d")
+_N_LINEAR = "9a+9b+2d-2c-e-f"
+_N_COST_WEIGHT = (2, 2, 2, 2, 1, 1, 1)
+# NBLIC0.3 context texture bits: px > each of these
+_N_TEXTURE = ("a", "b", "c", "d", "e", "f", "2a-e", "2b-f")
+_TAPS = "abcdefghqrs"
+
+
+def _coefficients(expr: str) -> list[int]:
+    """Tap coefficients of a linear expression such as ``9a+9b-2c``."""
+    out = [0] * len(_TAPS)
+    for sign, num, tap in re.findall(r"([+-]?)(\d*)([a-z])", expr):
+        out[_TAPS.index(tap)] += (-1 if sign == "-" else 1) * int(num or 1)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _n_tables(dtype, device):
+    """(combination table (36, 11), cost weights (7,), thresholds (8,),
+    texture table (8, 11), texture bit values (8,)) on a device."""
+    def t(v):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    combos = [_coefficients(e) for e in _N_DIFFS + _N_PREDS + (_N_LINEAR,)]
+    return (t(combos), t(_N_COST_WEIGHT), t(C_THRESHOLDS),
+            t([_coefficients(e) for e in _N_TEXTURE]), t([1 << k for k in range(8)]))
+
+
+def _taps(n: Neighbors) -> torch.Tensor:
+    return torch.stack(tuple(n), -1)
+
+
+def n_simple_predict(n: Neighbors) -> torch.Tensor:
+    """NBLIC0.3 blend predictor: the angular candidate of least cost (the
+    first on ties), blended with the linear predictor by a weight counted
+    from the thresholds at or below the cost sum."""
+    combos, weight, thresh, _, _ = _n_tables(n.a.dtype, n.a.device)
+    v = (_taps(n)[..., None, :] * combos).sum(-1)
+    costs = v[..., :28].abs().unflatten(-1, (7, 4)).sum(-1) * weight
+    best = costs.argmin(-1, keepdim=True)
+    px_ang = v[..., 28:35].gather(-1, best)[..., 0]
+    px_lnr = torch.clamp(v[..., 35], 0, 16 * MAX_VAL)
+    csum = costs.sum(-1) - 7 * costs.gather(-1, best)[..., 0]
+    wt = (thresh <= csum[..., None]).sum(-1).to(v.dtype)
+    return (8 * wt * px_ang + (8 - wt) * px_lnr + 64) >> 7
+
+
+def n_context_address(n: Neighbors, px: torch.Tensor, qu: torch.Tensor) -> torch.Tensor:
+    """(qu >> 1) * 256 | 8 texture bits, bit k set where px exceeds the
+    k-th of a, b, c, d, e, f, 2a-e, 2b-f."""
+    _, _, _, texture, bits = _n_tables(n.a.dtype, n.a.device)
+    v = (_taps(n)[..., None, :] * texture).sum(-1)
+    return ((qu >> 1) << 8) | ((px[..., None] > v) * bits).sum(-1).to(qu.dtype)

@@ -1,8 +1,9 @@
 """rANS coding with static tables, 16-bit renormalization, 15-bit histograms.
 
 Counterpart of ``nblic_tpu/ops/rans.py``: the plain lockstep encode fold,
-the interleaved multi-lane stream layout and the decoder's shared-cursor
-renormalization.  The coder state is an unsigned 32-bit value; here it is
+the interleaved multi-lane stream layout, the decoder's shared-cursor
+renormalization, and the one-stream layout and decode step of the Q0.2
+container.  The coder state is an unsigned 32-bit value; here it is
 carried as int64 masked to 32 bits, because CPU tensors of ``torch.uint32``
 lack shifts, division and comparison.  Every function accepts leading batch
 axes (one per interleave group).
@@ -141,3 +142,45 @@ def pad_streams(flat: np.ndarray, lengths: np.ndarray, wmax: int) -> np.ndarray:
     mask = np.arange(wmax)[None, :] < lengths[:, None]
     idx = np.minimum(idx, len(flat) - 1)
     return np.where(mask, np.asarray(flat)[idx], 0).astype(np.int32)
+
+
+def finalize_streams(words, emits, state) -> list[np.ndarray]:
+    """Per-stream decode-ready u16 arrays of a fold (host-side numpy).
+
+    The end-of-fold flush and word reversal of the Q0.2 container: decode
+    order is [state_hi, state_lo, emitted words in reverse fold order].
+    """
+    words, emits, state = (np.asarray(t.cpu()) if torch.is_tensor(t) else np.asarray(t)
+                           for t in (words, emits, state))
+    out = []
+    for t in range(words.shape[0]):
+        emitted = words[t][emits[t]].astype(np.uint16)
+        head = np.array([(state[t] >> ANS_BITS) & ANS_MASK, state[t] & ANS_MASK],
+                        dtype=np.uint16)
+        out.append(np.concatenate([head, emitted[::-1]]))
+    return out
+
+
+def dec_start(words: torch.Tensor):
+    """Decoder state from the first two words of one stream: (state, ptr),
+    (1,) int64 tensors on the stream's device.  A one-word stream reads its
+    word twice (the JAX engine's clamped gather); an empty one raises."""
+    if words.shape[0] == 0:
+        raise ValueError("empty rANS stream")
+    hi, lo = words[[0, min(1, words.shape[0] - 1)]].to(torch.int64) & ANS_MASK
+    return ((hi << ANS_BITS) | lo).reshape(1), \
+        torch.full((1,), 2, dtype=torch.int64, device=words.device)
+
+
+def dec_step(state, ptr, words, h, ha, lb):
+    """One symbol's state advance given its (freq, cum) and the state's low
+    bits ``lb`` (the caller looks the symbol up in its own table layout).
+
+    A read past the stream's end takes its last word, as the JAX engine's
+    clamped gather does.  Returns (state, ptr).
+    """
+    state = ((state >> NORM_BITS) * h + lb - ha) & U32_MASK
+    need = state < ANS_LOW_BOUND
+    nxt = words[torch.clamp(ptr, max=words.shape[0] - 1)].to(torch.int64) & ANS_MASK
+    state = torch.where(need, (state << ANS_BITS) | nxt, state)
+    return state, ptr + need.to(torch.int64)

@@ -1,12 +1,15 @@
-"""Sliding-window registers for the lockstep per-pixel decode loop.
+"""Causal windows for the per-pixel walks.
 
-Counterpart of ``nblic_tpu/ops/window.py``.  The window is fresh-sampled at
-each row start and slid one column per pixel; every lane shares (i, j), so
-``i`` and ``j`` are Python ints and ``prev1``/``prev2`` are the previous two
-rows with the column on the last axis.
+Counterpart of ``nblic_tpu/ops/window.py``.  The effort-0 window is
+fresh-sampled at each row start and slid one column per pixel; the NBLIC0.3
+template is fresh-sampled at every pixel from three rows.  Every lane shares
+(i, j), so ``i`` and ``j`` are Python ints and ``prev1``/``prev2`` are the
+previous two rows with the column on the last axis.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -69,3 +72,44 @@ def pixel_model(regs, err, wcols=None):
     qd = quantize_activity(activity(nb, err))
     adr = context_address(nb, px0, qd)
     return px0, qd, adr
+
+
+@functools.lru_cache(maxsize=None)
+def _mid(dtype, device):
+    # one per device: a fresh constant a pixel would be a host-to-device copy
+    return torch.full((1,), MID_VAL, dtype=dtype, device=device)
+
+
+def fresh_window_rows(i: int, j: int, cur, prev1, prev2, w: int) -> Neighbors:
+    """The template at (i, j) sampled from three rows (w,): ``cur`` (row i,
+    written up to column j - 1), ``prev1`` (row i - 1), ``prev2`` (row i - 2).
+
+    An out-of-image tap takes another tap's value, in the cascade of the
+    reference codec.  Each tap is a (1,) view of a row, no copy.
+    """
+    def at(row, k):
+        return row[k : k + 1]
+
+    mid = _mid(cur.dtype, cur.device)
+    a = at(cur, j - 1) if j >= 1 else mid
+    b = at(prev1, j) if i >= 1 else mid
+    if i == 0:
+        b = a
+    elif j == 0:
+        a = b
+    e = at(cur, j - 2) if j >= 2 else a
+    c = at(prev1, j - 1) if (i >= 1 and j >= 1) else b
+    d = at(prev1, j + 1) if (i >= 1 and j + 1 < w) else b
+    f = at(prev2, j) if i >= 2 else b
+    g = at(prev2, j + 1) if (i >= 2 and j + 1 < w) else f
+    h = at(prev2, j - 1) if (i >= 2 and j >= 1) else f
+    q = at(prev1, j - 2) if (i >= 1 and j >= 2) else c
+    r = at(prev2, j + 2) if (i >= 2 and j + 2 < w) else g
+    s = at(prev2, j - 2) if (i >= 2 and j >= 2) else h
+    return Neighbors(a, b, c, d, e, f, g, h, q, r, s)
+
+
+def fresh_t_tap(i: int, j: int, prev1, w: int, d):
+    """The 13th tap t = (i - 1, j + 2) as a (1,) view, ``d`` where it lies
+    outside (AVP only)."""
+    return prev1[j + 2 : j + 3] if (i >= 1 and j + 2 < w) else d

@@ -1,7 +1,7 @@
-"""The NBTC container header, size validation and format sniffing.
+"""Container headers (NBLIC0.3, Q0.2, NBTC), size validation and sniffing.
 
-The port's own copy of the NBTC half of ``nblic_tpu/utils/container.py``;
-both write and read the same bytes.
+The port's own copy of ``nblic_tpu/utils/container.py``; both write and
+read the same bytes.
 """
 
 from __future__ import annotations
@@ -34,6 +34,57 @@ def inflate(data: bytes, what: str) -> bytes:
         return zlib.decompress(data)
     except zlib.error as exc:
         raise ValueError(f"corrupt {what}: {exc}") from None
+
+
+@dataclass(frozen=True)
+class NblicHeader:
+    """NBLIC0.3: magic, n_channel u8, height and width big-endian u16, near
+    u8, k_step u8, effort u8; then the range coder's payload."""
+
+    n_channel: int
+    height: int
+    width: int
+    near: int
+    k_step: int
+    effort: int
+
+    SIZE = 16
+
+    def to_bytes(self) -> bytes:
+        return NBLIC_MAGIC + struct.pack(
+            ">BHHBBB", self.n_channel, self.height, self.width, self.near,
+            self.k_step, self.effort,
+        )
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "NblicHeader":
+        if data[: len(NBLIC_MAGIC)] != NBLIC_MAGIC:
+            raise ValueError("not an NBLIC0.3 stream")
+        if len(data) < cls.SIZE:
+            raise ValueError("truncated NBLIC0.3 header")
+        return cls(*struct.unpack_from(">BHHBBB", data, len(NBLIC_MAGIC)))
+
+
+@dataclass(frozen=True)
+class QnblicHeader:
+    """Q0.2: the little-endian u16 words "Q0", ".2", height, width; then 12
+    RLE-coded histograms and the word-reversed rANS payload."""
+
+    height: int
+    width: int
+
+    SIZE = 8
+
+    def to_bytes(self) -> bytes:
+        return QNBLIC_MAGIC + struct.pack("<HH", self.height, self.width)
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "QnblicHeader":
+        if data[: len(QNBLIC_MAGIC)] != QNBLIC_MAGIC:
+            raise ValueError("not a Q0.2 stream")
+        if len(data) < cls.SIZE:
+            raise ValueError("truncated Q0.2 header")
+        return cls(*struct.unpack_from("<HH", data, len(QNBLIC_MAGIC)))
 
 
 @dataclass(frozen=True)

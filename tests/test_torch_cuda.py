@@ -322,3 +322,28 @@ def test_profile3_near2_fixture_encoded_on_card(cuda_device):
     data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_torch_p3")
     with open(os.path.join(data, "near2.nbtc"), "rb") as f:
         assert strips.encode(img, th=16, near=2, device=cuda_device) == f.read()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 17, 4099])
+def test_fold_kernel_one_stream(cuda_device, l):
+    # the Q0.2 encoder's shape: S = 1, one thread walks the chain, L not a
+    # multiple of the kernel's 16-row chunk
+    rng = np.random.default_rng(l)
+    f = torch.from_numpy(rng.integers(1, 1 << 15, size=(1, l))).to(cuda_device)
+    a = torch.from_numpy(rng.integers(0, 1 << 14, size=(1, l))).to(cuda_device)
+    out, ref = fold.encode_fold(f, a), rans.encode_scan(f, a)
+    assert all(torch.equal(u, v) for u, v in zip(out, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("near,effort", [(0, 0), (0, 1), (2, 1), (0, 3)])
+def test_interop_engines_on_card_match_cpu(cuda_device, near, effort):
+    from nblic_tpu_torch import api
+
+    img = synth_image(np.random.default_rng(8), 6, 10)
+    on_card = api.compress(img, near=near, effort=effort, device=cuda_device)
+    assert on_card == api.compress(img, near=near, effort=effort, device="cpu")
+    assert on_card == api.compress(img, near=near, effort=effort, backend="native")
+    np.testing.assert_array_equal(api.decompress(on_card, device=cuda_device),
+                                  api.decompress(on_card, backend="native"))

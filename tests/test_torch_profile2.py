@@ -130,7 +130,8 @@ def test_jax_near2_profile2_decodes_in_the_port():
 
 def test_port_constants_equal_jax():
     for name in ("MAX_VAL", "MID_VAL", "Q_N_QD", "Q_N_CONTEXT", "Q_PT_THRESH",
-                 "Q_QD_THRESH"):
+                 "Q_QD_THRESH", "MAX_NEAR", "EFFORTS", "MIN_K_STEP", "N_QD", "N_CONTEXT",
+                 "MAX_PX_INC", "C_THRESHOLDS", "Q_MID"):
         assert getattr(constants, name) == getattr(j_constants, name), name
     for name in ("MAX_HEIGHT", "MAX_WIDTH", "MAX_IMG_SIZE", "NBLIC_MAGIC",
                  "QNBLIC_MAGIC", "NBTC_MAGIC"):
@@ -151,6 +152,17 @@ def test_port_container_header_equals_jax():
             container.NbtcHeader.from_bytes(bad)
     with pytest.raises(ValueError):
         container.sniff_format(b"junk")
+    interop = ((container.NblicHeader(1, 768, 512, 2, 7, 3), j_container.NblicHeader(
+        1, 768, 512, 2, 7, 3)), (container.QnblicHeader(512, 768),
+                                 j_container.QnblicHeader(512, 768)))
+    for port_h, ref_h in interop:
+        assert port_h.to_bytes() == ref_h.to_bytes() and port_h.SIZE == ref_h.SIZE
+        assert type(port_h).from_bytes(ref_h.to_bytes()) == port_h
+        for bad in (b"junk", ref_h.to_bytes()[: ref_h.SIZE - 1]):
+            with pytest.raises(ValueError):
+                type(port_h).from_bytes(bad)
+            with pytest.raises(ValueError):
+                type(ref_h).from_bytes(bad)
     for h, w in ((0, 5), (70000, 1), (20000, 20000)):
         with pytest.raises(ValueError):
             container.check_size(h, w)

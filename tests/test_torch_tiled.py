@@ -159,6 +159,22 @@ def test_port_never_imports_jax():
         "c = api.compress_tiled(img, device='cpu', effort=3)\n"
         "assert c[10] == 3 and c == nblic_tpu_torch.models.strips.encode(img, device='cpu')\n"
         "assert (api.decompress(c, device='cpu') == img).all()\n"
+        "small = img[:6, :8]\n"
+        "for near, effort in ((0, 0), (0, 1), (2, 3)):\n"
+        "    for backend in ('torch', 'native'):\n"
+        "        c = api.compress(small, near=near, effort=effort, backend=backend, device='cpu')\n"
+        "        err = api.decompress(c, backend=backend, device='cpu').astype(int) - small\n"
+        "        assert abs(err).max() <= near, (near, effort, backend)\n"
+        "import os, tempfile\n"
+        "from nblic_tpu_torch.utils import imageio\n"
+        "d = tempfile.mkdtemp()\n"
+        "src, out, dec = (os.path.join(d, n) for n in ('a.pgm', 'a.nblic', 'b.pgm'))\n"
+        "imageio.save_image(src, small)\n"
+        "assert nblic_tpu_torch.cli.main(['-cn1e2', '--device=cpu', src, out]) == 0\n"
+        "assert nblic_tpu_torch.cli.main(['-d', '--backend=native', out, dec]) == 0\n"
+        "assert nblic_tpu_torch.cli.main(['-e0', '-tc', '--backend=native', src, out]) == 0\n"
+        "assert nblic_tpu_torch.cli.main(['-d', '--device=cpu', out, dec]) == 0\n"
+        "assert (imageio.load_image(dec) == small).all()\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'nblic_tpu')\n"
         "assert not ref, ref\n"
@@ -190,7 +206,11 @@ def test_unported_modes_raise():
         api.decompress(api.compress_tiled(img, effort=3, device="cpu"), device="cpu"), img)
     with pytest.raises(ValueError, match="tile size"):
         api.compress_tiled(img, tile_h=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # the interop containers are ported too: Q0.2 decodes (a zero size is refused)
+    q = api.compress(small, effort=0, device="cpu")
+    assert q[:4] == b"Q0.2"
+    np.testing.assert_array_equal(api.decompress(q, device="cpu"), small)
+    with pytest.raises(ValueError, match="image size"):
         api.decompress(b"Q0.2" + bytes(8), device="cpu")
 
 
