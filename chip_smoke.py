@@ -41,10 +41,10 @@ Phases, one line each; any failure exits non-zero:
      and containers; each stage function wrapped here to sync the card when
      it returns), two of its containers held against the CPU's; one 16x32
      image through api.compress_tiled(effort=3).  Decode: the pairs on the
-     card equal to the images (at strip height 64 under TUNE_V4 only), the
+     card equal to the images (at strip height 16), the
      three committed fixtures (near 2, legacy, static bias;
      tests/data_torch_p3) equal to nblic_tpu's pixels, the corpus at strip
-     height 16 (1152 lanes, 8192 pixel steps) through tiled.decode_batch,
+     height 8 (2304 lanes, 4096 pixel steps) through tiled.decode_batch,
      exact, with its MPix/s, the walk's time a pixel step, the peak device
      memory and the projected time of one image at strip height 768, and
      api.decompress of the effort-3 container; a process of its own decodes
@@ -83,6 +83,20 @@ Phases, one line each; any failure exits non-zero:
      plain fold on the CPU), and timed on the image's beside its bound and
      its serial chain.  (kernel_probe.py interop also times a flat
      image's chain.)
+ 15. the mesh (nblic_tpu_torch/parallel/mesh.py): ranks spawned by
+     mesh.launch on the one card (gloo; ranks sharing a card measure
+     correctness, not scaling): two ranks run the corpus by shape through
+     encode_batch_mesh / decode_batch_mesh at (1, 2) (g = 48) and (2, 1)
+     (g = 96), with MPix/s, the all-reduce's ms and K1's and K2's launches
+     per rank, the single-process tiled.decode_batches on the card reading
+     their containers; p3_encode_batch_mesh of the corpus at (2, 1), th 64,
+     equal to phase 12's containers, and p3_decode_batch_mesh of the pair at
+     th 16; four ranks encode the committed JAX mesh fixtures
+     (tests/data_torch_mesh) at (2, 2) and (1, 4), equal to nblic_tpu's
+     bytes, and decode them; K2 against its plain version at g = 2, 6, 24
+     and 48 (16x16 tiles) and at the corpus's g = 48 and 96 (64x64 tiles),
+     K1 against its plain fold at a (1, 2) shard's S = 864, L = 4096; one
+     NCCL rank encodes and decodes the 6 portrait images.
 Each kernel's time stands beside its bound (the whole card's roofline:
 bytes over the memory rate, integer operations over the int32 rate) and
 its floor (the least time at the launch's own parallelism: the issue of
@@ -418,14 +432,15 @@ def _p3_fixtures():
     return out
 
 
-def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job) -> bool:
+def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
     """Profile 3: the card against the CPU (``cpu_job``, a future of the
     lossless :func:`_p3_cpu_jobs`) on small images, the corpus as one batch
     stage by stage, the public route; then decode: the small containers and
     the fixtures on the card against the image (or nblic_tpu's pixels) and
-    the CPU (a job of ``pool``), the corpus at th = 16 through
+    the CPU (a job of ``pool``), the corpus at th = 8 through
     tiled.decode_batch with the walk's time a pixel step, and
-    api.decompress."""
+    api.decompress.  Returns None on a failure, else (the corpus's
+    containers at th 64, the pair's at th 16 under TUNE_V4)."""
     import torch
 
     from nblic_tpu_torch.models import strips
@@ -480,7 +495,7 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job) -> bool:
               f"batch{' and alone' if th_ == 16 else ''}, card == cpu containers {ok} (batch "
               f"on the card {batch_s[tune, th_]:.2f} s)", flush=True)
         if not ok:
-            return False
+            return None
     picks = list(PICKS)
     same = on_cpu == [conts[i] for i in picks]
     print(f"[p3 corpus] images {picks} encoded on the cpu: containers equal {same} (the "
@@ -493,20 +508,19 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job) -> bool:
     print(f"[p3 api] compress_tiled(effort=3) on a 16x32 image: profile {via_api[10]}, "
           f"{len(via_api)} B, equal to strips.encode {routed}", flush=True)
     if not (same and routed):
-        return False
+        return None
 
-    # ---- decode.  The corpus at th = 16 (the depth cut: 16 rows a strip
-    # keep the walk at 16 x 512 pixel steps; a 768-row strip is 393,216)
-    th16 = 16
-    conts16 = strips.encode_batch(corpus, th=th16, device=dev)
+    # ---- decode.  The corpus at th = 8 (the depth cut: 8 rows a strip keep
+    # the walk at 8 x 512 pixel steps; a 768-row strip is 393,216)
+    th_dec = 8
+    conts_dec = strips.encode_batch(corpus, th=th_dec, device=dev)
     fixtures = _p3_fixtures()
-    # the pairs decode on the card at th 16 under each contract and at th 64
-    # under TUNE_V4 (the th-64 decodes of the others are cut for time; their
-    # encodes were held to the CPU's above)
-    decoded_pairs = {k: v for k, v in pair_conts.items() if k[1] == 16 or k[0] == "TUNE_V4"}
+    # the pairs decode on the card at th 16 under each contract (their th-64
+    # decodes are cut for time; those encodes were held to the CPU's above)
+    decoded_pairs = {k: v for k, v in pair_conts.items() if k[1] == 16}
     # the CPU's decodes run in a process of their own meanwhile
     cpu_groups = (list(decoded_pairs.values()) + [[c] for c, _ in fixtures.values()]
-                  + [[conts16[i] for i in picks]])
+                  + [[conts_dec[i] for i in picks]])
     cpu_job = pool.submit(_cpu_decode, cpu_groups)
     card_groups = []
     for (tune, th_), batch in decoded_pairs.items():
@@ -518,7 +532,7 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job) -> bool:
         print(f"[p3 decode] {tune} th {th_}: the pair decoded on the card as one batch "
               f"equal to the images {ok} ({dec_s:.2f} s)", flush=True)
         if not ok:
-            return False
+            return None
     for name, (c, want) in fixtures.items():
         back = strips.decode(c, device=dev)
         card_groups.append([back])
@@ -527,28 +541,28 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job) -> bool:
               f"{strips._parse(c)[0][6]}): decoded on the card equal to nblic_tpu's "
               f"pixels {ok}", flush=True)
         if not ok:
-            return False
+            return None
 
     torch.cuda.reset_peak_memory_stats()
     with StageClock([(strips, "_decode_walk", "walk")]) as clock:
         t0 = time.perf_counter()
-        decoded = tiled.decode_batch(conts16, device=dev)
+        decoded = tiled.decode_batch(conts_dec, device=dev)
         dec_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     walk_ms = clock.stages()["walk"]
     exact = all(np.array_equal(d, im) for d, im in zip(decoded, corpus))
-    n_steps = th16 * w
+    n_steps = th_dec * w
     ms_step = walk_ms / n_steps
-    lanes16 = len(corpus) * -(-h // th16)
-    print(f"[p3 decode corpus] {len(corpus)} images th {th16}, {lanes16} strip lanes, "
+    lanes_dec = len(corpus) * -(-h // th_dec)
+    print(f"[p3 decode corpus] {len(corpus)} images th {th_dec}, {lanes_dec} strip lanes, "
           f"{n_steps} pixel steps: round trip {exact}, "
-          f"{8.0 * sum(map(len, conts16)) / n_px:.4f} bpp at th {th16}, "
+          f"{8.0 * sum(map(len, conts_dec)) / n_px:.4f} bpp at th {th_dec}, "
           f"tiled.decode_batch {n_px / dec_s / 1e6:.4f} MPix/s ({dec_s:.2f} s), walk "
           f"{walk_ms / 1e3:.2f} s = {ms_step:.3f} ms a pixel step, peak device memory "
           f"{peak:.2f} GiB; one 768x512 image at th 768 ({768 * 512} steps) would take "
           f"{768 * 512 * ms_step / 6e4:.1f} min at this step time ({card})", flush=True)
     if not exact:
-        return False
+        return None
     card_groups.append([decoded[i] for i in picks])
 
     t0 = time.perf_counter()
@@ -557,7 +571,7 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job) -> bool:
     print(f"[p3 decode api] api.decompress of the 16x32 effort-3 container equal to "
           f"the image {ok} ({time.perf_counter() - t0:.2f} s)", flush=True)
     if not ok:
-        return False
+        return None
 
     t0 = time.perf_counter()
     cpu = cpu_job.result()
@@ -567,7 +581,7 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job) -> bool:
     print(f"[p3 decode] the cpu's decodes of the {len(cpu_groups)} groups (the pairs, each "
           f"fixture, corpus images {picks}) equal the card's {same} (waited {wait_s:.1f} s "
           f"for them)", flush=True)
-    return same
+    return (conts, pair_conts["TUNE_V4", 16]) if same else None
 
 
 def _p3_near_phase(tiled, corpus, dev, card, cpu_job) -> bool:
@@ -868,6 +882,275 @@ def _interop_phase(api, corpus, dev, card):
     return launches
 
 
+# ---- the mesh phase: ranks spawned on the one card.  Ranks that share a
+# card measure correctness, not scaling: their times are the card's shared
+# by every rank.  The rank jobs are module-level, so that the spawned
+# ranks find them by name.
+MESH_TIMEOUT = 300.0  # seconds for each spawned group and each collective
+
+
+def _mesh_fixtures():
+    """{name: (images, nblic_tpu's mesh containers)}: the committed JAX mesh
+    containers (tests/test_torch_mesh.py regenerates them): p1_1x4 at (1, 4),
+    6 tiles in 4 groups of 2; p1_2x2 at (2, 2), groups of 6; 16x16 tiles."""
+    import os
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data_torch_mesh")
+    out = {}
+    for name in ("p1_1x4", "p1_2x2"):
+        imgs = np.load(os.path.join(data, name + ".npy"))
+        conts = []
+        for i in range(len(imgs)):
+            with open(os.path.join(data, f"{name}_{i}.nbtc"), "rb") as f:
+                conts.append(f.read())
+        out[name] = (list(imgs), conts)
+    return out
+
+
+def _timed_all_reduce(pmesh) -> list:
+    """Wrap the mesh's all-reduce so that each call syncs the card before
+    and after and records its ms in the returned list (inside a rank)."""
+    import torch
+
+    times = []
+    orig = pmesh._all_reduce
+
+    def timed(t, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(t, group)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    pmesh._all_reduce = timed
+    return times
+
+
+def _mesh_p1_run(mesh, groups, tile=64):
+    """Inside a rank: encode_batch_mesh then decode_batch_mesh of each
+    same-shape group, each timed between barriers, the kernels' counts set
+    to 0 just before and read just after.  Returns (containers, images,
+    encode s, decode s, K1 launches, K2 launches)."""
+    import torch
+    import torch.distributed as dist
+
+    from nblic_tpu_torch.ops.decode import decode_groups
+    from nblic_tpu_torch.ops.fold import encode_fold
+    from nblic_tpu_torch.parallel import mesh as pmesh
+
+    encode_fold.launches = decode_groups.launches = 0
+    dist.barrier()
+    t0 = time.perf_counter()
+    conts = [pmesh.encode_batch_mesh(g, mesh, tile, tile) for g in groups]
+    torch.cuda.synchronize()
+    dist.barrier()
+    t1 = time.perf_counter()
+    decoded = [pmesh.decode_batch_mesh(c, mesh) for c in conts]
+    torch.cuda.synchronize()
+    dist.barrier()
+    return (conts, decoded, t1 - t0, time.perf_counter() - t1, encode_fold.launches,
+            decode_groups.launches)
+
+
+def _mesh_pairs_job(corpus, small, p3_pair):
+    """Two ranks: the corpus by shape at (1, 2) and (2, 1) (a warm-up of
+    the portrait group first), ``small`` at (1, 2) at 16x16 tiles, the
+    corpus through p3_encode_batch_mesh at (2, 1), th 64, and the p3 pair's
+    containers through p3_decode_batch_mesh."""
+    import torch.distributed as dist
+
+    from nblic_tpu_torch.parallel import mesh as pmesh
+
+    ar_ms = _timed_all_reduce(pmesh)
+    groups = [corpus[:18], corpus[18:]]
+    out = {}
+    for layout in ((1, 2), (2, 1)):
+        mesh = pmesh.make_mesh2(*layout)
+        _mesh_p1_run(mesh, groups[1:])  # warm-up
+        del ar_ms[:]
+        out[layout] = _mesh_p1_run(mesh, groups) + (list(ar_ms), mesh.backend)
+    out["small"] = pmesh.encode_batch_mesh([small], pmesh.make_mesh2(1, 2), 16, 16)
+    mesh = pmesh.make_mesh2(2, 1)
+    dist.barrier()
+    t0 = time.perf_counter()
+    out["p3"] = pmesh.p3_encode_batch_mesh(corpus, mesh, th=64)
+    dist.barrier()
+    t1 = time.perf_counter()
+    out["p3 dec"] = pmesh.p3_decode_batch_mesh(p3_pair, mesh)
+    dist.barrier()
+    out["p3 s"] = (t1 - t0, time.perf_counter() - t1)
+    return out
+
+
+def _mesh_quad_job(fixtures, small):
+    """Four ranks: the fixtures' images at their JAX layouts, (2, 2) and
+    (1, 4), then decoded there; ``small`` at (1, 4), 16x16 tiles."""
+    from nblic_tpu_torch.parallel import mesh as pmesh
+
+    out = {}
+    for name, layout in (("p1_2x2", (2, 2)), ("p1_1x4", (1, 4))):
+        mesh = pmesh.make_mesh2(*layout)
+        out[name] = _mesh_p1_run(mesh, [fixtures[name]], tile=16)
+    out["small"] = pmesh.encode_batch_mesh([small], mesh, 16, 16)
+    return out
+
+
+def _mesh_nccl_job(imgs):
+    """One NCCL rank: the profile-1 encode and decode of ``imgs`` at (1, 1)."""
+    from nblic_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh2(1, 1)
+    return _mesh_p1_run(mesh, [imgs]) + (mesh.backend,)
+
+
+def _mesh_phase(tiled, corpus, p3_corpus, p3_pair, dev, card):
+    """The mesh on the card (nblic_tpu_torch/parallel/mesh.py): gloo ranks
+    sharing the card at (1, 2) and (2, 1) over the corpus and at (2, 2) and
+    (1, 4) over the committed JAX fixtures, the profile-3 data-parallel
+    encode and decode at (2, 1), one NCCL rank; the single-process decoder
+    on the mesh's containers, K2 against its plain version at the widths
+    the mesh writes.  Returns (K1, K2) launches summed over the ranks' runs;
+    raises on any failure."""
+    import torch
+
+    from nblic_tpu_torch.convert import group_args
+    from nblic_tpu_torch.ops import rans
+    from nblic_tpu_torch.ops.decode import decode_groups, group_decode_plain
+    from nblic_tpu_torch.ops.fold import encode_fold
+    from nblic_tpu_torch.parallel import mesh as pmesh
+    from nblic_tpu_torch.utils.synth import synth_image
+
+    def exact(got, want):
+        return len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want))
+
+    print("[mesh] gloo ranks share the one card: these runs measure correctness, not "
+          "scaling (every rank's time is the card's, shared)", flush=True)
+    small = synth_image(np.random.default_rng(12), 128, 192)  # 96 tiles of 16x16
+    fixtures = _mesh_fixtures()
+    groups = [corpus[:18], corpus[18:]]
+    n_px = sum(im.size for im in corpus)
+    k1 = k2 = 0
+    t0 = time.perf_counter()
+    pairs = pmesh.launch(2, _mesh_pairs_job, corpus, small, p3_pair, timeout=MESH_TIMEOUT)
+    t_pairs = time.perf_counter() - t0
+    mesh_conts = {}
+    for layout in ((1, 2), (2, 1)):
+        conts, decoded, enc_s, dec_s, _, _, ar_ms, backend = pairs[0][layout]
+        agree = all(r[layout][0] == conts and exact(sum(r[layout][1], []), corpus)
+                    for r in pairs)
+        single = tiled.decode_batches(conts, device=dev)
+        ok = (agree and exact(sum(decoded, []), corpus) and exact(sum(single, []), corpus))
+        g = tiled._Parsed(conts[0][0]).group_size
+        l1 = [r[layout][4] for r in pairs]
+        l2 = [r[layout][5] for r in pairs]
+        k1, k2 = k1 + sum(l1), k2 + sum(l2)
+        mesh_conts[layout] = conts
+        print(f"[mesh {layout}] {backend}, 2 ranks on one card, the corpus by shape, 64x64 "
+              f"tiles, g={g}: encode_batch_mesh {n_px / enc_s / 1e6:.2f} MPix/s ({enc_s:.3f} "
+              f"s), decode_batch_mesh {n_px / dec_s / 1e6:.2f} MPix/s ({dec_s:.3f} s); round "
+              f"trip {ok} (ranks agree, the mesh's and the single-process tiled.decode_batches "
+              f"on the card exact); all-reduce {len(ar_ms)} calls on rank 0, median "
+              f"{statistics.median(ar_ms):.3f} ms, max {max(ar_ms):.3f} ms; launches per rank "
+              f"K1 {l1} K2 {l2} ({card})", flush=True)
+        if not ok or min(l1 + l2) <= 0:
+            raise RuntimeError(f"mesh {layout}: a round trip failed or a kernel never launched")
+
+    p3_enc_s, p3_dec_s = pairs[0]["p3 s"]
+    ok = all(r["p3"] == p3_corpus for r in pairs)
+    print(f"[mesh p3 (2, 1)] gloo, p3_encode_batch_mesh of the corpus at th 64: each container "
+          f"equal to the profile-3 phase's strips.encode_batch container {ok} "
+          f"({n_px / p3_enc_s / 1e6:.4f} MPix/s, {p3_enc_s:.2f} s) ({card})", flush=True)
+    ok_dec = all(exact(r["p3 dec"], _p3_pair()) for r in pairs)
+    print(f"[mesh p3 (2, 1)] p3_decode_batch_mesh of the 48x64 and 64x48 pair at th 16 "
+          f"(the depth cut: 16 x 48 walk steps) exact {ok_dec} ({p3_dec_s:.2f} s) ({card})",
+          flush=True)
+    if not (ok and ok_dec):
+        raise RuntimeError("mesh p3: a container or a decode differed")
+
+    t0 = time.perf_counter()
+    quad = pmesh.launch(4, _mesh_quad_job, {k: v[0] for k, v in fixtures.items()}, small,
+                        timeout=MESH_TIMEOUT)
+    t_quad = time.perf_counter() - t0
+    for name, layout in (("p1_2x2", (2, 2)), ("p1_1x4", (1, 4))):
+        imgs, want = fixtures[name]
+        conts, decoded, enc_s, dec_s, _, _ = quad[0][name]
+        l1 = [r[name][4] for r in quad]
+        l2 = [r[name][5] for r in quad]
+        k1, k2 = k1 + sum(l1), k2 + sum(l2)
+        ok = (all(r[name][0] == [want] for r in quad) and exact(decoded[0], imgs)
+              and exact(tiled.decode_batch(conts[0], device=dev), imgs))
+        print(f"[mesh {layout}] gloo, 4 ranks on one card: the committed JAX mesh fixture "
+              f"{name} ({len(imgs)} images, g={tiled._Parsed(want[0]).group_size}), the "
+              f"card's containers equal nblic_tpu's bytes on every rank and decode exact "
+              f"(mesh and single-process) {ok}; launches per rank K1 {l1} K2 {l2} ({card})",
+              flush=True)
+        if not ok or min(l1 + l2) <= 0:
+            raise RuntimeError(f"mesh {layout}: the fixture's bytes or decode differed")
+
+    # K2 against its plain version at the widths the mesh writes
+    cases = [(2, fixtures["p1_1x4"][1]), (6, fixtures["p1_2x2"][1]),
+             (24, quad[0]["small"]), (48, pairs[0]["small"])]
+    for g, conts in cases:
+        args = group_args([tiled._Parsed(c) for c in conts], dev)
+        k = decode_groups(*args)
+        p, pms = _timed(lambda: group_decode_plain(*args))
+        same = torch.equal(k, p) and args[9] == g
+        ms = _cuda_ms(lambda: decode_groups(*args), 5)
+        print(f"[K2 mesh width] g={args[9]} groups={args[0].shape[0]} tiles 16x16: exact "
+              f"against the plain decoder {same}, kernel {ms:.3f} ms | plain {pms:.3f} ms "
+              f"({card})", flush=True)
+        if not same:
+            raise RuntimeError(f"K2 at g={g} differs from its plain version")
+    for layout in ((1, 2), (2, 1)):  # the main path's shape at the mesh's widths
+        args = group_args([tiled._Parsed(c) for c in mesh_conts[layout][0][:2]], dev)
+        p, pms = _timed(lambda: group_decode_plain(*args))  # one plain run
+        same = torch.equal(decode_groups(*args), p)
+        ms = _cuda_ms(lambda: decode_groups(*args), 5)
+        print(f"[K2 mesh width] g={args[9]} 2 images of 512x768, groups={args[0].shape[0]} "
+              f"tiles 64x64: exact against the plain decoder {same}, kernel {ms:.3f} ms | "
+              f"plain {pms:.3f} ms | bound {_decode_bound(args)[0]:.4f} ms ({card})",
+              flush=True)
+        if not same:
+            raise RuntimeError(f"K2 at g={args[9]}, 64x64 tiles, differs from its plain version")
+
+    # K1 at a shard's shape: shard 0 of (1, 2) over the 18 landscape images,
+    # its lanes folded with the tables the all-reduce gives (the whole
+    # images'), against the plain fold on the card
+    tiles = tiled.to_tiles(torch.from_numpy(np.stack(groups[0])).to(dev), 64, 64)
+    y, qd, _, hist = tiled._model_lossless_impl(tiles)
+    g = tiles.shape[1] // 2
+    freq, facc = tiled._encode_tables(y[:, :g], qd[:, :g], *tiled._norm_tables(hist),
+                                      g_lanes=g)
+    w1, e1, s1 = encode_fold(freq, facc)
+    (w2, e2, s2), pms = _timed(lambda: rans.encode_scan(freq, facc))
+    same = torch.equal(e1, e2) and torch.equal(w1[e1], w2[e2]) and torch.equal(s1, s2)
+    ms = _cuda_ms(lambda: encode_fold(freq, facc), 5)
+    s_, l_ = freq.shape
+    bound = _bound(s_ * l_ * (4 + 4 + 4) + s_ * 4, s_ * l_ * K1_OPS_PER_SYMBOL)
+    print(f"[K1 mesh shard] S={s_} L={l_} (18 images x g={g} lanes, shard 0 of (1, 2)): "
+          f"exact against the plain fold {same}, kernel {ms:.3f} ms | plain {pms:.3f} ms | "
+          f"bound {bound[0]:.4f} ms ({bound[1]}) ({card})", flush=True)
+    if not same:
+        raise RuntimeError("K1 at the mesh shard's shape differs from its plain version")
+
+    t0 = time.perf_counter()
+    (nccl,) = pmesh.launch(1, _mesh_nccl_job, corpus[18:], backend="nccl",
+                           timeout=MESH_TIMEOUT)
+    t_nccl = time.perf_counter() - t0
+    conts, decoded, enc_s, dec_s, l1, l2, backend = nccl
+    ok = backend == "nccl" and exact(decoded[0], corpus[18:]) and exact(
+        tiled.decode_batch(conts[0], device=dev), corpus[18:])
+    k1, k2 = k1 + l1, k2 + l2
+    print(f"[mesh (1, 1)] {backend}, one rank: the 6 portrait images encoded and decoded "
+          f"through the mesh exact {ok}, launches K1 {l1} K2 {l2} ({card})", flush=True)
+    if not ok or min(l1, l2) <= 0:
+        raise RuntimeError("mesh nccl: a round trip failed or a kernel never launched")
+    print(f"[mesh] spawned groups' wall times: 2 ranks {t_pairs:.1f} s, 4 ranks "
+          f"{t_quad:.1f} s, 1 NCCL rank {t_nccl:.1f} s", flush=True)
+    return k1, k2
+
+
 def _main_path(api, tiled, corpus, frame, dev, effort, tag, card):
     """Drive the corpus and the frame through the entry points at ``effort``;
     returns (ok, corpus bpp)."""
@@ -984,12 +1267,10 @@ def main() -> int:
         conts = tiled.encode_batch(imgs, tile_h=t, tile_w=t, device=dev)
         args = group_args([tiled._Parsed(c) for c in conts], dev)
         k = decode_groups(*args)
-        p = group_decode_plain(*args)
-        torch.cuda.synchronize()
+        p, pms = _timed(lambda: group_decode_plain(*args))  # one plain run
         same = torch.equal(k, p)
         err = int((k.int() - p.int()).abs().max())
         ms = _cuda_ms(lambda: decode_groups(*args), 5)
-        pms = _cuda_ms(lambda: group_decode_plain(*args), 3)
         bound, floor = _decode_bound(args), _decode_floor(args)
         if t == 64:
             dec[1] = (err, ms, pms, bound)
@@ -1149,7 +1430,8 @@ def main() -> int:
         lossless_job = pool.submit(_cpu_encode, lossless_jobs)
         near_job = pool.submit(_cpu_encode, near_jobs)
         t0 = time.perf_counter()
-        if not _p3_phase(api, tiled, corpus, dev, card, pool, lossless_job):
+        p3 = _p3_phase(api, tiled, corpus, dev, card, pool, lossless_job)
+        if p3 is None:
             print("[p3] failed: a container or a decode differed from the CPU's, the image "
                   "or nblic_tpu's pixels, or the route")
             return 1
@@ -1173,6 +1455,12 @@ def main() -> int:
         return 1
     print(f"[interop] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- the mesh: gloo ranks sharing the card, then one NCCL rank
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks allocate on the same card
+    mesh_k1, mesh_k2 = _mesh_phase(tiled, corpus, *p3, dev, card)
+    print(f"[mesh] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
     def row(name_, source, replaces, launches, stats):
         err_, ms_, pms_, (bound_ms, bound_by) = stats
         return {"name": name_, "route": "cuda", "source": source,
@@ -1186,10 +1474,10 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("rans_fold", "nblic_tpu_torch/csrc/rans_fold.cu",
             "nblic_tpu/ops/pallas_fold.py:93",
-            launches1["rans_fold"] + launches2["rans_fold"] + near_k1 + interop_k1,
+            launches1["rans_fold"] + launches2["rans_fold"] + near_k1 + interop_k1 + mesh_k1,
             (fold_err, fold_ms, fold_plain_ms, fold_bound)),
         row("group_decode_p1", k2_src, "nblic_tpu/ops/pallas_decode.py:247",
-            launches1["group_decode"] + near_k2_e1, dec[1]),
+            launches1["group_decode"] + near_k2_e1 + mesh_k2, dec[1]),
         row("group_decode_p2", k2_src, "nblic_tpu/ops/pallas_decode.py:123",
             launches2["group_decode"] + near_k2_e2, dec[2]),
         row("group_decode8", k2_src, "docs/experiments/pallas_decode8.py:238",

@@ -15,6 +15,12 @@ PROBE is one of:
              word read from device memory, a division by the quantizer step).
   slot-bits  K2 with a slot table of k = 8..12 bits, at profiles 1 and 2
              at the main path's shape and at 288 groups of 16x16 tiles.
+  k2-width   K2 (csrc/group_decode.cu) as it stands, and with --before
+             PATH (repeatable) each group_decode.cu PATH too, named by its
+             file's stem, at the main path's shape
+             (two groups of 128 lanes at 64x64 tiles, profiles 1 and 2) and
+             at 288 groups of 16x16 tiles: each held against the package's
+             kernel, profile 1 at 64x64 against the plain decoder too.
   fold       K1 (csrc/rans_fold.cu) with blocks of 32, 64 and 128 streams
              at 3072 x 4096, its launch alone and the package's wrapper.
   near-stages  one near-lossless encode batch (18 synthetic 512x768 images,
@@ -286,6 +292,27 @@ def slot_bits(libs: dict, card: str) -> bool:
         print(f"[slot-bits] {label}: " + " | ".join(
             f"k={k} {ts[0]:.3f} / {ts[1]:.3f}{'' if same[k] else ' DIFFERS'}"
             for k, ts in times.items()) + f" ms ({card})", flush=True)
+    return ok
+
+
+def k2_width(libs: dict, card: str) -> bool:
+    dev = torch.device("cuda")
+    cases = {"p1 2 groups 64x64": _main_shape_args(1, dev),
+             "p2 2 groups 64x64": _main_shape_args(2, dev),
+             "p1 288 groups 16x16": _corpus16_args(dev)}
+    ok = True
+    for label, args in cases.items():
+        ref = decode.decode_groups(*args)
+        if label == "p1 2 groups 64x64":
+            ok &= torch.equal(ref, decode.group_decode_plain(*args))
+        runs = {k: _k2_runner(path, args, False) for k, path in libs.items()}
+        same = {k: torch.equal(run(), ref) for k, run in runs.items()}
+        ok &= all(same.values())
+        times = _rounds(runs)
+        print(f"[k2-width] {label}: " + " | ".join(
+            f"{k} {ts[0]:.3f} / {ts[1]:.3f}{'' if same[k] else ' DIFFERS'}"
+            for k, ts in times.items()) + f" ms; package kernel exact {ok} ({card})",
+              flush=True)
     return ok
 
 
@@ -608,12 +635,14 @@ def interop(card: str) -> bool:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probes", nargs="+", choices=("cut-chain", "slot-bits", "fold",
+    ap.add_argument("probes", nargs="+", choices=("cut-chain", "slot-bits", "k2-width", "fold",
                                                      "near-stages", "p3-stages",
                                                      "p3-corpus", "p3-decode",
                                                      "p3-near", "interop"))
     ap.add_argument("--parent", type=Path,
                     help="cut-chain: also cut this group_decode.cu of the parent design")
+    ap.add_argument("--before", type=Path, action="append", default=[],
+                    help="k2-width: also time this group_decode.cu (repeatable)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_probe: needs a CUDA GPU", file=sys.stderr)
@@ -630,6 +659,10 @@ def main(argv=None) -> int:
         for k in range(8, 13):
             specs[("slot-bits", k)] = variant(K2_SRC, f"slot_bits_{k}",
                                               [(SLOT_LINE, f"constexpr int kSlotBits = {k};")])
+    if "k2-width" in args.probes:
+        specs[("k2-width", "current")] = variant(K2_SRC, "width_current", [])
+        for path in args.before:
+            specs[("k2-width", path.stem)] = variant(path, f"width_{path.stem}", [])
     if "fold" in args.probes:
         for block in (32, 64, 128):
             specs[("fold", block)] = variant(K1_SRC, f"fold_{block}",
@@ -650,6 +683,8 @@ def main(argv=None) -> int:
             ok &= cut_chain(of(design), design, card)
     if of("slot-bits"):
         ok &= slot_bits(of("slot-bits"), card)
+    if of("k2-width"):
+        ok &= k2_width(of("k2-width"), card)
     if of("fold"):
         ok &= fold_blocks(of("fold"), card)
     if "near-stages" in args.probes:

@@ -17,7 +17,9 @@
 // near-aware unfold.
 //
 // What bounds K2 on Hopper.  Not the bytes, and not the card's operations:
-// a group's lanes share one cursor, so a group is one CTA of g threads, and
+// a group's lanes share one cursor, so a group is one CTA of g threads (of
+// ceil(g / 32) warps at a width that is not a multiple of 32, as the mesh
+// writes: t_total / n_tiles lanes), and
 // a Kodak-shaped image at 64 x 64 tiles is one group (24 images: 24 of 132
 // SMs).  On its SM a CTA of g = 128 lanes is 4 warps on the 4 schedulers;
 // a lane runs ~364 integer operations per pixel (~396 at profile 2;
@@ -79,6 +81,7 @@
 // at any tile width.  No entry point calls it.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -276,8 +279,15 @@ __device__ __forceinline__ int unfold(int y, int px, int sign, int near) {
   return clampi(px + (sy ? mag : -mag), 0, 255);
 }
 
-// K2: one group per CTA of g threads, lane = threadIdx.x.
-template <int kProfile, bool kLossless>
+// K2: one group per CTA, lane = threadIdx.x.  kFull: g is a multiple of
+// 32 and the CTA has g threads.  Otherwise it has ceil(g / 32) warps, and
+// the threads at or past g idle: they keep the barriers and ballots, take
+// no ballot bit and no word, read no stream word and write nothing; their
+// (unused) window reads take lane g - 1's column.  kFull keeps the idle-lane
+// guards out of the full-width instance: at g = 128 (two groups of 64 x 64)
+// the general instance took 2.02 ms against 1.89 ms for kFull in one run
+// (kernel_probe.py k2-width, NVIDIA H100 80GB HBM3, 700.00 W).
+template <int kProfile, bool kLossless, bool kFull>
 __global__ void group_decode_kernel(
     const int32_t* __restrict__ streams, int W, int pitch,
     const int32_t* __restrict__ n_active, const int32_t* __restrict__ bias,
@@ -297,6 +307,9 @@ __global__ void group_decode_kernel(
 
   const int gi = blockIdx.x;
   const int lane = threadIdx.x;
+  const bool live = kFull || lane < g;
+  const int col = kFull ? lane : min(lane, g - 1);
+  const int nthr = kFull ? g : static_cast<int>(blockDim.x);
   const int set = gi / npg;
   constexpr int shift = 15 - kSlotBits;
   const int rw = ring_words(g);
@@ -305,7 +318,7 @@ __global__ void group_decode_kernel(
   const int4* bias4 = reinterpret_cast<const int4*>(bias + set * kCtx);
   const int4* freq4 = reinterpret_cast<const int4*>(hist_n + set * kCtx);
   const int4* acc4 = reinterpret_cast<const int4*>(acc + set * kCtx);
-  for (int k = lane; k < kCtx / 4; k += g) {
+  for (int k = lane; k < kCtx / 4; k += nthr) {
     const int4 bv = bias4[k], fv = freq4[k], av = acc4[k];
     bias_s[4 * k] = static_cast<int16_t>(bv.x);
     bias_s[4 * k + 1] = static_cast<int16_t>(bv.y);
@@ -327,7 +340,7 @@ __global__ void group_decode_kernel(
   // are 255.
   constexpr int n_slots = 1 << kSlotBits;
   const int32_t* acc_g = acc + set * kCtx;
-  for (int k = lane; k < kCtx; k += g) {
+  for (int k = lane; k < kCtx; k += nthr) {
     const int v = k & 255;
     uint8_t* srow = slot_s + (k >> 8) * kSlotRow;
     auto first = [&](int u) {  // the first slot whose edge reaches acc[u]
@@ -341,39 +354,43 @@ __global__ void group_decode_kernel(
       *reinterpret_cast<uint4*>(srow + b) = make_uint4(v4, v4, v4, v4);
     for (; b < end; ++b) srow[b] = static_cast<uint8_t>(v);
   }
-  for (int k = lane; k < 2 * kCountBytes; k += g) counts[k] = 0;
+  for (int k = lane; k < 2 * kCountBytes; k += nthr) counts[k] = 0;
 
   int w[kWeights];
   int flag = 0;
   if constexpr (kProfile == 2) {
-    const int32_t* wl = wcols + static_cast<size_t>(gi) * kWRows * g + lane;
+    const int32_t* wl = wcols + static_cast<size_t>(gi) * kWRows * g + col;
 #pragma unroll
     for (int k = 0; k < kWeights; ++k) w[k] = wl[k * g];
     flag = wl[kWeights * g];
   }
 
-  // Head: the lanes' initial states.  The ring takes the words from 2 g - 4
-  // on, so that it holds word W - 1 even where W = 2 g.
+  // Head: the lanes' initial states.  The ring takes the words from the
+  // 4-word chunk that holds word 2 g - 1 on (2 g - 4 for an even g), so that
+  // it holds word W - 1 even where W = 2 g.
   const int32_t* stream = streams + static_cast<size_t>(gi) * pitch;
-  uint32_t state = (static_cast<uint32_t>(stream[lane] & 0xFFFF) << 16) |
-                   static_cast<uint32_t>(stream[g + lane] & 0xFFFF);
-  int sp = 2 * g;          // cursor before the pending renormalization
-  int filled = 2 * g - 4;  // words [2 g - 4, filled) are requested
+  uint32_t state = live ? (static_cast<uint32_t>(stream[lane] & 0xFFFF) << 16) |
+                              static_cast<uint32_t>(stream[g + lane] & 0xFFFF)
+                        : 0u;
+  int sp = 2 * g;  // cursor before the pending renormalization
+  // words [first chunk, filled) are requested
+  int filled = kFull ? 2 * g - 4 : (2 * g - 1) & ~3;
   auto upto = [&](int free_below) {
     // the end of the words whose slots may be taken: those of the words
     // below free_below are free
     return min((free_below + rw - 4) & ~3, wend);
   };
-  for (int at = filled + 4 * lane; at < upto(sp); at += 4 * g)
-    cp_async16(ring + (at & (rw - 1)), stream + at);
+  if (live)
+    for (int at = filled + 4 * lane; at < upto(sp); at += 4 * g)
+      cp_async16(ring + (at & (rw - 1)), stream + at);
   cp_async_commit();
   filled = upto(sp);
   cp_async_wait<0>();
   __syncthreads();
 
-  const bool active = lane < n_active[gi];
+  const bool active = lane < n_active[gi];  // n_active <= g: idle lanes are inactive
   const int warp = lane >> 5;
-  const int n_warps = g >> 5;
+  const int n_warps = kFull ? g >> 5 : (g + 31) >> 5;
   const unsigned lanemask_lt = (1u << (lane & 31)) - 1u;
   uint8_t* out_g = out + static_cast<size_t>(gi) * th * tw * g;
   bool need = false;  // the pending renormalization: this lane takes a word
@@ -381,7 +398,7 @@ __global__ void group_decode_kernel(
   int par = 0;        // pixel parity: this pixel writes counts[par]
 
   for (int i = 0; i < th; ++i) {
-    Window v = row_start(p1, p2, i, tw, g, lane);
+    Window v = row_start(p1, p2, i, tw, g, col);
     int err = 0;
     for (int j = 0; j < tw; ++j) {
       // pixel p - 1's renormalization, after its barrier: four warps' counts
@@ -402,8 +419,8 @@ __global__ void group_decode_kernel(
       sp += total;
 
       // pixel p
-      const int up1 = (i > 0 && j + 2 < tw) ? p1[(j + 2) * g + lane] : 0;
-      const int up2 = (i > 1 && j + 3 < tw) ? p2[(j + 3) * g + lane] : 0;
+      const int up1 = (i > 0 && j + 2 < tw) ? p1[(j + 2) * g + col] : 0;
+      const int up2 = (i > 1 && j + 3 < tw) ? p2[(j + 3) * g + col] : 0;
       const int qd = activity_bin(v, err);
       const int px0 = predict<kProfile>(v, w, flag);
       const int bval = bias_s[context_adr(v, px0, qd)];
@@ -434,14 +451,16 @@ __global__ void group_decode_kernel(
 
       const int x = unfold<kLossless>(y, px, sign, near);
       err = x - px0;
-      p2[j * g + lane] = static_cast<uint8_t>(x);
-      out_g[(static_cast<size_t>(i) * tw + j) * g + lane] = static_cast<uint8_t>(x);
+      if (live) {
+        p2[j * g + lane] = static_cast<uint8_t>(x);
+        out_g[(static_cast<size_t>(i) * tw + j) * g + lane] = static_cast<uint8_t>(x);
+      }
       slide(v, x, i, j, tw, up1, up2);
 
-      // a pixel frees at most g words: one 4-word copy per thread refills
+      // a pixel frees at most g words: one 4-word copy per lane refills
       const int end = upto(free_below);
       const int at_copy = filled + 4 * lane;
-      if (at_copy < end) cp_async16(ring + (at_copy & (rw - 1)), stream + at_copy);
+      if (live && at_copy < end) cp_async16(ring + (at_copy & (rw - 1)), stream + at_copy);
       cp_async_commit();
       filled = end;
       cp_async_wait<kAhead - 1>();
@@ -595,8 +614,9 @@ extern "C" int nbt_group_decode_ring_words(int g) { return ring_words(g); }
 // axis (each CTA builds its slot table from it); the tables 16-byte
 // aligned; G = B * npg; wcols:
 // (G, 16, g) int32 (profile 2; not read at profile 1).  out: (G, th, tw, g)
-// uint8.  g: a multiple of 32, at most 1024.  Launches on `stream`; returns
-// cudaGetLastError() after the launch.
+// uint8.  g: 1..1024; the CTA has ceil(g / 32) x 32 threads, and a g that
+// is a multiple of 32 runs the kFull instance.  Launches on `stream`;
+// returns cudaGetLastError() after the launch.
 extern "C" int nbt_group_decode(const int32_t* streams, int W, int pitch,
                                 const int32_t* n_active, const int32_t* bias,
                                 const int32_t* hist_n, const int32_t* acc,
@@ -605,12 +625,16 @@ extern "C" int nbt_group_decode(const int32_t* streams, int W, int pitch,
                                 uint8_t* out, int device, void* stream) {
   const long long smem = Layout(tw, g).total;
   const bool lossless = near == 0;
-  auto kernel = profile == 2 ? (lossless ? group_decode_kernel<2, true>
-                                         : group_decode_kernel<2, false>)
-                             : (lossless ? group_decode_kernel<1, true>
-                                         : group_decode_kernel<1, false>);
-  return launch(kernel, n_groups, g, smem, device, stream, streams, W, pitch,
-                n_active, bias, hist_n, acc, wcols, npg, g, th, tw, near, out);
+  auto pick = [&](auto full) {
+    constexpr bool kFull = decltype(full)::value;
+    return profile == 2 ? (lossless ? group_decode_kernel<2, true, kFull>
+                                    : group_decode_kernel<2, false, kFull>)
+                        : (lossless ? group_decode_kernel<1, true, kFull>
+                                    : group_decode_kernel<1, false, kFull>);
+  };
+  auto kernel = g % 32 == 0 ? pick(std::true_type{}) : pick(std::false_type{});
+  return launch(kernel, n_groups, (g + 31) & ~31, smem, device, stream, streams, W,
+                pitch, n_active, bias, hist_n, acc, wcols, npg, g, th, tw, near, out);
 }
 
 // K2'.  streams: (G, W) int32 u16 words; the other arguments as K2's, with

@@ -47,7 +47,7 @@ from ..convert import group_args, resolve_device
 from ..ops import histogram as hist_ops
 from ..ops import lsq, rans
 from ..ops.context import (
-    apply_static_bias, build_static_bias, residual_fold, residual_unfold,
+    apply_static_bias, bias_moments, quantize_bias, residual_fold, residual_unfold,
 )
 from ..ops.decode import N_WROWS, decode_groups
 from ..ops.fold import encode_fold
@@ -173,12 +173,17 @@ def _image_offsets(b: int, device) -> torch.Tensor:
             * Q_N_CONTEXT).view(b, 1, 1, 1)
 
 
+def _batch_moments(adr, err):
+    """Per-image bias moments of (B, ...) address and error planes: (sums,
+    counts), int64 (B x 3072,), image b's contexts at b x 3072."""
+    b = adr.shape[0]
+    return bias_moments(adr + _image_offsets(b, adr.device), err, b * Q_N_CONTEXT)
+
+
 def _batch_bias(adr, err) -> torch.Tensor:
     """Per-image static bias tables (B, 3072) of (B, ...) address and error
     planes."""
-    b = adr.shape[0]
-    bias = build_static_bias(adr + _image_offsets(b, adr.device), err, b * Q_N_CONTEXT)
-    return bias.view(b, Q_N_CONTEXT)
+    return quantize_bias(*_batch_moments(adr, err)).view(adr.shape[0], Q_N_CONTEXT)
 
 
 def _symbol_hist(y, qd) -> torch.Tensor:
@@ -188,12 +193,18 @@ def _symbol_hist(y, qd) -> torch.Tensor:
     return torch.bincount(idx.reshape(-1), minlength=b * N_QD * N_SYM).view(b, N_QD, N_SYM)
 
 
-def _bias_fold_hist(x, px0, err, qd, adr):
-    """The static bias, residual fold and histogram of a modeling pass."""
-    bias = _batch_bias(adr, err)
-    px, sign = apply_static_bias(bias.view(-1), adr + _image_offsets(x.shape[0], x.device), px0)
+def _bias_fold_hist(x, px0, err, qd, adr, valid=None, reduce=lambda t: t):
+    """The static bias, residual fold and histogram of a modeling pass over
+    (B, T, th, tw) planes.  ``valid``, a (T,) bool mask, keeps the tiles it
+    clears out of the bias moments and the histogram; ``reduce`` sums a
+    table over the shards of a tile axis (the mesh's all-reduce)."""
+    b = x.shape[0]
+    keep = (lambda p: p) if valid is None else (lambda p: p[:, valid])
+    sums, cnts = _batch_moments(keep(adr), keep(err))
+    bias = quantize_bias(reduce(sums), reduce(cnts)).view(b, Q_N_CONTEXT)
+    px, sign = apply_static_bias(bias.view(-1), adr + _image_offsets(b, x.device), px0)
     y = residual_fold(x, px, sign, 0)
-    return y, qd, bias, _symbol_hist(y, qd)
+    return y, qd, bias, reduce(_symbol_hist(keep(y), keep(qd)))
 
 
 # ---------------------------------------------------------------------------
@@ -357,13 +368,15 @@ def _norm_tables(hist: torch.Tensor):
     return hist_n, acc
 
 
-def _encode_tables(y, qd, hist_n, acc, g_lanes: int = G_LANES):
+def _encode_tables(y, qd, hist_n, acc, g_lanes: int = G_LANES, valid=None):
     """Per-pixel (freq, cum) of every tile's symbols, in fold-ready layout.
 
     y/qd: (B, T, th, tw); hist_n/acc: (B, 12, 256).  Returns freq/facc as
     (S, L) views of (L, S) int32 tensors, S = B x T padded to a multiple of
     ``g_lanes`` per image (pad lanes are identity symbols, freq 2^15 and
-    cum 0, that encode nothing) and L = th x tw.
+    cum 0, that encode nothing) and L = th x tw.  ``valid``, a (T,) bool
+    mask, makes the tiles it clears identity lanes too (the mesh's pad
+    tiles).
     """
     b, t = y.shape[:2]
     l = y[0, 0].numel()
@@ -375,6 +388,9 @@ def _encode_tables(y, qd, hist_n, acc, g_lanes: int = G_LANES):
     facc = torch.zeros((l, b, t_pad), dtype=torch.int32, device=y.device)
     freq[:, :, :t] = hist_n.reshape(-1)[idx]
     facc[:, :, :t] = acc.reshape(-1)[idx]
+    if valid is not None:
+        freq[:, :, :t][:, :, ~valid] = NORM_SUM
+        facc[:, :, :t][:, :, ~valid] = 0
     return freq.view(l, b * t_pad).t(), facc.view(l, b * t_pad).t()
 
 
@@ -398,6 +414,20 @@ def _live_payload(flats, totals):
     cap = flats.shape[1]
     live = torch.arange(cap, device=flats.device)[None, :] < totals[:, None]
     return flats[live]
+
+
+def _finish_encode_parts(y, qd, hist, g_lanes: int = G_LANES, valid=None):
+    """The coding tail of a modeling pass: normalize the (B, 12, 256)
+    histograms, fold every lane (K1 on a CUDA tensor) and pack each group of
+    ``g_lanes`` lanes.  ``valid`` as in :func:`_encode_tables`.
+
+    Returns (totals (B x groups,) int64 word counts, hist_n (B, 12, 256)
+    int32, the groups' live words back to back, int32), on y's device.
+    """
+    hist_n, acc = _norm_tables(hist)
+    freq, facc = _encode_tables(y, qd, hist_n, acc, g_lanes, valid)
+    totals, flats = _pack_groups(*encode_fold(freq, facc), g_lanes)
+    return totals, hist_n, _live_payload(flats, totals)
 
 
 # ---------------------------------------------------------------------------
@@ -425,6 +455,27 @@ def _serialize_weights(w_q: np.ndarray, flags: np.ndarray) -> bytes:
     """Profile-2 weight block: flags + weights of learned tiles, zlib'd."""
     raw = zlib.compress(flags.tobytes() + w_q[flags > 0].tobytes(), 6)
     return np.asarray([len(raw)], np.uint32).tobytes() + raw + b"\x00" * (len(raw) & 1)
+
+
+def _containers(profile, near, h, w, tile_h, tile_w, n_tiles, g_lanes, totals, bias,
+                hist_n, words, weights=None, transposed=None) -> list[bytes]:
+    """One container per image of a batch, from its host arrays: totals (B,
+    groups) word counts, bias (B, 3072), hist_n (B, 12, 256), words the u16
+    payload of every group of every image back to back; ``weights`` the
+    profile-2 (w_q (B, T, 12), flags (B, T)); ``transposed`` per-image
+    header flags.  The group count is the totals' width: the mesh writes one
+    group a tile shard, and may pad past ceil(n_tiles / g_lanes) groups."""
+    totals = np.asarray(totals).reshape(len(bias), -1)
+    ends = np.cumsum(totals.sum(axis=1))
+    return [
+        _emit_container(
+            profile, near, h, w, tile_h, tile_w, n_tiles, g_lanes, totals[i],
+            np.asarray(bias[i], np.int16), np.asarray(hist_n[i], np.uint32),
+            np.asarray(words[ends[i] - totals[i].sum() : ends[i]], np.uint16).tobytes(),
+            _serialize_weights(weights[0][i], weights[1][i]) if weights is not None else b"",
+            bool(transposed[i]) if transposed is not None else False)
+        for i in range(len(bias))
+    ]
 
 
 def _emit_container(profile, near, h, w, tile_h, tile_w, n_tiles, g_lanes, totals,
@@ -494,7 +545,6 @@ def _encode_batch(imgs, tile_h: int, tile_w: int, profile: int, transposed,
     check_size(h, w)
     if not (0 < tile_h < 1 << 16 and 0 < tile_w < 1 << 16):
         raise ValueError(f"tile size {tile_h}x{tile_w} outside 1..65535")
-    b = len(imgs)
     gh, gw = _tile_grid(h, w, tile_h, tile_w)
 
     tiles = to_tiles(torch.from_numpy(np.stack(imgs)).to(dev), tile_h, tile_w)
@@ -505,28 +555,13 @@ def _encode_batch(imgs, tile_h: int, tile_w: int, profile: int, transposed,
         y, qd, bias, hist, w_q, flags = _model_lossless2_impl(tiles, weights)
     else:
         y, qd, bias, hist = _model_lossless_impl(tiles)
+    sent = None  # the profile-2 weights the containers carry
     if profile == 2:
-        w_q = w_q.cpu().numpy().astype(np.int16)
-        flags = flags.cpu().numpy().astype(np.uint8)
-    hist_n, acc = _norm_tables(hist)
-    freq, facc = _encode_tables(y, qd, hist_n, acc)
-    totals, flats = _pack_groups(*encode_fold(freq, facc))
-    payload = _live_payload(flats, totals)
-
-    totals = totals.cpu().numpy().reshape(b, -1)
-    words = payload.cpu().numpy().astype(np.uint16)
-    bias = bias.cpu().numpy().astype(np.int16)
-    hist_n = hist_n.cpu().numpy().astype(np.uint32)
-    ends = np.cumsum(totals.sum(axis=1))
-    out = []
-    for i in range(b):
-        out.append(_emit_container(
-            profile, near, h, w, tile_h, tile_w, gh * gw, G_LANES, totals[i], bias[i],
-            hist_n[i], words[ends[i] - totals[i].sum() : ends[i]].tobytes(),
-            _serialize_weights(w_q[i], flags[i]) if profile == 2 else b"",
-            bool(transposed[i]) if transposed is not None else False,
-        ))
-    return out
+        sent = (w_q.cpu().numpy().astype(np.int16), flags.cpu().numpy().astype(np.uint8))
+    totals, hist_n, payload = _finish_encode_parts(y, qd, hist)
+    return _containers(profile, near, h, w, tile_h, tile_w, gh * gw, G_LANES,
+                       totals.cpu().numpy(), bias.cpu().numpy(), hist_n.cpu().numpy(),
+                       payload.cpu().numpy(), sent, transposed)
 
 
 def _encode_flag_cycle(imgs, t: int, device="cuda", near: int = 0) -> list[bytes]:
@@ -673,7 +708,13 @@ class _Parsed:
         g, n_groups = (int(v) for v in np.frombuffer(stream[pos : pos + 8],
                                                      dtype=np.uint32))
         pos += 8
-        if not 1 <= g <= MAX_GROUP or n_groups != -(-hdr.n_tiles // g):
+        # ceil(n_tiles / g) groups, or (the mesh: one group a tile shard, the
+        # tile axis padded to a multiple of the shards) fewer pad lanes than
+        # groups; no more groups than the tiles fill unless shards outnumber
+        # the tiles, and then at most MAX_GROUP
+        n_pad = n_groups * g - hdr.n_tiles
+        if (not 1 <= g <= MAX_GROUP or not 0 <= n_pad < max(g, n_groups)
+                or n_groups > max(-(-hdr.n_tiles // g), MAX_GROUP)):
             raise ValueError(f"{n_groups} groups of {g} lanes do not hold "
                              f"{hdr.n_tiles} tiles")
         self.group_size = g
@@ -685,12 +726,10 @@ class _Parsed:
             raise ValueError("truncated group table or payload")
 
     def n_active(self) -> np.ndarray:
-        """Per-group active-lane counts."""
+        """Per-group active-lane counts (0 for a whole pad group)."""
         t, g = self.hdr.n_tiles, self.group_size
         n_groups = len(self.counts)
-        return np.minimum(t - g * np.arange(n_groups, dtype=np.int64), g).astype(
-            np.int32
-        )
+        return np.clip(t - g * np.arange(n_groups, dtype=np.int64), 0, g).astype(np.int32)
 
     def weight_cols(self) -> np.ndarray:
         """Per-group (16, g) weight and flag columns for the group decoders:
@@ -727,7 +766,7 @@ def decode_batch(streams: list[bytes], device="cuda") -> list[np.ndarray]:
 
     def geometry(p):
         return (p.hdr.height, p.hdr.width, p.hdr.tile_h, p.hdr.tile_w,
-                p.hdr.near, p.group_size, p.hdr.profile)
+                p.hdr.near, p.group_size, len(p.counts), p.hdr.profile)
 
     if any(geometry(p) != geometry(parsed[0]) for p in parsed):
         return [decode(s, device=dev) for s in streams]

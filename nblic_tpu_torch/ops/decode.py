@@ -102,9 +102,7 @@ def _aligned(t: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
 
 
 def _kernel_inputs(smem, g, n_active, bias, hist_n, acc, wcols, profile):
-    """Check a launch's limits; int32 tables and the wcols pointer."""
-    if g % 32 or g > 1024:
-        raise ValueError(f"the kernel needs g a multiple of 32 up to 1024, got {g}")
+    """Check a launch's shared memory; int32 tables and the wcols pointer."""
     if smem > kernels.SMEM_LIMIT:
         raise ValueError(f"this tile width and g = {g} need {smem} B of shared memory")
     tables = [_aligned(t) for t in (n_active, bias, hist_n, acc)]
@@ -121,6 +119,8 @@ def decode_groups(streams, n_active, bias, hist_n, acc, wcols, th: int, tw: int,
     (B, 12, 256) int32, one table set per image, where G = B x groups per
     image; wcols: (G, 16, g) int32 per-lane weights and flag (profile 2;
     unused, and may be None, at profile 1).  Returns (G, g, th, tw) uint8.
+    Any g in 1..1024: a g that is not a multiple of 32 (the mesh writes
+    such groups) leaves the last warp's threads past g idle.
     """
     _check(streams, n_active, bias, hist_n, acc, wcols, th, tw, g, profile)
     if streams.device.type == "cpu":
@@ -128,6 +128,8 @@ def decode_groups(streams, n_active, bias, hist_n, acc, wcols, th: int, tw: int,
                                   th, tw, near, g, profile)
     if streams.device.type != "cuda":
         raise ValueError(f"decode_groups runs on cpu or cuda, not {streams.device}")
+    if not 1 <= g <= 1024:
+        raise ValueError(f"the kernel needs g in 1..1024, got {g}")
     lib = kernels.library()
     (n_active, bias, hist_n, acc), wcols, wptr = _kernel_inputs(
         lib.nbt_group_decode_smem(tw, g), g, n_active, bias, hist_n, acc, wcols,
@@ -171,6 +173,8 @@ def decode_groups8(streams, n_active, bias, hist_n, acc, wcols, th: int, tw: int
                                   th, tw, near, g, profile)
     if streams.device.type != "cuda":
         raise ValueError(f"decode_groups8 runs on cpu or cuda, not {streams.device}")
+    if g % 32:
+        raise ValueError(f"decode_groups8 needs g a multiple of 32, got {g}")
     lib = kernels.library()
     (n_active, bias, hist_n, acc), wcols, wptr = _kernel_inputs(
         lib.nbt_group_decode8_smem(), g, n_active, bias, hist_n, acc, wcols, profile)

@@ -10,6 +10,8 @@ containers the CPU tests hold byte-identical to nblic_tpu's.  Integer math:
 tolerance 0.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -146,6 +148,43 @@ def test_decode_kernel_matches_plain_on_arbitrary_streams(cuda_device, near, pro
     k = decode.decode_groups(*args)
     torch.cuda.synchronize()
     assert torch.equal(k, decode.group_decode_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile", [1, 2])
+@pytest.mark.parametrize("g", [1, 2, 3, 6, 24, 33, 48, 128])
+@pytest.mark.parametrize("width", ["300", "2g"])
+def test_decode_kernel_any_group_width(cuda_device, g, profile, width):
+    # the mesh writes groups of t_total / n_tiles lanes (2, 6, 24, 48, ...):
+    # the threads past g idle, and a stream of exactly 2 g words (an odd g's
+    # head chunk starts at word 2 g - 2) still clamps to word W - 1
+    args = list(_arbitrary(np.random.default_rng(g), 2, 3, g, 2 if g % 2 else 0, profile,
+                           cuda_device))
+    if width == "2g":
+        args[0] = args[0][:, : 2 * g]
+    launches = decode.decode_groups.launches
+    k = decode.decode_groups(*args)
+    torch.cuda.synchronize()
+    assert decode.decode_groups.launches == launches + 1
+    assert torch.equal(k, decode.group_decode_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["p1_1x4", "p1_2x2"])
+def test_decode_kernel_on_jax_mesh_fixtures(cuda_device, name):
+    # nblic_tpu's mesh containers (g = 2 with a whole pad group, g = 6)
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_torch_mesh")
+    imgs = np.load(os.path.join(data, name + ".npy"))
+    conts = []
+    for i in range(len(imgs)):
+        with open(os.path.join(data, f"{name}_{i}.nbtc"), "rb") as f:
+            conts.append(f.read())
+    args = group_args([tiled._Parsed(c) for c in conts], cuda_device)
+    k = decode.decode_groups(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(k, decode.group_decode_plain(*args))
+    for back, img in zip(tiled.decode_batch(conts, device=cuda_device), imgs):
+        np.testing.assert_array_equal(back, img)
 
 
 @pytest.mark.cuda

@@ -10,6 +10,7 @@ out of range.  Non-square tiles and ``near``
 above 9 write the JAX package's bytes.
 """
 
+import os
 import time
 import zlib
 
@@ -108,6 +109,39 @@ def test_hostile_group_table_raises(containers):
     for value, off in ((0, 0), (1 << 20, 0), (2, 4), (0xFFFFFFFF, 8)):
         with pytest.raises(ValueError):
             tiled.decode(_patched(stream, at + off, value, 4), device="cpu")
+
+
+def test_mesh_pad_group_geometry_parses_and_the_rest_stays_refused(containers):
+    # nblic_tpu's mesh pads the tile axis to a multiple of its shards and
+    # writes a group a shard: 6 tiles as 4 groups of 2 lanes, the last all
+    # pad (fewer pad lanes than groups), which decodes
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_torch_mesh")
+    with open(os.path.join(data, "p1_1x4_0.nbtc"), "rb") as f:
+        mesh = f.read()
+    p = tiled._Parsed(mesh)
+    assert (p.hdr.n_tiles, p.group_size, len(p.counts)) == (6, 2, 4)
+    np.testing.assert_array_equal(p.n_active(), [2, 2, 2, 0])
+    np.testing.assert_array_equal(tiled.decode(mesh, device="cpu"),
+                                  np.load(os.path.join(data, "p1_1x4.npy"))[0])
+    # group tables that hold too few lanes, or as many pad lanes as both the
+    # group width and the group count, stay refused before anything is read
+    at = len(mesh) - 2 * p.payload.size - 4 * len(p.counts) - 8
+    for value, off in ((2, 4), (1, 0), (8, 4)):  # 2 groups; 4 groups of 1; 8 groups
+        with pytest.raises(ValueError, match="do not hold"):
+            tiled.decode(_patched(mesh, at + off, value, 4), device="cpu")
+    # a whole group table of 10^5 empty groups of 1 lane for the 6 tiles
+    # (fewer pad lanes than groups): the group count is bounded by the tiles
+    n_groups = 10**5
+    wide = (mesh[:at] + np.asarray([1, n_groups], np.uint32).tobytes()
+            + bytes(4 * n_groups))
+    with pytest.raises(ValueError, match="do not hold"):
+        tiled.decode(wide, device="cpu")
+    stream = containers["p1"]  # 9 tiles in 1 group of 128
+    p = tiled._Parsed(stream)
+    at = len(stream) - 2 * p.payload.size - 4 * len(p.counts) - 8
+    for n_groups in (2, 3, 9):
+        with pytest.raises(ValueError, match="do not hold"):
+            tiled.decode(_patched(stream, at + 4, n_groups, 4), device="cpu")
 
 
 @pytest.mark.parametrize("tile", [(8, 16), (16, 8), (32, 16)])

@@ -148,6 +148,7 @@ def test_port_never_imports_jax():
         "import nblic_tpu_torch\n"
         "from nblic_tpu_torch import api\n"
         "import nblic_tpu_torch.cli\n"
+        "import nblic_tpu_torch.parallel.mesh\n"
         "img = (np.arange(40 * 24) % 251).astype(np.uint8).reshape(40, 24)\n"
         "for effort in (1, 2):\n"
         "    c = api.compress_tiled(img, device='cpu', tile_h=8, tile_w=8, effort=effort)\n"
