@@ -17,8 +17,9 @@ Phases, one line each; any failure exits non-zero:
      decode_batches, pixel-exact, with K1 and K2 launched during the run;
   7. K2, profile 2 (per-tile least-squares predictors), against its plain
      version, exact, at the main path's 64x64 tiles and at 16x16 and 8x8;
-  8. K2' (eight groups per CTA) against its plain version and against K2 on
-     the corpus's groups at 16x16 tiles, exact, and beside K2 on the frame;
+  8. K2' (K2's kernel with one table set per group) against its plain
+     version and against K2 on the corpus's groups at 16x16 tiles, exact,
+     and beside K2 on the frame (and, in the mesh phase, at g = 48);
   9. reference, effort 2: with the same per-tile weights and flags, the
      card's containers equal the CPU's byte for byte; free-running, each
      side's containers decode pixel-exact on the other;
@@ -41,12 +42,12 @@ Phases, one line each; any failure exits non-zero:
      and containers; each stage function wrapped here to sync the card when
      it returns), two of its containers held against the CPU's; one 16x32
      image through api.compress_tiled(effort=3).  Decode: the pairs on the
-     card equal to the images (at strip height 16), the
-     three committed fixtures (near 2, legacy, static bias;
-     tests/data_torch_p3) equal to nblic_tpu's pixels, the corpus at strip
-     height 8 (2304 lanes, 4096 pixel steps) through tiled.decode_batch,
-     exact, with its MPix/s, the walk's time a pixel step, the peak device
-     memory and the projected time of one image at strip height 768, and
+     card equal to the images (at strip height 8), the three committed
+     fixtures (near 2, legacy, static bias; tests/data_torch_p3) equal to
+     nblic_tpu's pixels, the corpus at strip height 4 (4608 lanes, 2048
+     pixel steps) through tiled.decode_batch, exact, with its MPix/s, the
+     walk's time a pixel step, the peak device memory and the projected
+     time of one image at strip height 768, and
      api.decompress of the effort-3 container; a process of its own decodes
      the same containers on the CPU meanwhile, which must agree.
      (kernel_probe.py p3-stages times one 768x512 encode at the default
@@ -54,9 +55,9 @@ Phases, one line each; any failure exits non-zero:
  13. profile 3, near-lossless (the feedback walk, plain PyTorch): the card's
      near-2 container of the committed fixture's image equals nblic_tpu's
      bytes (tests/data_torch_p3/near2.nbtc); the 48x64 / 64x48 pair as one
-     batch at strip height 16, near 1 and near 3, equal to the CPU's and
+     batch at strip height 8, near 1 and near 3, equal to the CPU's and
      decoded on the card within near; the whole corpus at near 2 through
-     tiled.encode_corpus(effort=3) at strip height 16 (1152 lanes, 8192
+     tiled.encode_corpus(effort=3) at strip height 4 (4608 lanes, 2048
      pixel steps), with its bpp, MPix/s, peak device memory, the walk's time
      a pixel step, the row coder's and the fold's times and the projected
      time of one 768x512 image at strip height 768, two of its containers
@@ -91,10 +92,11 @@ Phases, one line each; any failure exits non-zero:
      per rank, the single-process tiled.decode_batches on the card reading
      their containers; p3_encode_batch_mesh of the corpus at (2, 1), th 64,
      equal to phase 12's containers, and p3_decode_batch_mesh of the pair at
-     th 16; four ranks encode the committed JAX mesh fixtures
+     th 8; four ranks encode the committed JAX mesh fixtures
      (tests/data_torch_mesh) at (2, 2) and (1, 4), equal to nblic_tpu's
      bytes, and decode them; K2 against its plain version at g = 2, 6, 24
-     and 48 (16x16 tiles) and at the corpus's g = 48 and 96 (64x64 tiles),
+     and 48 (16x16 tiles) and at the corpus's g = 96 (64x64 tiles), K2' and
+     K2 against it at g = 48 (64x64 tiles, 7 images of the (1, 2) run),
      K1 against its plain fold at a (1, 2) shard's S = 864, L = 4096; one
      NCCL rank encodes and decodes the 6 portrait images.
 Each kernel's time stands beside its bound (the whole card's roofline:
@@ -181,15 +183,14 @@ def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _decode_floor(args, groups_per_cta: int = 1) -> float:
+def _decode_floor(args) -> float:
     """Least milliseconds of a group decode at the launch's own parallelism:
     a CTA of 32 w warps keeps each of its SM's 4 schedulers issuing w / 4
     warps' th x tw x K2_OPS_PER_PIXEL instructions, one a cycle, and the
     CTAs beyond one per SM come in waves of 132."""
     streams, *_, th, tw, near, g, profile = args
-    ctas = streams.shape[0] // groups_per_cta
-    per_scheduler = -(-groups_per_cta * g // 128)  # warps on one scheduler
-    waves = -(-ctas // SMS)
+    per_scheduler = -(-g // 128)  # warps on one scheduler
+    waves = -(-streams.shape[0] // SMS)
     return 1e3 * waves * per_scheduler * th * tw * _k2_ops(profile, near) / CLOCK_HZ
 
 
@@ -207,6 +208,44 @@ def _decode_bound(args) -> tuple[float, str]:
     n_bytes += streams.shape[0] * g * th * tw
     n_ops = int(n_active.sum()) * th * tw * _k2_ops(profile, near)
     return _bound(n_bytes, n_ops)
+
+
+def _k2p_beside_k2(parsed, dev, what, card, plain=True):
+    """K2' (``decode_groups8``: a table set a group, the groups padded to a
+    multiple of 8) against K2 (``decode_groups``: a table set an image, the
+    main path's layout) on the same containers, and against the plain
+    decoder unless ``plain`` is False; the two kernels timed in turns in one
+    call.  Returns None on a mismatch or if a K2' call counted a K2 launch,
+    else (max error, K2' ms, plain ms or None, bound)."""
+    import torch
+
+    from nblic_tpu_torch.convert import group_args
+    from nblic_tpu_torch.ops.decode import decode_groups, decode_groups8, group_decode_plain
+
+    args = group_args(parsed, dev, per_group_tables=True)
+    shared = group_args(parsed, dev)
+    n = shared[0].shape[0]
+    k2_before, k8_before = decode_groups.launches, decode_groups8.launches
+    g8 = decode_groups8(*args)
+    counted = (decode_groups.launches, decode_groups8.launches) == (k2_before, k8_before + 1)
+    k = decode_groups(*shared)
+    ref, pms = _timed(lambda: group_decode_plain(*args)) if plain else (k, None)
+    same = counted and torch.equal(g8[:n], k) and torch.equal(g8[:ref.shape[0]], ref)
+    err = int((g8[:ref.shape[0]].int() - ref.int()).abs().max())
+    times = {"K2'": [], "K2": []}
+    for _ in range(5):  # in turns
+        times["K2'"].append(_timed(lambda: decode_groups8(*args))[1])
+        times["K2"].append(_timed(lambda: decode_groups(*shared))[1])
+    ms8, ms2 = (statistics.median(times[k_]) for k_ in ("K2'", "K2"))
+    bound = _decode_bound(args)
+    beside = f" | plain {pms:.3f} ms" if plain else ""
+    print(f"{what}: g={args[9]} groups={args[0].shape[0]} ({n} live, one CTA each) exact "
+          f"against {'the plain decoder and ' if plain else ''}K2 {same} (a K2' call counts "
+          f"no K2 launch: {counted}); K2' {ms8:.3f} ms | K2 {ms2:.3f} ms (its own layout) | "
+          f"K2' / K2 {ms8 / ms2:.3f}{beside} | bound {bound[0]:.4f} ms ({bound[1]}), "
+          f"{bound[0] / ms8:.1%} of it | floor {_decode_floor(args):.4f} ms ({card})",
+          flush=True)
+    return (err, ms8, pms, bound) if same else None
 
 
 def _max_err(a, b) -> int:
@@ -403,17 +442,25 @@ def _p3_pair():
 
 
 PICKS = (0, 23)  # corpus images held against the CPU: transposed landscape, portrait
+# the depth cuts of the plain profile-3 walks, whose time is th x w steps:
+# the pair's short strip height (its decodes walk 8 x 48 steps), the
+# lossless corpus decode's and the near-2 corpus's (4 x 512 each)
+P3_PAIR_TH = 8
+P3_DECODE_TH = 4
+P3_NEAR_TH = 4
 P3_TUNES = ("TUNE_V4", "TUNE_MAX", "TUNE_V4S")
 
 
 def _p3_cpu_jobs(corpus):
     """The CPU encodes the card's profile-3 containers are held to, as
     :func:`_cpu_encode` jobs: (lossless, near-lossless).  Lossless: the pair
-    under each contract at th 16 and 64, then the picked corpus images at
-    th 64; near: the pair at near 1 and 3, the picks at near 2, th 16."""
+    under each contract at th P3_PAIR_TH and 64, then the picked corpus
+    images at th 64; near: the pair at near 1 and 3 (th P3_PAIR_TH), the
+    picks at near 2 (th P3_NEAR_TH)."""
     pair, picks = _p3_pair(), [corpus[i] for i in PICKS]
-    lossless = [(pair, th, 0, t) for t in P3_TUNES for th in (16, 64)]
-    near = [(pair, 16, 1, "TUNE_V4"), (pair, 16, 3, "TUNE_V4"), (picks, 16, NEAR, "TUNE_V4")]
+    lossless = [(pair, th, 0, t) for t in P3_TUNES for th in (P3_PAIR_TH, 64)]
+    near = [(pair, P3_PAIR_TH, 1, "TUNE_V4"), (pair, P3_PAIR_TH, 3, "TUNE_V4"),
+            (picks, P3_NEAR_TH, NEAR, "TUNE_V4")]
     return lossless + [(picks, 64, 0, "TUNE_V4")], near
 
 
@@ -437,10 +484,10 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
     lossless :func:`_p3_cpu_jobs`) on small images, the corpus as one batch
     stage by stage, the public route; then decode: the small containers and
     the fixtures on the card against the image (or nblic_tpu's pixels) and
-    the CPU (a job of ``pool``), the corpus at th = 8 through
+    the CPU (a job of ``pool``), the corpus at th = P3_DECODE_TH through
     tiled.decode_batch with the walk's time a pixel step, and
     api.decompress.  Returns None on a failure, else (the corpus's
-    containers at th 64, the pair's at th 16 under TUNE_V4)."""
+    containers at th 64, the pair's at th P3_PAIR_TH under TUNE_V4)."""
     import torch
 
     from nblic_tpu_torch.models import strips
@@ -454,13 +501,13 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
     try:
         for tune in P3_TUNES:
             strips.TUNE = getattr(strips, tune)
-            for th in (16, 64):
+            for th in (P3_PAIR_TH, 64):
                 t0 = time.perf_counter()
                 pair_conts[tune, th] = strips.encode_batch(pair, th=th, device=dev)
                 batch_s[tune, th] = time.perf_counter() - t0
                 # each image alone as well, at the short strip height
                 singles[tune, th] = ([strips.encode(im, th=th, device=dev) for im in pair]
-                                     if th == 16 else pair_conts[tune, th])
+                                     if th == P3_PAIR_TH else pair_conts[tune, th])
     finally:
         strips.TUNE = default
 
@@ -492,8 +539,8 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
     for (tune, th_), cpu in zip(pair_conts, cpu_pairs):
         ok = pair_conts[tune, th_] == cpu and singles[tune, th_] == cpu
         print(f"[p3 reference] {tune} th {th_}: the 48x64 and 64x48 images as a "
-              f"batch{' and alone' if th_ == 16 else ''}, card == cpu containers {ok} (batch "
-              f"on the card {batch_s[tune, th_]:.2f} s)", flush=True)
+              f"batch{' and alone' if th_ == P3_PAIR_TH else ''}, card == cpu containers {ok} "
+              f"(batch on the card {batch_s[tune, th_]:.2f} s)", flush=True)
         if not ok:
             return None
     picks = list(PICKS)
@@ -510,14 +557,14 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
     if not (same and routed):
         return None
 
-    # ---- decode.  The corpus at th = 8 (the depth cut: 8 rows a strip keep
-    # the walk at 8 x 512 pixel steps; a 768-row strip is 393,216)
-    th_dec = 8
+    # ---- decode.  The corpus at th = P3_DECODE_TH (the depth cut: th x 512
+    # pixel steps; a 768-row strip is 393,216)
+    th_dec = P3_DECODE_TH
     conts_dec = strips.encode_batch(corpus, th=th_dec, device=dev)
     fixtures = _p3_fixtures()
-    # the pairs decode on the card at th 16 under each contract (their th-64
-    # decodes are cut for time; those encodes were held to the CPU's above)
-    decoded_pairs = {k: v for k, v in pair_conts.items() if k[1] == 16}
+    # the pairs decode on the card at th P3_PAIR_TH under each contract (their
+    # th-64 decodes are cut for time; those encodes were held to the CPU's above)
+    decoded_pairs = {k: v for k, v in pair_conts.items() if k[1] == P3_PAIR_TH}
     # the CPU's decodes run in a process of their own meanwhile
     cpu_groups = (list(decoded_pairs.values()) + [[c] for c, _ in fixtures.values()]
                   + [[conts_dec[i] for i in picks]])
@@ -581,14 +628,14 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
     print(f"[p3 decode] the cpu's decodes of the {len(cpu_groups)} groups (the pairs, each "
           f"fixture, corpus images {picks}) equal the card's {same} (waited {wait_s:.1f} s "
           f"for them)", flush=True)
-    return (conts, pair_conts["TUNE_V4", 16]) if same else None
+    return (conts, pair_conts["TUNE_V4", P3_PAIR_TH]) if same else None
 
 
 def _p3_near_phase(tiled, corpus, dev, card, cpu_job) -> bool:
     """Profile-3 near-lossless encode: the committed fixture's bytes, the
     pair at near 1 and 3 against the CPU (``cpu_job``, a future of the
     near-lossless :func:`_p3_cpu_jobs`) and decoded on the card, the corpus
-    at near 2 through tiled.encode_corpus at th = 16 stage by stage, then its
+    at near 2 through tiled.encode_corpus at th = P3_NEAR_TH stage by stage, then its
     decode on the card through tiled.decode_batch."""
     import torch
 
@@ -618,23 +665,23 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job) -> bool:
     wait_s = time.perf_counter() - t0
     for k, near in enumerate((1, 3)):
         t0 = time.perf_counter()
-        on_card = strips.encode_batch(pair, th=16, near=near, device=dev)
+        on_card = strips.encode_batch(pair, th=P3_PAIR_TH, near=near, device=dev)
         enc_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         back = strips.decode_batch(on_card, device=dev)
         dec_s = time.perf_counter() - t0
         err = max(_max_err(b, im) for b, im in zip(back, pair))
         ok = on_card == cpu[k] and 0 < err <= near
-        print(f"[p3 near reference] near {near} th 16: the 48x64 and 64x48 images as a "
-              f"batch, card == cpu containers {on_card == cpu[k]} (the cpu's encodes "
+        print(f"[p3 near reference] near {near} th {P3_PAIR_TH}: the 48x64 and 64x48 "
+              f"images as a batch, card == cpu containers {on_card == cpu[k]} (the cpu's encodes "
               f"waited for {wait_s:.1f} s), max error decoded on the card {err} (encode "
               f"{enc_s:.2f} s, decode {dec_s:.2f} s)", flush=True)
         if not ok:
             return False
 
-    # ---- (c) the corpus at near 2 through the entry point, strip height 16
-    # (the depth cut: th x 512 walk steps, 8192 against 393,216 at th 768)
-    th = 16
+    # ---- (c) the corpus at near 2 through the entry point, strip height
+    # P3_NEAR_TH (the depth cut: th x 512 walk steps against 393,216 at 768)
+    th = P3_NEAR_TH
     n_px = sum(im.size for im in corpus)
     h, w = max(corpus[0].shape), min(corpus[0].shape)  # portrait-normalized
     lanes = len(corpus) * -(-h // th)
@@ -658,7 +705,7 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job) -> bool:
     tune = strips._near_tune(strips.TUNE)
     fold_steps = n_steps * (tune.n_unary + strips.L_R) // strips.N_PHASE
     walk_step = st["walk"] / n_steps
-    # one 768x512 image at th 768: 48x the rows of each stage at one strip
+    # one 768x512 image at th 768: 768 / th times the rows of each stage
     proj_min = (768 * w * walk_step + 768 * st["row coder"] / th
                 + 768 * st["fold"] / th) / 6e4
     hdrs = [tiled.NbtcHeader.from_bytes(c) for c in conts]
@@ -1062,9 +1109,9 @@ def _mesh_phase(tiled, corpus, p3_corpus, p3_pair, dev, card):
           f"equal to the profile-3 phase's strips.encode_batch container {ok} "
           f"({n_px / p3_enc_s / 1e6:.4f} MPix/s, {p3_enc_s:.2f} s) ({card})", flush=True)
     ok_dec = all(exact(r["p3 dec"], _p3_pair()) for r in pairs)
-    print(f"[mesh p3 (2, 1)] p3_decode_batch_mesh of the 48x64 and 64x48 pair at th 16 "
-          f"(the depth cut: 16 x 48 walk steps) exact {ok_dec} ({p3_dec_s:.2f} s) ({card})",
-          flush=True)
+    print(f"[mesh p3 (2, 1)] p3_decode_batch_mesh of the 48x64 and 64x48 pair at th "
+          f"{P3_PAIR_TH} (the depth cut: {P3_PAIR_TH} x 48 walk steps) exact {ok_dec} "
+          f"({p3_dec_s:.2f} s) ({card})", flush=True)
     if not (ok and ok_dec):
         raise RuntimeError("mesh p3: a container or a decode differed")
 
@@ -1102,17 +1149,21 @@ def _mesh_phase(tiled, corpus, p3_corpus, p3_pair, dev, card):
               f"({card})", flush=True)
         if not same:
             raise RuntimeError(f"K2 at g={g} differs from its plain version")
-    for layout in ((1, 2), (2, 1)):  # the main path's shape at the mesh's widths
-        args = group_args([tiled._Parsed(c) for c in mesh_conts[layout][0][:2]], dev)
-        p, pms = _timed(lambda: group_decode_plain(*args))  # one plain run
-        same = torch.equal(decode_groups(*args), p)
-        ms = _cuda_ms(lambda: decode_groups(*args), 5)
-        print(f"[K2 mesh width] g={args[9]} 2 images of 512x768, groups={args[0].shape[0]} "
-              f"tiles 64x64: exact against the plain decoder {same}, kernel {ms:.3f} ms | "
-              f"plain {pms:.3f} ms | bound {_decode_bound(args)[0]:.4f} ms ({card})",
-              flush=True)
-        if not same:
-            raise RuntimeError(f"K2 at g={args[9]}, 64x64 tiles, differs from its plain version")
+    # the main path's shape at the mesh's widths.  g = 48: K2' at a width
+    # that is not a multiple of 32 on 7 images of (1, 2) (14 groups and 2 pad
+    # groups), against the plain decoder and K2, which holds K2 there too
+    if _k2p_beside_k2([tiled._Parsed(c) for c in mesh_conts[(1, 2)][0][:7]], dev,
+                      "[K2' mesh width] 7 images of 512x768, 64x64 tiles", card) is None:
+        raise RuntimeError("K2' or K2 at g = 48 differs from the plain decoder")
+    args = group_args([tiled._Parsed(c) for c in mesh_conts[2, 1][0][:2]], dev)
+    p, pms = _timed(lambda: group_decode_plain(*args))  # one plain run
+    same = torch.equal(decode_groups(*args), p)
+    ms = _cuda_ms(lambda: decode_groups(*args), 5)
+    print(f"[K2 mesh width] g={args[9]} 2 images of 512x768, groups={args[0].shape[0]} "
+          f"tiles 64x64: exact against the plain decoder {same}, kernel {ms:.3f} ms | "
+          f"plain {pms:.3f} ms | bound {_decode_bound(args)[0]:.4f} ms ({card})", flush=True)
+    if not same:
+        raise RuntimeError(f"K2 at g={args[9]}, 64x64 tiles, differs from its plain version")
 
     # K1 at a shard's shape: shard 0 of (1, 2) over the 18 landscape images,
     # its lanes folded with the tables the all-reduce gives (the whole
@@ -1226,8 +1277,7 @@ def main() -> int:
     print(f"[layout] K2: slot table k={SLOT_BITS}, stream ring "
           f"{lib.nbt_group_decode_ring_words(128)} words at g=128, shared memory "
           f"{lib.nbt_group_decode_smem(64, 128)} B a CTA at 64x64 tiles, "
-          f"{lib.nbt_group_decode_smem(16, 128)} B at 16x16 | K2': "
-          f"{lib.nbt_group_decode8_smem()} B a CTA | K1: "
+          f"{lib.nbt_group_decode_smem(16, 128)} B at 16x16 (K2' the same) | K1: "
           f"{lib.nbt_rans_fold_smem()} B a block", flush=True)
 
     # ---- K1 against the plain fold on the card
@@ -1340,28 +1390,12 @@ def main() -> int:
         for batch in (corpus[:18], [im.T.copy() for im in corpus[18:]]):
             conts += (tiled._encode_flag_cycle(batch, 16, dev) if profile == 2 else
                       tiled.encode_batch(batch, tile_h=16, tile_w=16, device=dev))
-        args = group_args([tiled._Parsed(c) for c in conts], dev,
-                          per_group_tables=True)
-        g8 = decode_groups8(*args)
-        p = group_decode_plain(*args)
-        k = decode_groups(*args)
-        torch.cuda.synchronize()
-        same = torch.equal(g8, p) and torch.equal(g8, k)
-        err = int((g8.int() - p.int()).abs().max())
-        ms8 = _cuda_ms(lambda: decode_groups8(*args), 5)
-        ms2 = _cuda_ms(lambda: decode_groups(*args), 5)
-        pms = _cuda_ms(lambda: group_decode_plain(*args), 1)
-        bound = _decode_bound(args)
-        floor8, floor2 = _decode_floor(args, 8), _decode_floor(args)
-        if profile == 2:
-            k8 = (err, ms8, pms, bound)
-        print(f"[K2' group_decode8 p{profile}] corpus at 16x16 tiles, "
-              f"groups={args[0].shape[0]} ({args[0].shape[0] // 8} CTAs) "
-              f"exact vs plain and K2={same} K2' {ms8:.3f} ms (floor {floor8:.4f}) "
-              f"| K2 {ms2:.3f} ms (floor {floor2:.4f}) | plain {pms:.3f} ms | "
-              f"bound {bound[0]:.4f} ms ({bound[1]}) ({card})", flush=True)
-        if not same:
+        stats = _k2p_beside_k2([tiled._Parsed(c) for c in conts], dev,
+                               f"[K2' group_decode8 p{profile}] corpus at 16x16 tiles", card)
+        if stats is None:
             return 1
+        if profile == 2:
+            k8 = stats
 
     # ---- effort 2: the card against the CPU plain path on small inputs
     for shape, t in (((70, 90), 16), ((96, 104), 8)):
@@ -1396,23 +1430,16 @@ def main() -> int:
                  "group_decode8": decode_groups8.launches}
     print(f"[main path e2] launches {launches2}; corpus bpp {bpp2:.4f} at effort 2 "
           f"against {bpp1:.4f} at effort 1 ({card})", flush=True)
-    if not ok or min(launches2["rans_fold"], launches2["group_decode"]) <= 0:
-        print("[main path e2] failed: round trip or a kernel never launched")
+    if not ok or min(launches2["rans_fold"], launches2["group_decode"]) <= 0 \
+            or launches2["group_decode8"]:
+        print("[main path e2] failed: round trip, a kernel never launched, or K2' (on no "
+              "entry point) launched")
         return 1
-    launches8 = decode_groups8.launches  # K2' is on no entry point: 0 expected
+    launches8 = launches2["group_decode8"]
 
     # ---- K2' beside K2 on the frame's 24 groups (64x64 tiles)
-    args = group_args([tiled._Parsed(frame_c2)], dev, per_group_tables=True)
-    same = torch.equal(decode_groups8(*args), decode_groups(*args))
-    ms8 = _cuda_ms(lambda: decode_groups8(*args), 5)
-    ms2 = _cuda_ms(lambda: decode_groups(*args), 5)
-    bound = _decode_bound(args)
-    print(f"[K2' frame] {frame.shape} effort 2, groups={args[0].shape[0]} "
-          f"({args[0].shape[0] // 8} CTAs) K2' == K2 {same}: K2' {ms8:.3f} ms "
-          f"(floor {_decode_floor(args, 8):.4f}) | K2 {ms2:.3f} ms (floor "
-          f"{_decode_floor(args):.4f}) | bound {bound[0]:.4f} ms ({bound[1]}) "
-          f"({card})", flush=True)
-    if not same:
+    if _k2p_beside_k2([tiled._Parsed(frame_c2)], dev, f"[K2' frame] {frame.shape} effort 2",
+                      card, plain=False) is None:
         return 1
 
     # ---- near-lossless: the feedback scan and K2's near instances

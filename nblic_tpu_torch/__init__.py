@@ -10,7 +10,27 @@ lockstep group decoders (``ops/decode.py``).  It imports neither JAX nor
 anything of ``nblic_tpu``: it keeps its own ``constants``,
 ``utils.container``, ``utils.imageio`` and ``runtime``.
 
-Public API: :mod:`nblic_tpu_torch.api`.
+Public API: :mod:`nblic_tpu_torch.api`; the subpackages load at first use.
 """
 
-from .api import compress, compress_tiled, decompress, decompress_tiled  # noqa: F401
+from .api import (  # noqa: F401
+    EFFORTS,
+    MAX_NEAR,
+    compress,
+    compress_tiled,
+    decompress,
+    decompress_tiled,
+)
+
+__version__ = "0.1.0"
+
+_SUBPACKAGES = ("models", "ops", "parallel", "runtime", "utils")
+
+
+def __getattr__(name):
+    """The subpackages, imported at first use (``nblic_tpu_torch.parallel``)."""
+    if name in _SUBPACKAGES:
+        import importlib
+
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.decode import GROUPS_PER_CTA8
+from .ops.decode import GROUP_MULTIPLE8
 from .ops.rans import pad_streams
 
 
@@ -95,7 +95,7 @@ def group_args(parsed, device="cuda", per_group_tables=False) -> tuple:
     wcols = wcols_from_parsed(parsed, dev) if hdr.profile == 2 else None
     if per_group_tables:
         n_groups = words.shape[0]
-        pad = -n_groups % GROUPS_PER_CTA8
+        pad = -n_groups % GROUP_MULTIPLE8
         sets = torch.cat([torch.arange(n_groups, device=dev) // len(parsed[0].counts),
                           torch.zeros(pad, dtype=torch.int64, device=dev)])
         bias, hist_n, acc = bias[sets], hist_n[sets], acc[sets]

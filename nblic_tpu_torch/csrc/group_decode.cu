@@ -1,5 +1,5 @@
 // Lockstep decode of NBTC profile-1 and profile-2 interleave groups:
-// kernel K2 (one group per CTA) and kernel K2' (eight groups per CTA).
+// kernel K2, one group per CTA, which also serves as kernel K2'.
 //
 // K2 replaces nblic_tpu/ops/pallas_decode.py::decode_groups_pallas, the TPU
 // kernel, profile-1 and profile-2 branches; K2' replaces
@@ -72,13 +72,22 @@
 // column of the rows, so they need no barrier.  The output is (groups,
 // th, tw, g), so each pixel's store coalesces across the lanes.
 //
-// K2' packs eight groups into one CTA of 8 g threads and keeps the design
-// K2 had before: two barriers per pixel, the 8-step search, stream words
-// read from device memory.  Eight groups' tables (144 KB) and their two
-// rows (128 KB at 64 x 64 tiles) would need 272 KB, over the 227 KB a
-// block may have: the previous rows are read back from the output in
-// device memory, one pixel ahead, off the chain; 147.6 KB of shared memory
-// at any tile width.  No entry point calls it.
+// K2' is this kernel with one table set per group (npg = 1): CTA gi
+// reads set gi and builds its slot table from it.  The TPU kernel packed
+// eight groups onto its 1024-lane axis to spread the core's fixed cost per
+// step over 1024 pixels.  Hopper has no such cost to share, and the groups
+// share no data, so the port packed them into one CTA only to lose three
+// things: SMs (the frame's 24 groups ran on 3 of 132), shared memory (eight
+// table sets left no room for the ring, slot table or rows) and barriers
+// (two a pixel, and the 8-step search).  That design took 0.717-0.804 ms at
+// 288 groups of 16 x 16 and 10.746-10.792 ms at 24 groups of 64 x 64, 2.6x
+// and 5.2x K2's time (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W).
+// A cluster of eight CTAs would only force them into one GPC: nothing
+// crosses between the groups for distributed shared memory to carry.  One
+// group a CTA took 0.268 ms (p1) and 0.331 ms (p2) at 288 groups, 77% and
+// 68% of the bound, 2.058 ms on the 24 groups and 2.040 ms at g = 48, each
+// within 1.1% of K2 in the same call (the same card and script): the
+// per-group tables' prologue costs nothing that shows.
 
 #include <cstdint>
 #include <type_traits>
@@ -89,7 +98,6 @@ namespace {
 constexpr int kQd = 12;                    // activity bins
 constexpr int kCtx = kQd * 256;            // x 256 texture patterns
 constexpr int kTableBytes = 3 * kCtx * 2;  // bias, freq, acc as 16-bit
-constexpr int kWarpBytes = 32 * 4;         // K2': one count per warp, 32 warps
 constexpr int kCountBytes = 32;            // K2: one byte per warp, 32 warps
 constexpr int kWeights = 12;               // 11 taps + intercept
 constexpr int kWRows = 16;                 // weight rows per lane in wcols
@@ -474,136 +482,12 @@ __global__ void group_decode_kernel(
   cp_async_wait<0>();
 }
 
-// K2': eight groups per CTA of 8 g threads; group blockIdx.x * 8 +
-// threadIdx.x / g uses table set (its index / npg).
-template <int kProfile>
-__global__ void __launch_bounds__(1024, 1)
-    group_decode8_kernel(const int32_t* __restrict__ streams, int W,
-                         const int32_t* __restrict__ n_active,
-                         const int32_t* __restrict__ bias,
-                         const int32_t* __restrict__ hist_n,
-                         const int32_t* __restrict__ acc,
-                         const int32_t* __restrict__ wcols, int npg, int g,
-                         int th, int tw, int near, uint8_t* __restrict__ out) {
-  constexpr int kGroups = 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  int16_t* bias_all = reinterpret_cast<int16_t*>(smem);
-  uint16_t* freq_all = reinterpret_cast<uint16_t*>(smem + 2 * kGroups * kCtx);
-  uint16_t* acc_all = reinterpret_cast<uint16_t*>(smem + 4 * kGroups * kCtx);
-  int* warp_tot = reinterpret_cast<int*>(smem + kGroups * kTableBytes);
-
-  const int grp = threadIdx.x / g;
-  const int lane = threadIdx.x % g;
-  const int gi = blockIdx.x * kGroups + grp;
-  for (int k = threadIdx.x; k < kGroups * kCtx; k += blockDim.x) {
-    const int set = (blockIdx.x * kGroups + k / kCtx) / npg;
-    const int at = set * kCtx + k % kCtx;
-    bias_all[k] = static_cast<int16_t>(bias[at]);
-    freq_all[k] = static_cast<uint16_t>(hist_n[at]);
-    acc_all[k] = static_cast<uint16_t>(acc[at]);
-  }
-  const int16_t* bias_s = bias_all + grp * kCtx;
-  const uint16_t* freq_s = freq_all + grp * kCtx;
-  const uint16_t* acc_s = acc_all + grp * kCtx;
-
-  int w[kWeights];
-  int flag = 0;
-  if constexpr (kProfile == 2) {
-    const int32_t* wl = wcols + static_cast<size_t>(gi) * kWRows * g + lane;
-#pragma unroll
-    for (int k = 0; k < kWeights; ++k) w[k] = wl[k * g];
-    flag = wl[kWeights * g];
-  }
-  __syncthreads();
-
-  const int32_t* stream = streams + static_cast<size_t>(gi) * W;
-  uint32_t state = (static_cast<uint32_t>(stream[lane] & 0xFFFF) << 16) |
-                   static_cast<uint32_t>(stream[g + lane] & 0xFFFF);
-  int sp = 2 * g;
-  const bool active = lane < n_active[gi];
-  const int warp = lane >> 5;  // warp within the group
-  const int n_warps = g >> 5;
-  int* tot = warp_tot + grp * n_warps;
-  const unsigned lanemask_lt = (1u << (lane & 31)) - 1u;
-  uint8_t* out_g = out + static_cast<size_t>(gi) * th * tw * g;
-
-  for (int i = 0; i < th; ++i) {
-    // rows i-1 and i-2 of this group's output
-    const uint8_t* p1 = out_g + static_cast<size_t>(i > 0 ? i - 1 : 0) * tw * g;
-    const uint8_t* p2 = out_g + static_cast<size_t>(i > 1 ? i - 2 : 0) * tw * g;
-    Window v = row_start(p1, p2, i, tw, g, lane);
-    int err = 0;
-    for (int j = 0; j < tw; ++j) {
-      // row-above taps of the next pixel's window, off the serial chain
-      const int up1 = (i > 0 && j + 2 < tw) ? p1[(j + 2) * g + lane] : 0;
-      const int up2 = (i > 1 && j + 3 < tw) ? p2[(j + 3) * g + lane] : 0;
-      const int px0 = predict<kProfile>(v, w, flag);
-      const int qd = activity_bin(v, err);
-      const int bval = bias_s[context_adr(v, px0, qd)];
-      const int sign = (bval >> 3) & 1;
-      const int px = clampi(px0 + (bval >> 4) + sign, 0, 255);
-
-      // symbol: the last v with acc[qd][v] <= lb (acc[qd][0] == 0)
-      const uint32_t lb = state & 0x7FFFu;
-      const uint16_t* arow = acc_s + qd * 256;
-      int y = 0;
-#pragma unroll
-      for (int step = 128; step; step >>= 1)
-        if (arow[y + step] <= lb) y += step;
-      state = (state >> 15) * freq_s[qd * 256 + y] + lb - arow[y];
-
-      // renormalize against the group's shared cursor
-      const bool need = active && state < (1u << 16);
-      const unsigned ballot = __ballot_sync(0xFFFFFFFFu, need);
-      if ((lane & 31) == 0) tot[warp] = __popc(ballot);
-      __syncthreads();
-      int base = 0, total = 0;
-      for (int k = 0; k < n_warps; ++k) {
-        const int t = tot[k];
-        base += k < warp ? t : 0;
-        total += t;
-      }
-      __syncthreads();
-      if (need) {
-        const int at = min(sp + base + __popc(ballot & lanemask_lt), W - 1);
-        state = (state << 16) | static_cast<uint32_t>(stream[at] & 0xFFFF);
-      }
-      sp += total;
-
-      const int x = unfold<false>(y, px, sign, near);
-      err = x - px0;
-      out_g[(static_cast<size_t>(i) * tw + j) * g + lane] = static_cast<uint8_t>(x);
-      slide(v, x, i, j, tw, up1, up2);
-    }
-  }
-}
-
-long long smem8_bytes() { return 8LL * kTableBytes + kWarpBytes; }
-
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int blocks, int threads, long long smem, int device,
-           void* stream, Args... args) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<blocks, threads, static_cast<size_t>(smem),
-           static_cast<cudaStream_t>(stream)>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Dynamic shared memory of one K2 CTA: tile width tw, g lanes.
 extern "C" long long nbt_group_decode_smem(int tw, int g) {
   return Layout(tw, g).total;
 }
-
-// Dynamic shared memory of one K2' CTA (eight groups; any tile width).
-extern "C" long long nbt_group_decode8_smem() { return smem8_bytes(); }
 
 // Words of K2's stream ring for groups of g lanes.
 extern "C" int nbt_group_decode_ring_words(int g) { return ring_words(g); }
@@ -612,7 +496,7 @@ extern "C" int nbt_group_decode_ring_words(int g) { return ring_words(g); }
 // multiple of 4 >= W, 16-byte aligned; n_active: (G,); bias: (B, 3072)
 // int32; hist_n/acc: (B, 12, 256) int32, acc nondecreasing along its last
 // axis (each CTA builds its slot table from it); the tables 16-byte
-// aligned; G = B * npg; wcols:
+// aligned; G = B * npg, CTA gi reading set gi / npg (K2': npg = 1); wcols:
 // (G, 16, g) int32 (profile 2; not read at profile 1).  out: (G, th, tw, g)
 // uint8.  g: 1..1024; the CTA has ceil(g / 32) x 32 threads, and a g that
 // is a multiple of 32 runs the kFull instance.  Launches on `stream`;
@@ -633,21 +517,16 @@ extern "C" int nbt_group_decode(const int32_t* streams, int W, int pitch,
                                     : group_decode_kernel<1, false, kFull>);
   };
   auto kernel = g % 32 == 0 ? pick(std::true_type{}) : pick(std::false_type{});
-  return launch(kernel, n_groups, (g + 31) & ~31, smem, device, stream, streams, W,
-                pitch, n_active, bias, hist_n, acc, wcols, npg, g, th, tw, near, out);
-}
-
-// K2'.  streams: (G, W) int32 u16 words; the other arguments as K2's, with
-// one table set per group (npg = 1) and G a multiple of 8; each CTA of 8 g
-// threads decodes 8 groups.
-extern "C" int nbt_group_decode8(const int32_t* streams, int W,
-                                 const int32_t* n_active, const int32_t* bias,
-                                 const int32_t* hist_n, const int32_t* acc,
-                                 const int32_t* wcols, int n_groups, int npg,
-                                 int g, int th, int tw, int near, int profile,
-                                 uint8_t* out, int device, void* stream) {
-  auto kernel = profile == 2 ? group_decode8_kernel<2> : group_decode8_kernel<1>;
-  return launch(kernel, n_groups / 8, 8 * g, smem8_bytes(), device, stream,
-                streams, W, n_active, bias, hist_n, acc, wcols, npg, g, th, tw,
-                near, out);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<n_groups, (g + 31) & ~31, static_cast<size_t>(smem),
+           static_cast<cudaStream_t>(stream)>>>(streams, W, pitch, n_active, bias,
+                                                hist_n, acc, wcols, npg, g, th, tw,
+                                                near, out);
+  return static_cast<int>(cudaGetLastError());
 }

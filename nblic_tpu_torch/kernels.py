@@ -87,15 +87,8 @@ def library() -> ctypes.CDLL:
         ptr, i32, ptr,
     ]
     lib.nbt_group_decode.restype = i32
-    lib.nbt_group_decode8.argtypes = [
-        ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
-        ptr, i32, ptr,
-    ]
-    lib.nbt_group_decode8.restype = i32
     lib.nbt_group_decode_smem.argtypes = [i32, i32]
     lib.nbt_group_decode_smem.restype = i64
-    lib.nbt_group_decode8_smem.argtypes = []
-    lib.nbt_group_decode8_smem.restype = i64
     lib.nbt_group_decode_ring_words.argtypes = [i32]
     lib.nbt_group_decode_ring_words.restype = i32
     lib.nbt_error_string.argtypes = [i32]

@@ -982,12 +982,11 @@ def _parse(stream: bytes):
         pos += size
     else:  # legacy: the version bit names a fixed contract
         tune = TUNE_V2 if hdr.tile_w & 2 else TUNE_V1
-    # the strip geometry bounds the decode plane: the strips must cover the
-    # portrait height once, and the encoder never cuts a strip taller than
-    # that height rounded up to 16 rows
+    # the strips must cover the portrait height once; a strip taller than
+    # that height (no encoder cuts one past it rounded up to 16 rows, but
+    # nblic_tpu reads it) is one strip, walked only as far as the height
     hh = hdr.width if hdr.tile_w & 1 else hdr.height
-    if (hdr.tile_h < 1 or hdr.n_tiles != -(-hh // hdr.tile_h)
-            or hdr.tile_h > -(-hh // N_PHASE) * N_PHASE):
+    if hdr.tile_h < 1 or hdr.n_tiles != -(-hh // hdr.tile_h):
         raise ValueError("inconsistent profile-3 strip geometry")
     n_feat = (hdr.tile_w >> 4) or 6  # containers before the count held 6
     if n_feat > N_TAPS:
@@ -1047,10 +1046,14 @@ def decode_batch(streams: list[bytes], device="cuda") -> list[np.ndarray]:
     words = words.transpose(0, 1).to(torch.int64).contiguous()
     bias = None if adaptive else torch.from_numpy(
         np.concatenate([p[1] for p in parsed])).to(dev)
-    px = _decode_walk(words, bias, th, ww, s, n_imgs, n_feat, near, tune).cpu().numpy()
+    # the rows past the plane's height come last in the walk and are cut:
+    # a strip taller than the plane (s = 1) walks only the plane's rows
+    heights = [g[1] if g[4] else g[0] for g, *_ in parsed]
+    rows = min(th, max(heights))
+    px = _decode_walk(words, bias, rows, ww, s, n_imgs, n_feat, near, tune).cpu().numpy()
     out = []
     for b, (geom, *_) in enumerate(parsed):
-        h0, w0, _, _, transposed, *_ = geom
-        plane = px[b * s : (b + 1) * s].reshape(s * th, ww)[: w0 if transposed else h0]
+        transposed = geom[4]
+        plane = px[b * s : (b + 1) * s].reshape(s * rows, ww)[: heights[b]]
         out.append(np.ascontiguousarray(plane.T if transposed else plane))
     return out

@@ -38,9 +38,13 @@ def quantize_bias(sums: torch.Tensor, cnts: torch.Tensor, shrink: int = 0) -> to
     Rounds half away from zero on magnitudes (a floor division of a signed
     numerator would round negative means one step too far).  ``shrink``
     adds pseudo-counts to the denominator, pulling sparse contexts toward 0.
+    The numerator wraps to int32 as nblic_tpu's int32 arithmetic does once
+    |sum| >= 2^26; below that it is exact either way.
     """
     denom = torch.clamp(cnts + shrink, min=1)
-    mag = _floordiv((torch.abs(sums) << BIAS_FRAC_BITS) * 2 + denom, 2 * denom)
+    num = (torch.abs(sums.to(torch.int64)) << BIAS_FRAC_BITS) * 2 + denom
+    num = ((num + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    mag = _floordiv(num, 2 * denom)
     bias = torch.where(cnts > 0, torch.sign(sums) * mag, torch.zeros_like(mag))
     return torch.clamp(bias, -(1 << 11), (1 << 11) - 1).to(torch.int32)
 

@@ -3,9 +3,9 @@ their plain version.
 
 Counterpart of ``nblic_tpu/ops/pallas_decode.py::decode_groups_pallas``
 (K2, profiles 1 and 2), of
-``docs/experiments/pallas_decode8.py::decode_groups_pallas8`` (K2', eight
-groups per kernel instance) and of
-``nblic_tpu/models/tiled.py::_group_decode_scan``.  A CPU tensor runs
+``docs/experiments/pallas_decode8.py::decode_groups_pallas8`` (K2', one
+table set per group) and of ``nblic_tpu/models/tiled.py::_group_decode_scan``.
+Both launch the same kernel, one group a CTA.  A CPU tensor runs
 :func:`group_decode_plain`; a CUDA tensor launches the kernel or raises.
 """
 
@@ -22,7 +22,7 @@ N_QD = 12
 N_SYM = 256
 N_CTX = N_QD * N_SYM
 N_WROWS = 16  # rows of a group's weight table: 12 weights, the flag, 3 spare
-GROUPS_PER_CTA8 = 8  # K2': interleave groups per kernel instance
+GROUP_MULTIPLE8 = 8  # K2': the group count is a multiple of this
 SLOT_BITS = 12  # k of K2's slot table, kSlotBits in csrc/group_decode.cu
 SLOT_PAD = 16  # slot-table entries past 2^k
 
@@ -101,13 +101,31 @@ def _aligned(t: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def _kernel_inputs(smem, g, n_active, bias, hist_n, acc, wcols, profile):
-    """Check a launch's shared memory; int32 tables and the wcols pointer."""
+def _launch(name, streams, n_active, bias, hist_n, acc, wcols, th, tw, near, g,
+            profile) -> torch.Tensor:
+    """Launch ``group_decode_kernel`` on CUDA tensors: one CTA a group, CTA
+    gi reading table set gi // (G / B).  Returns (G, g, th, tw) uint8."""
+    if streams.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {streams.device}")
+    if not 1 <= g <= 1024:
+        raise ValueError(f"the kernel needs g in 1..1024, got {g}")
+    lib = kernels.library()
+    smem = lib.nbt_group_decode_smem(tw, g)
     if smem > kernels.SMEM_LIMIT:
         raise ValueError(f"this tile width and g = {g} need {smem} B of shared memory")
-    tables = [_aligned(t) for t in (n_active, bias, hist_n, acc)]
+    n_active, bias, hist_n, acc = (_aligned(t) for t in (n_active, bias, hist_n, acc))
     wcols = _aligned(wcols) if profile == 2 else None
-    return tables, wcols, (wcols.data_ptr() if wcols is not None else None)
+    # rows of a multiple of 4 words: the kernel stages them by 16-byte copies
+    n_groups, w = streams.shape
+    words = _aligned(torch.nn.functional.pad(streams, (0, -w % 4)) if w % 4 else streams)
+    out = torch.empty((n_groups, th, tw, g), dtype=torch.uint8, device=streams.device)
+    rc = lib.nbt_group_decode(
+        words.data_ptr(), w, words.shape[1], n_active.data_ptr(), bias.data_ptr(),
+        hist_n.data_ptr(), acc.data_ptr(), wcols.data_ptr() if wcols is not None else None,
+        n_groups, n_groups // bias.shape[0], g, th, tw, near, profile, out.data_ptr(),
+        *kernels.stream_of(streams))
+    kernels.check(rc, "nbt_group_decode")
+    return out.permute(0, 3, 1, 2)
 
 
 def decode_groups(streams, n_active, bias, hist_n, acc, wcols, th: int, tw: int,
@@ -126,25 +144,10 @@ def decode_groups(streams, n_active, bias, hist_n, acc, wcols, th: int, tw: int,
     if streams.device.type == "cpu":
         return group_decode_plain(streams, n_active, bias, hist_n, acc, wcols,
                                   th, tw, near, g, profile)
-    if streams.device.type != "cuda":
-        raise ValueError(f"decode_groups runs on cpu or cuda, not {streams.device}")
-    if not 1 <= g <= 1024:
-        raise ValueError(f"the kernel needs g in 1..1024, got {g}")
-    lib = kernels.library()
-    (n_active, bias, hist_n, acc), wcols, wptr = _kernel_inputs(
-        lib.nbt_group_decode_smem(tw, g), g, n_active, bias, hist_n, acc, wcols,
-        profile)
-    # rows of a multiple of 4 words: the kernel stages them by 16-byte copies
-    n_groups, w = streams.shape
-    words = _aligned(torch.nn.functional.pad(streams, (0, -w % 4)) if w % 4 else streams)
-    out = torch.empty((n_groups, th, tw, g), dtype=torch.uint8, device=streams.device)
-    rc = lib.nbt_group_decode(
-        words.data_ptr(), w, words.shape[1], n_active.data_ptr(), bias.data_ptr(),
-        hist_n.data_ptr(), acc.data_ptr(), wptr, n_groups, n_groups // bias.shape[0],
-        g, th, tw, near, profile, out.data_ptr(), *kernels.stream_of(streams))
-    kernels.check(rc, "nbt_group_decode")
+    out = _launch("decode_groups", streams, n_active, bias, hist_n, acc, wcols, th, tw,
+                  near, g, profile)
     decode_groups.launches += 1
-    return out.permute(0, 3, 1, 2)
+    return out
 
 
 decode_groups.launches = 0
@@ -152,11 +155,12 @@ decode_groups.launches = 0
 
 def decode_groups8(streams, n_active, bias, hist_n, acc, wcols, th: int, tw: int,
                    near: int, g: int, profile: int = 1) -> torch.Tensor:
-    """Decode interleaved groups eight to a kernel instance (kernel K2').
+    """Decode interleaved groups with one table set per group (kernel K2').
 
     The contract of ``decode_groups_pallas8``: the tables are per group,
     bias (G, 3072) and hist_n/acc (G, 12, 256), G must be a multiple of 8
-    (callers pad with n_active = 0 rows) and 8 g <= 1024.  The output is
+    (callers pad with n_active = 0 rows) and 8 g <= 1024.  On the card it
+    launches K2's kernel with one table set a CTA; the output is
     bit-identical to :func:`decode_groups`.  Its plain version is
     :func:`group_decode_plain` with one table set per group.
     """
@@ -164,31 +168,17 @@ def decode_groups8(streams, n_active, bias, hist_n, acc, wcols, th: int, tw: int
     n_groups = streams.shape[0]
     if bias.shape[0] != n_groups:
         raise ValueError("decode_groups8 takes one table set per group")
-    if n_groups % GROUPS_PER_CTA8:
+    if n_groups % GROUP_MULTIPLE8:
         raise ValueError(f"{n_groups} groups: decode_groups8 needs a multiple of 8")
-    if GROUPS_PER_CTA8 * g > 1024:
+    if GROUP_MULTIPLE8 * g > 1024:
         raise ValueError(f"8 groups of {g} lanes exceed 1024 threads")
     if streams.device.type == "cpu":
         return group_decode_plain(streams, n_active, bias, hist_n, acc, wcols,
                                   th, tw, near, g, profile)
-    if streams.device.type != "cuda":
-        raise ValueError(f"decode_groups8 runs on cpu or cuda, not {streams.device}")
-    if g % 32:
-        raise ValueError(f"decode_groups8 needs g a multiple of 32, got {g}")
-    lib = kernels.library()
-    (n_active, bias, hist_n, acc), wcols, wptr = _kernel_inputs(
-        lib.nbt_group_decode8_smem(), g, n_active, bias, hist_n, acc, wcols, profile)
-    streams = streams.to(torch.int32).contiguous()
-    out = torch.empty((n_groups, th, tw, g), dtype=torch.uint8, device=streams.device)
-    dev_index, stream = kernels.stream_of(streams)
-    rc = lib.nbt_group_decode8(
-        streams.data_ptr(), streams.shape[1], n_active.data_ptr(), bias.data_ptr(),
-        hist_n.data_ptr(), acc.data_ptr(), wptr, n_groups, 1, g, th, tw, near,
-        profile, out.data_ptr(), dev_index, stream,
-    )
-    kernels.check(rc, "nbt_group_decode8")
+    out = _launch("decode_groups8", streams, n_active, bias, hist_n, acc, wcols, th, tw,
+                  near, g, profile)
     decode_groups8.launches += 1
-    return out.permute(0, 3, 1, 2)
+    return out
 
 
 decode_groups8.launches = 0

@@ -88,6 +88,15 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the runtime builds (or is already built) and loads."""
+    try:
+        load()
+        return True
+    except (RuntimeUnavailable, OSError):
+        return False
+
+
 def _u8p(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 

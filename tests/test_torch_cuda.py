@@ -212,16 +212,21 @@ def test_decode_kernel_slot_table_edge_cases(cuda_device, case, profile):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("profile", [1, 2])
-@pytest.mark.parametrize("g,t", [(128, 8), (64, 16), (32, 64)])
+@pytest.mark.parametrize("g,t", [(128, 8), (64, 16), (32, 64), (48, 16), (6, 8)])
 def test_decode8_kernel_matches_plain_and_k2(cuda_device, profile, g, t):
-    # 16 groups with per-group tables: two CTAs of 8 groups
+    # 16 groups with per-group tables, one CTA each; g = 48 and 6 leave the
+    # last warp's threads past g idle; the last group is a pad group
+    # (n_active = 0, zero words), as group_args pads
     rng = np.random.default_rng(g + profile)
     args = list(_arbitrary(rng, 16, 1, g, 2, profile, cuda_device))
     args[6] = args[7] = t
-    launches = decode.decode_groups8.launches
+    args[0][-1] = 0
+    args[1][-1] = 0
+    launches, k2_launches = decode.decode_groups8.launches, decode.decode_groups.launches
     k8 = decode.decode_groups8(*args)
     torch.cuda.synchronize()
     assert decode.decode_groups8.launches == launches + 1
+    assert decode.decode_groups.launches == k2_launches  # a K2' launch is not K2's
     assert torch.equal(k8, decode.group_decode_plain(*args))
     assert torch.equal(k8, decode.decode_groups(*args))
 

@@ -4,14 +4,16 @@ The plain decoder (``decode_groups`` and ``decode_groups8`` on CPU tensors)
 decodes containers that ``nblic_tpu.models.tiled.encode`` wrote,
 pixel-exact, and its tiles equal the Pallas decode kernels' in interpret
 mode, pad lanes included: K2 at profiles 1 and 2, and K2', the 8-group
-kernel of ``docs/experiments/pallas_decode8.py``.  The CUDA kernels are
-held against the plain decoder in test_torch_cuda.py.  Integer math:
-tolerance 0.
+kernel of ``docs/experiments/pallas_decode8.py`` (at g = 128; at g = 48
+the port is held to K2 and to nblic_tpu's decoder instead, see below).
+The CUDA kernels are held against the plain decoder in
+test_torch_cuda.py.  Integer math: tolerance 0.
 """
 
 import importlib.util
 import os
 
+import jax
 import jax.numpy as jnp
 import nblic_tpu.ops  # noqa: F401  (parent package of the 8-group kernel)
 import numpy as np
@@ -139,6 +141,33 @@ def test_decode_groups8_matches_pallas8_and_k2(profile):
     np.testing.assert_array_equal(tiles8.numpy(), np.asarray(ref))
     k2 = decode.decode_groups(*group_args(parsed, "cpu"))
     np.testing.assert_array_equal(tiles8[:n_groups].numpy(), k2.numpy())
+
+
+def test_decode_groups8_at_g48_matches_k2_and_nblic_tpu():
+    # nblic_tpu's mesh at (1, 2) writes groups of t_total / 2 = 48 lanes: 3
+    # images, 6 groups and 2 pad groups.  decode_groups_pallas8 is no
+    # reference at this width: it reads each group's words from a 2 g-word
+    # window at a 128-aligned base, which holds cursor + rank only where
+    # g >= 128, and at g = 48 it returns other pixels without raising.
+    from nblic_tpu.parallel import mesh as j_mesh
+
+    rng = np.random.default_rng(48)
+    imgs = [rng.integers(0, 256, size=(48, 128), dtype=np.uint8) for _ in range(3)]
+    conts = j_mesh.encode_batch_mesh(
+        imgs, j_mesh.make_mesh2(1, 2, devices=jax.devices("cpu")), 8, 8)
+    parsed = [tiled._Parsed(c) for c in conts]
+    assert {p.group_size for p in parsed} == {48}
+    args = group_args(parsed, "cpu", per_group_tables=True)
+    assert args[0].shape[0] == 8 and args[1][6:].tolist() == [0, 0]
+    launches = decode.decode_groups8.launches
+    tiles8 = decode.decode_groups8(*args)
+    assert decode.decode_groups8.launches == launches
+    k2 = decode.decode_groups(*group_args(parsed, "cpu"))
+    np.testing.assert_array_equal(tiles8[:6].numpy(), k2.numpy())
+    for b, (c, im) in enumerate(zip(conts, imgs)):
+        flat = tiles8[2 * b : 2 * b + 2].numpy().reshape(-1, 8, 8)
+        np.testing.assert_array_equal(j_tiled.from_tiles(flat, 48, 128, 8, 8), im)
+        np.testing.assert_array_equal(j_tiled.decode(c), im)
 
 
 def test_decode_groups_rejects_bad_inputs():

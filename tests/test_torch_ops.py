@@ -97,6 +97,22 @@ def test_bias_moments_and_quantize(seed):
         j_ctx.build_static_bias(jnp.asarray(adr), jnp.asarray(err), 3072))
 
 
+@pytest.mark.parametrize("shrink", [0, 16, 48])
+def test_quantize_bias_wraps_as_int32(shrink):
+    # |sum| in [2^26, 2^31): nblic_tpu's int32 numerator (|sum| << 4) * 2 +
+    # denom wraps there; the port's must wrap the same way (the tiled
+    # encoders use shrink 0, the profile-3 tunes 0, 16 and 48)
+    rng = np.random.default_rng(26 + shrink)
+    mag = np.concatenate([rng.integers(1 << 26, 1 << 31, 3000),
+                          [1 << 26, (1 << 27) - 1, 1 << 27, 1 << 30, (1 << 31) - 1]])
+    sums = (mag * rng.choice([-1, 1], mag.size)).astype(np.int32)
+    cnts = rng.integers(0, 1 << 20, sums.size).astype(np.int32)
+    cnts[:5] = (0, 1, 2, 3, 1 << 24)
+    port = context.quantize_bias(torch.from_numpy(sums).to(torch.int64),
+                                 torch.from_numpy(cnts).to(torch.int64), shrink)
+    _eq(port, j_ctx.quantize_bias(jnp.asarray(sums), jnp.asarray(cnts), shrink))
+
+
 @pytest.mark.parametrize("n", [100, 5000])
 def test_apply_static_bias_negative_biases(n):
     rng = np.random.default_rng(n)

@@ -203,8 +203,8 @@ P3_HOSTILE = {
     "spare 1": (NbtcHeader.SIZE + 30, 1, 2),
     "height 2^32 - 1": (12, 0xFFFFFFFF, 4),
     "n_tiles 4096": (24, 0x1000, 4),
-    "tile_h 65535": (20, 0xFFFF, 2),
     "tile_h 0": (20, 0, 2),
+    # nblic_tpu refuses it too (a TypeError of mismatched shapes in its walk)
     "15 AVP features": (22, (15 << 4) | 14, 2),
     "profile 3 -> 4": (10, 4, 1),
 }
@@ -216,6 +216,26 @@ def test_p3_hostile_fields_raise(p3, field):
     with pytest.raises(ValueError):
         tiled.decode(_patched(p3[1], *P3_HOSTILE[field]), device="cpu")
     assert time.perf_counter() - t0 < LIMIT_S
+
+
+@pytest.fixture(scope="module")
+def p3_tall_ref(p3):
+    """nblic_tpu's decode of the container with a 32-row strip."""
+    return j_tiled.decode(_patched(p3[1], 20, 32, 2))
+
+
+@pytest.mark.parametrize("tile_h", [17, 32, 0xFFFF])
+def test_p3_tall_strip_decodes_as_nblic_tpu(p3, p3_tall_ref, tile_h):
+    # one strip taller than the image rounded up to 16 rows: no encoder
+    # writes it, and nblic_tpu reads it, walks all tile_h rows and returns
+    # the image (at 65,535 rows its walk takes tens of minutes on a CPU, so
+    # its pixels are taken at 32); the port walks only the image's rows
+    img, stream = p3
+    np.testing.assert_array_equal(p3_tall_ref, img)
+    t0 = time.perf_counter()
+    back = tiled.decode(_patched(stream, 20, tile_h, 2), device="cpu")
+    assert time.perf_counter() - t0 < P3_LIMIT_S
+    np.testing.assert_array_equal(back, p3_tall_ref)
 
 
 def test_p3_corrupt_static_bias_raises(p3):
