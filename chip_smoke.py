@@ -5,9 +5,10 @@
 
 Phases, one line each; any failure exits non-zero:
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: compile the CUDA kernels from nblic_tpu_torch/csrc (nvcc, sm_90a),
-     with ptxas's registers and spills, then K2's slot-table k, stream ring
-     and shared memory a CTA, and K1's shared memory a block;
+  2. build: compile the CUDA kernels from nblic_tpu_torch/csrc (nvcc, sm_90a,
+     one process a source), with ptxas's registers and spills, then K2's
+     slot-table k, stream ring and shared memory a CTA, K7's shared memory
+     a CTA and K1's a block;
   3. K1 (rANS fold) against its plain version on the card, exact;
   4. K2 (group decode), profile 1, against its plain version, exact;
   5. reference: the card's containers and pixels equal the CPU plain path's
@@ -28,11 +29,19 @@ Phases, one line each; any failure exits non-zero:
  11. near-lossless (near 2 and 9): the card's containers equal the CPU's on
      small images at efforts 1 and 2, each side decoding the other's within
      near; the corpus at near 2 through encode_corpus / decode_batches at
-     effort 1, and its 6 portrait images at effort 2, max error <= 2, with
-     K1 and K2 launched during each run; one feedback scan at 64x64 tiles
-     timed; K2's near instances (<1, false>, <2, false>, the latter at 64x64
-     and 16x16 tiles) against the plain decoder, exact, <1, false> beside
-     <1, true>.  (kernel_probe.py near-stages times a near encode's stages.)
+     efforts 1 and 2 (all 24 images each), and the 3072x4096 frame at near
+     2, effort 1, through api.compress_tiled / decompress_tiled, max error
+     <= 2, with K7, K1 and K2 launched during each run; K7 (the feedback
+     scan) against its plain version, exact on all five planes with the
+     statistics and on y and qd without: at 64x64 tiles over the 18
+     landscape images (1,728 lanes) and over the first alone (96 lanes),
+     profile 1, over the 18 at profile 2 (flags 0/1/2), and at 16x16 tiles
+     over the 18 (27,648 lanes), profiles 1 and 2, each timed as the wrapper
+     and as its launch alone; the final scan's histograms equal the
+     corpus containers'; K2's near instances (<1, false>, <2, false>, the
+     latter at 64x64 and 16x16 tiles) against the plain decoder, exact,
+     <1, false> beside <1, true>.  (kernel_probe.py near-stages times a
+     near encode's stages.)
  12. profile 3 (effort 3; plain PyTorch, no kernel of its own): the card's
      containers equal the CPU's for a 48x64 and a 64x48 image as one batch
      at strip heights 16 and 64, and each alone at 16, under TUNE_V4,
@@ -102,7 +111,8 @@ Phases, one line each; any failure exits non-zero:
 Each kernel's time stands beside its bound (the whole card's roofline:
 bytes over the memory rate, integer operations over the int32 rate) and
 its floor (the least time at the launch's own parallelism: the issue of
-one SM's schedulers for K2 and K2', the serial chain for K1).  Then one
+one SM's schedulers for K2 and K2', of one scheduler's warps for K7, the
+serial chain for K1).  Then one
 JSON line of the kernels' measured numbers and bounds, the whole command's
 time, and as the last line {"ok": true, "device": {...}}.  Needs no
 network; imports no JAX.
@@ -142,6 +152,16 @@ K2_OPS_PER_PIXEL = {1: 364, 2: 396}
 # near > 0 (group_decode_kernel<profile, false>): the unfold adds near to the
 # fold bound, divides it by the step and multiplies the magnitude by it
 K2_NEAR_OPS = 3
+# K7 per pixel of a lane of near_scan_kernel<profile, false>, the scan's own
+# work only, from K2's tally: row-above taps ~10, activity bin ~43, blend
+# predictor ~147, context address ~27, bias ~9, fold ~14 (two divisions),
+# unfold ~22, error ~1, window slide ~15; profile 2 adds K2's ~32.  The
+# pixel ring, the loop and the stores are the implementation's (the stores'
+# bytes are the bound's other term).  The statistics (<profile, true>) add
+# the subtraction x - px0.
+K7_OPS_PER_PIXEL = {1: 288, 2: 320}
+K7_STATS_OPS = 1
+K7_LANES = 32  # lanes a CTA: one warp
 NEAR = 2  # the near phase's max error
 T_START = time.perf_counter()
 
@@ -192,6 +212,31 @@ def _decode_floor(args) -> float:
     per_scheduler = -(-g // 128)  # warps on one scheduler
     waves = -(-streams.shape[0] // SMS)
     return 1e3 * waves * per_scheduler * th * tw * _k2_ops(profile, near) / CLOCK_HZ
+
+
+def _scan_ops(profile: int, stats: bool) -> int:
+    return K7_OPS_PER_PIXEL[profile] + (K7_STATS_OPS if stats else 0)
+
+
+def _scan_bound(x, bias, wcols, profile: int, stats: bool) -> tuple[float, str]:
+    """Bound of a feedback scan: the int32 pixels, tables and (profile 2)
+    weights read once, two int32 planes (five with the statistics) written
+    once; the operations of every lane's pixels."""
+    inputs = [x, bias] + ([wcols] if profile == 2 else [])
+    n_bytes = sum(t.numel() * t.element_size() for t in inputs)
+    n_bytes += x.numel() * 4 * (5 if stats else 2)
+    return _bound(n_bytes, x.numel() * _scan_ops(profile, stats))
+
+
+def _scan_floor(x, profile: int, stats: bool) -> float:
+    """Least milliseconds of a feedback scan at the launch's own
+    parallelism: CTAs of one warp (32 lanes of one image) spread over the
+    SMs' 4 x 132 schedulers, each issuing its warps' th x tw x K7 ops, one
+    a cycle."""
+    b, t, th, tw = x.shape
+    warps = b * -(-t // K7_LANES)
+    per_scheduler = -(-warps // (4 * SMS))
+    return 1e3 * per_scheduler * th * tw * _scan_ops(profile, stats) / CLOCK_HZ
 
 
 def _k2_ops(profile: int, near: int) -> int:
@@ -252,18 +297,63 @@ def _max_err(a, b) -> int:
     return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
 
 
-def _near_phase(tiled, corpus, dev, card):
-    """Near-lossless encode (the feedback scan) and K2's near instances.
+def _k7_case(what, x, bias, wcols, profile, card, plain=None):
+    """K7 (``encode_scan``) against its plain version on the same card
+    tensors: with the statistics exact on all five planes, without them
+    (the final scan's instance) on the two; one plain run, unless ``plain``
+    gives its planes (a slice of a batch's).  Times by CUDA-event medians
+    of 5: the wrapper with the statistics, and its launch alone (no layout
+    copies), beside the bound and floor.  Returns (None on a mismatch, else
+    (max error, ms, plain ms or None, bound); the plain planes)."""
+    import torch
 
-    Returns None on a failure, else (K1 launches, K2 launches at effort 1,
-    at effort 2) over the corpus runs, each counted from 0 just before its
-    run."""
+    from nblic_tpu_torch.ops import near_scan
+
+    t, stats = x.shape[-1], True
+    args = (x, bias, wcols, x.shape[2], t, NEAR, profile, stats)
+    k = near_scan.encode_scan(*args)
+    k_ys = near_scan.encode_scan(*args[:-1], False)
+    pms = None
+    if plain is None:
+        plain, pms = _timed(lambda: near_scan.encode_scan_plain(*args))
+    same = all(torch.equal(u, v) for u, v in zip(k, plain))
+    same_ys = len(k_ys) == 2 and all(torch.equal(u, v) for u, v in zip(k_ys, plain))
+    err = max(int((u - v).abs().max()) for u, v in zip([*k, *k_ys], [*plain, *plain]))
+    ms = _cuda_ms(lambda: near_scan.encode_scan(*args), 5)
+    xs = x.permute(2, 3, 0, 1).contiguous()
+    outs = [torch.empty_like(xs) for _ in range(5)]
+    launch_ms = _cuda_ms(lambda: near_scan.launch(xs, bias, wcols, NEAR, profile, outs), 5)
+    bound, floor = _scan_bound(x, bias, wcols, profile, stats), _scan_floor(x, profile, stats)
+    beside = f"plain {pms:.3f} ms" if pms is not None else "plain: the batch's run"
+    print(f"[K7 near_scan p{profile}] {what}: {x.shape[0] * x.shape[1]} lanes, "
+          f"{x.shape[2] * t} steps, near {NEAR}, exact on 5 planes with the statistics "
+          f"{same}, on 2 without {same_ys} (max error {err}); kernel {ms:.3f} ms, its "
+          f"launch alone {launch_ms:.3f} ms | {beside} | bound {bound[0]:.4f} ms "
+          f"({bound[1]}) | floor {floor:.4f} ms ({card})", flush=True)
+    return (err, ms, pms, bound) if same and same_ys else None, plain
+
+
+def _near_phase(tiled, api, corpus, frame, dev, card):
+    """Near-lossless encode (the feedback scan, K7) and K2's near instances.
+
+    Returns None on a failure, else (K1, K2 at effort 1, K2 at effort 2, K7
+    launches, K7's numbers at 64x64 tiles over the 18 landscape images):
+    the launches over the corpus and frame runs, each counted from 0 just
+    before its run."""
     import torch
 
     from nblic_tpu_torch.convert import group_args
+    from nblic_tpu_torch.ops import lsq
     from nblic_tpu_torch.ops.decode import decode_groups, group_decode_plain
     from nblic_tpu_torch.ops.fold import encode_fold
+    from nblic_tpu_torch.ops.near_scan import encode_scan
     from nblic_tpu_torch.utils.synth import synth_image
+
+    def zero():
+        encode_fold.launches = decode_groups.launches = encode_scan.launches = 0
+
+    def counts():
+        return encode_fold.launches, decode_groups.launches, encode_scan.launches
 
     # ---- the card against the CPU on small inputs
     rng = np.random.default_rng(4)
@@ -283,60 +373,100 @@ def _near_phase(tiled, corpus, dev, card):
                 if not ok:
                     return None
 
-    # ---- the corpus at near 2 through the entry points: effort 1 on all 24
-    # images (two batches: nothing is transposed at near > 0), effort 2 on
-    # the 6 portrait images alone, which keeps the phase near three minutes
-    k1 = 0
+    # ---- the corpus at near 2 through the entry points, efforts 1 and 2,
+    # all 24 images each (two batches: nothing is transposed at near > 0)
+    k1 = k7 = 0
     k2 = {}
     near_conts = {}
-    for effort, imgs, what in ((1, corpus, "24 images"),
-                               (2, corpus[18:], "the 6 portrait images alone")):
-        n_px = sum(im.size for im in imgs)
-        encode_fold.launches = 0
-        decode_groups.launches = 0
+    n_px = sum(im.size for im in corpus)
+    for effort in (1, 2):
+        zero()
         t0 = time.perf_counter()
-        conts = tiled.encode_corpus(imgs, near=NEAR, effort=effort, device=dev)
+        conts = tiled.encode_corpus(corpus, near=NEAR, effort=effort, device=dev)
         enc_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        groups = [conts[:18], conts[18:]] if effort == 1 else [conts]  # by shape
-        decoded = sum(tiled.decode_batches(groups, device=dev), [])
+        decoded = sum(tiled.decode_batches([conts[:18], conts[18:]], device=dev), [])
         dec_s = time.perf_counter() - t0
-        k1 += encode_fold.launches
-        k2[effort] = decode_groups.launches
+        n1, n2, n7 = counts()
+        k1 += n1
+        k7 += n7
+        k2[effort] = n2
         near_conts[effort] = conts
-        err = max(_max_err(d, im) for d, im in zip(decoded, imgs))
+        err = max(_max_err(d, im) for d, im in zip(decoded, corpus))
         parsed = [tiled._Parsed(c) for c in conts]
         untransposed = not any(p.hdr.transposed for p in parsed)
         learned = ""
         if effort == 2:
             flags = np.concatenate([p.flags for p in parsed])
             learned = (f", tiles with a learned predictor (flag > 0) "
-                       f"{int((flags > 0).sum())}/{flags.size}, the same images at effort 1 "
-                       f"{8.0 * sum(map(len, near_conts[1][18:])) / n_px:.4f} bpp")
-        print(f"[near corpus e{effort}] {what} near {NEAR}: max error {err}, "
+                       f"{int((flags > 0).sum())}/{flags.size}")
+        print(f"[near corpus e{effort}] 24 images near {NEAR}: max error {err}, "
               f"{8.0 * sum(map(len, conts)) / n_px:.4f} bpp{learned}, encode_corpus "
               f"{n_px / enc_s / 1e6:.3f} MPix/s ({enc_s:.2f} s), decode_batches "
               f"{n_px / dec_s / 1e6:.2f} MPix/s, untransposed {untransposed}; launches "
-              f"K1 {encode_fold.launches} K2 {decode_groups.launches} ({card})", flush=True)
-        if err > NEAR or not untransposed \
-                or min(encode_fold.launches, decode_groups.launches) <= 0:
+              f"K7 {n7} K1 {n1} K2 {n2} ({card})", flush=True)
+        if err > NEAR or not untransposed or min(n1, n2, n7) <= 0:
             return None
 
-    # ---- one final scan at 64x64 tiles, over the 18 landscape images with
-    # the bias tables of their effort-1 containers: it gives those
-    # containers' histograms
+    # ---- the frame at near 2, effort 1, through the API
+    zero()
+    t0 = time.perf_counter()
+    frame_c = api.compress_tiled(frame, near=NEAR, effort=1, device=dev)
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frame_err = _max_err(api.decompress_tiled(frame_c, device=dev), frame)
+    dec_s = time.perf_counter() - t0
+    n1, n2, n7 = counts()
+    k1 += n1
+    k2[1] += n2
+    k7 += n7
+    print(f"[near frame] {frame.shape} near {NEAR} effort 1: max error {frame_err}, "
+          f"{8.0 * len(frame_c) / frame.size:.4f} bpp, encode {frame.size / enc_s / 1e6:.2f} "
+          f"MPix/s ({enc_s:.2f} s), decode {frame.size / dec_s / 1e6:.2f} MPix/s; launches "
+          f"K7 {n7} K1 {n1} K2 {n2} ({card})", flush=True)
+    if frame_err > NEAR or min(n1, n2, n7) <= 0:
+        return None
+
+    # ---- K7 against its plain version at the main path's 64x64 tiles over
+    # the 18 landscape images (one plain run, 4,096 steps) and over the
+    # first alone, with the bias tables of their effort-1 containers, and
+    # over the 18 at profile 2; then 16x16 tiles over the same images at
+    # profiles 1 and 2
     land = [tiled._Parsed(c) for c in near_conts[1][:18]]
-    x = tiled.to_tiles(torch.from_numpy(np.stack(corpus[:18])).to(dev), 64, 64)
-    bias = torch.from_numpy(np.stack([p.bias for p in land])).to(dev)
-    (_, _, hist), scan_ms = _timed(lambda: tiled._model_near(
-        x.to(torch.int32), bias, None, 64, 64, NEAR, 1))
+    imgs = torch.from_numpy(np.stack(corpus[:18])).to(dev)
+    bias = torch.from_numpy(np.stack([p.bias for p in land])).to(dev).to(torch.int32)
+    x = tiled.to_tiles(imgs, 64, 64).to(torch.int32)
+    k7_main, plain = _k7_case("64x64 tiles, the 18 landscape images", x, bias, None, 1, card)
+    if k7_main is None:
+        return None
+    if _k7_case("64x64 tiles, the first landscape image alone", x[:1], bias[:1], None, 1,
+                card, plain=[p[:1] for p in plain])[0] is None:
+        return None
+    del plain
+    _, _, hist = tiled._model_near(x, bias, None, 64, 64, NEAR, 1)
     same = np.array_equal(tiled._norm_tables(hist)[0].cpu().numpy(),
                           np.stack([p.hist_n for p in land]))
-    print(f"[near scan] one final scan at 64x64 tiles, {x.shape[0] * x.shape[1]} lanes: "
-          f"{scan_ms:.1f} ms, {scan_ms / 4096:.3f} ms a pixel step; its histograms "
-          f"equal the containers' {same} ({card})", flush=True)
+    print(f"[near scan] the final scan's histograms (K7, 64x64 tiles) equal the corpus "
+          f"containers' {same}", flush=True)
     if not same:
         return None
+    def cycled_wcols(tiles):
+        """Each tile's fitted weights, its flag cycling through 0/1/2."""
+        b, n, th, tw = tiles.shape
+        w_q, _ = lsq.fit_tile_weights(tiles.reshape(b * n, th, tw))
+        flags = torch.arange(b * n, dtype=torch.int32, device=dev).view(b, n) % 3
+        return tiled._lane_wcols(w_q.view(b, n, lsq.N_FEAT), flags)
+
+    if _k7_case("64x64 tiles, the 18 landscape images, flags 0/1/2", x, bias,
+                cycled_wcols(x), 2, card)[0] is None:
+        return None
+    x16 = tiled.to_tiles(imgs, 16, 16).to(torch.int32)
+    wcols = cycled_wcols(x16)
+    for profile in (1, 2):
+        if _k7_case("16x16 tiles, the 18 landscape images" + (", flags 0/1/2" if profile == 2
+                                                              else ""),
+                    x16, bias, wcols if profile == 2 else None, profile, card)[0] is None:
+            return None
 
     # ---- K2's near instances against the plain decoder; <1, true> beside
     lossless = group_args([tiled._Parsed(c) for c in tiled.encode_batch(corpus[:1],
@@ -363,7 +493,7 @@ def _near_phase(tiled, corpus, dev, card):
               f"({card})", flush=True)
         if not same:
             return None
-    return k1, k2[1], k2[2]
+    return k1, k2[1], k2[2], k7, k7_main
 
 
 class StageClock:
@@ -1277,7 +1407,8 @@ def main() -> int:
     print(f"[layout] K2: slot table k={SLOT_BITS}, stream ring "
           f"{lib.nbt_group_decode_ring_words(128)} words at g=128, shared memory "
           f"{lib.nbt_group_decode_smem(64, 128)} B a CTA at 64x64 tiles, "
-          f"{lib.nbt_group_decode_smem(16, 128)} B at 16x16 (K2' the same) | K1: "
+          f"{lib.nbt_group_decode_smem(16, 128)} B at 16x16 (K2' the same) | K7: "
+          f"{lib.nbt_near_scan_smem(64)} B a CTA of {K7_LANES} lanes at 64x64 | K1: "
           f"{lib.nbt_rans_fold_smem()} B a block", flush=True)
 
     # ---- K1 against the plain fold on the card
@@ -1443,11 +1574,13 @@ def main() -> int:
         return 1
 
     # ---- near-lossless: the feedback scan and K2's near instances
-    near = _near_phase(tiled, corpus, dev, card)
+    t0 = time.perf_counter()
+    near = _near_phase(tiled, api, corpus, frame, dev, card)
     if near is None:
         print("[near] failed: a mismatch, an error past near or a kernel never launched")
         return 1
-    near_k1, near_k2_e1, near_k2_e2 = near
+    near_k1, near_k2_e1, near_k2_e2, near_k7, k7_stats = near
+    print(f"[near] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- profile 3: plain PyTorch on the card, no kernel of its own; a
     # process pool of the CPU's encodes and decodes for comparison
@@ -1488,12 +1621,12 @@ def main() -> int:
     mesh_k1, mesh_k2 = _mesh_phase(tiled, corpus, *p3, dev, card)
     print(f"[mesh] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    def row(name_, source, replaces, launches, stats):
+    def row(name_, source, replaces, launches, stats, **extra):
         err_, ms_, pms_, (bound_ms, bound_by) = stats
         return {"name": name_, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches, "max_abs_err": err_,
                 "ms": ms_, "plain_ms": pms_, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}
+                "bound_by": bound_by, "library_ms": None, **extra}
 
     k2_src = "nblic_tpu_torch/csrc/group_decode.cu"
     print(f"[time] the whole command {time.perf_counter() - T_START:.1f} s ({card})",
@@ -1509,6 +1642,8 @@ def main() -> int:
             launches2["group_decode"] + near_k2_e2, dec[2]),
         row("group_decode8", k2_src, "docs/experiments/pallas_decode8.py:238",
             launches8, k8),
+        row("near_scan", "nblic_tpu_torch/csrc/near_scan.cu", "nblic_tpu/models/tiled.py:594",
+            near_k7, k7_stats, note="an XLA scan (jax.vmap of lax.scan), no pallas_call"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Probes of kernels K1 and K2, and of near-lossless encode, on one NVIDIA GPU.
+"""Probes of kernels K1, K2 and K7, and of near-lossless encode, on one NVIDIA GPU.
 
     python3 kernel_probe.py [--parent PATH] PROBE [PROBE ...]
 
@@ -26,10 +26,16 @@ PROBE is one of:
   near-stages  one near-lossless encode batch (18 synthetic 512x768 images,
              near 2, effort 1, 64x64 tiles), after a lossless warm-up,
              stage by stage with a device sync after each: the lossless
-             proxy, the refinement scan, the final scan, the coding tail
-             with K1, container assembly; the first image's container held
-             against encode_batch's of that image alone; then the final
-             scan over one image's tiles alone.  Builds no variant.
+             proxy, the refinement scan and the final scan (each through
+             K7, csrc/near_scan.cu, whose launches it counts), the coding
+             tail with K1, container assembly, with the scans' share; the
+             first image's container held against encode_batch's of that
+             image alone; then the final scan over one image's tiles alone.
+             Builds no variant.
+  build      the package's build (kernels.build: one nvcc a csrc/*.cu
+             source, all started together, then one link) against one
+             `nvcc -shared` of every source, each from nothing into
+             build/probe/, two rounds in opposite orders.  Builds no variant.
   p3-stages  one profile-3 encode of a synthetic 768x512 image at the
              default strip height (768: one strip), after a small warm-up,
              stage by stage as chip_smoke.py times the corpus: modeling, row
@@ -84,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import shutil
 import subprocess
 import sys
 import time
@@ -96,7 +103,7 @@ import torch
 from nblic_tpu_torch import kernels
 from nblic_tpu_torch.convert import group_args
 from nblic_tpu_torch.models import tiled
-from nblic_tpu_torch.ops import decode, fold, rans
+from nblic_tpu_torch.ops import decode, fold, near_scan, rans
 from nblic_tpu_torch.utils.synth import synth_image
 
 PROBE_DIR = kernels.BUILD_DIR.parent / "probe"
@@ -188,7 +195,8 @@ def variant(source: Path, name: str, repl) -> tuple[str, str]:
 def _build(name: str, text: str) -> Path:
     src, lib = PROBE_DIR / f"{name}.cu", PROBE_DIR / f"lib_{name}.so"
     src.write_text(text)
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)]
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(kernels.CSRC),
+           "-Xptxas", "-v", "-o", str(lib), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}:\n{res.stdout}{res.stderr}")
@@ -363,10 +371,12 @@ def near_stages(card: str) -> bool:
     _, _, bias, _ = tiled._model_lossless_impl(tiles)
     mark()
     x = tiles.to(torch.int32)
+    near_scan.encode_scan.launches = 0
     bias, _ = tiled._refine_near_bias(x, bias, None, None, t, t, near, 1)
     mark()
     y, qd, hist = tiled._model_near(x, bias, None, t, t, near, 1)
     mark()
+    k7 = near_scan.encode_scan.launches
     hist_n, acc = tiled._norm_tables(hist)
     totals, flats = tiled._pack_groups(*fold.encode_fold(
         *tiled._encode_tables(y, qd, hist_n, acc)))
@@ -388,13 +398,44 @@ def near_stages(card: str) -> bool:
     tiled._model_near(x[:1], bias[:1], None, t, t, near, 1)
     torch.cuda.synchronize()
     one_ms = 1e3 * (time.perf_counter() - start)
-    same = conts[0] == one[0]
+    same = conts[0] == one[0] and k7 == 2
     print(f"[near-stages] {b}x{(h, w)} near {near} effort 1, {t}x{t} tiles, {b * x.shape[1]} "
-          f"lanes: " + ", ".join(f"{n} {v:.1f} ms" for n, v in zip(names, ms))
-          + f"; scans {100 * (ms[1] + ms[2]) / sum(ms):.2f}%, {ms[2] / (t * t):.3f} ms a "
-          f"pixel step | the final scan over one image ({x.shape[1]} lanes) {one_ms:.1f} ms "
+          f"lanes: " + ", ".join(f"{n} {v:.3f} ms" for n, v in zip(names, ms))
+          + f"; scans {100 * (ms[1] + ms[2]) / sum(ms):.2f}% (K7 launches {k7}), "
+          f"{1e3 * ms[2] / (t * t):.3f} us a pixel step | the final scan over one image "
+          f"({x.shape[1]} lanes) {one_ms:.3f} ms "
           f"| image 0's container equals encode_batch's alone: {same} ({card})", flush=True)
     return same
+
+
+def build_ways(card: str) -> bool:
+    """Seconds of the package's build against one nvcc of every source."""
+    srcs = [str(src) for src in kernels._sources()]
+    times = {"kernels.build": [], "one nvcc": []}
+    package_dir = kernels.BUILD_DIR
+    for ways in (list(times), list(times)[::-1]):
+        rnd = len(times[ways[0]])
+        for way in ways:
+            start = time.perf_counter()
+            if way == "kernels.build":
+                kernels.BUILD_DIR = PROBE_DIR / f"build_{rnd}"
+                shutil.rmtree(kernels.BUILD_DIR, ignore_errors=True)
+                try:
+                    kernels.build()
+                finally:
+                    kernels.BUILD_DIR = package_dir
+            else:
+                cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(kernels.CSRC),
+                       "-o", str(PROBE_DIR / f"lib_one_nvcc_{rnd}.so"), *srcs]
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                if res.returncode != 0:
+                    print(f"[build] one nvcc failed:\n{res.stdout}{res.stderr}")
+                    return False
+            times[way].append(time.perf_counter() - start)
+    print(f"[build] {len(srcs)} sources, from nothing, two rounds in opposite orders: "
+          + "; ".join(f"{way} " + " / ".join(f"{t:.2f}" for t in ts) + " s"
+                      for way, ts in times.items()) + f" ({card})", flush=True)
+    return True
 
 
 def p3_stages(card: str) -> bool:
@@ -636,7 +677,7 @@ def interop(card: str) -> bool:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probes", nargs="+", choices=("cut-chain", "slot-bits", "k2-width", "fold",
-                                                     "near-stages", "p3-stages",
+                                                     "build", "near-stages", "p3-stages",
                                                      "p3-corpus", "p3-decode",
                                                      "p3-near", "interop"))
     ap.add_argument("--parent", type=Path,
@@ -687,6 +728,8 @@ def main(argv=None) -> int:
         ok &= k2_width(of("k2-width"), card)
     if of("fold"):
         ok &= fold_blocks(of("fold"), card)
+    if "build" in args.probes:
+        ok &= build_ways(card)
     if "near-stages" in args.probes:
         ok &= near_stages(card)
     if "p3-stages" in args.probes:

@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-The sources compile with ``nvcc`` for ``sm_90a`` (Hopper) into ONE shared
-library with a plain C interface, loaded with ``ctypes``.  The build runs at
-first use, into ``build/nblic_tpu_torch/`` beside the package; the library's
-name carries a hash of the sources and flags, so an edited source rebuilds.
+The sources (``*.cu``, which include the shared ``*.cuh`` headers) compile
+with ``nvcc`` for ``sm_90a`` (Hopper) into ONE shared library with a plain C
+interface, loaded with ``ctypes``.  The build runs at first use, into
+``build/nblic_tpu_torch/`` beside the package; the library's name carries a
+hash of the sources, the headers and the flags, so an edited file rebuilds.
 Every C entry launches on the caller's stream and returns
 ``cudaGetLastError()``; :func:`check` raises on a nonzero code.
 """
@@ -24,19 +25,20 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "nblic_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 
 
 def _sources() -> list[Path]:
+    """The translation units nvcc compiles, one process each."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libnblic_kernels_{digest.hexdigest()[:16]}.so"
@@ -49,8 +51,21 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise with the output of any that failed,
+    else return their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (rc={p.returncode}):\n{out}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless a library for these sources exists.
+    """Compile the kernels unless a library for these sources exists: one
+    nvcc a source, all started together, then one link.
 
     ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report
     (registers, shared memory and spills per kernel).
@@ -59,16 +74,19 @@ def build(verbose: bool = False) -> Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc={res.returncode}):\n{res.stdout}{res.stderr}"
-        )
+    tag = f"{path.name}.{os.getpid()}"
+    tmp = path.with_name(f"{tag}.tmp")
+    objs = [path.with_name(f"{tag}.{src.stem}.o") for src in _sources()]
+    nvcc, ptxas = _nvcc(), ("-Xptxas", "-v") if verbose else ()
+    try:
+        report = _run([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)]
+                       for src, obj in zip(_sources(), objs)])
+        _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if verbose:
-        print(res.stdout + res.stderr, end="")
+        print(report, end="")
     os.replace(tmp, path)
     return path
 
@@ -91,6 +109,12 @@ def library() -> ctypes.CDLL:
     lib.nbt_group_decode_smem.restype = i64
     lib.nbt_group_decode_ring_words.argtypes = [i32]
     lib.nbt_group_decode_ring_words.restype = i32
+    lib.nbt_near_scan.argtypes = [
+        ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, ptr,
+    ]
+    lib.nbt_near_scan.restype = i32
+    lib.nbt_near_scan_smem.argtypes = [i32]
+    lib.nbt_near_scan_smem.restype = i64
     lib.nbt_error_string.argtypes = [i32]
     lib.nbt_error_string.restype = ctypes.c_char_p
     return lib

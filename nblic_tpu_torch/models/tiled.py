@@ -17,9 +17,9 @@ a container still decodes exactly (within ``near``) in both packages.
   over its causal taps (``ops/lsq.py``) and keeps the best of the blend,
   the learned predictor and their mean; the weights ride the container.
 - Near-lossless (``near`` > 0) replaces the modeling pass by a
-  reconstruction-feedback scan (:func:`_tile_encode_scan`): every tile of
-  every same-shape image steps through its pixels in lockstep, predicting
-  from reconstructed pixels as the decoder will.  The lossless pass gives
+  reconstruction-feedback scan (:func:`_tile_encode_scan`, kernel K7 on
+  CUDA): every tile of every same-shape image steps through its pixels in
+  lockstep, predicting from reconstructed pixels as the decoder will.  The lossless pass gives
   the first bias table, one statistics scan refines it (and, at profile 2,
   refits the learned predictors), and a final scan yields the symbols for
   the same coding tail.  Each image still gets the container the JAX
@@ -45,15 +45,14 @@ import torch
 from ..constants import Q_N_CONTEXT
 from ..convert import group_args, resolve_device
 from ..ops import histogram as hist_ops
-from ..ops import lsq, rans
+from ..ops import lsq, near_scan, rans
 from ..ops.context import (
-    apply_static_bias, bias_moments, quantize_bias, residual_fold, residual_unfold,
+    apply_static_bias, bias_moments, quantize_bias, residual_fold,
 )
 from ..ops.decode import N_WROWS, decode_groups
 from ..ops.fold import encode_fold
 from ..ops.neighbors import sample
 from ..ops.predict import context_planes, model_stage1, simple_predict
-from ..ops.window import pixel_model, row_start_window, slide_window
 from ..utils.container import NbtcHeader, check_size, inflate
 from . import strips
 
@@ -225,47 +224,12 @@ def _lane_wcols(w_q: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
 def _tile_encode_scan(x, bias, wcols, th: int, tw: int, near: int, profile: int,
                       stats: bool = False):
     """Near-lossless modeling scan with reconstruction feedback, in lockstep
-    over every tile of every image.
-
-    x: (B, T, th, tw) int32 pixels; bias: (B, 3072) int32, one table per
-    image; wcols: (B, 16, T) int32 per-tile weights and flag (profile 2;
-    ignored at profile 1).  Every lane walks its tile in raster order and
-    slides its window over *reconstructed* pixels, so the decoder replays
-    the same chain: the loop of ``ops/decode.py::group_decode_plain``, with
-    a fold where the decoder reads a symbol.  ``i`` and ``j`` are Python
-    ints and nothing in the loop reads a value back from the device.
-
-    Returns (y, qd), (B, T, th, tw) int32 planes; ``stats=True`` adds (adr,
-    x - px0, x_rec): each pixel's context address (within its image's
-    table), the error of the *original* pixel against the unbiased
-    prediction, which the bias refit averages, and the reconstruction.
-    The chain's own error, x_rec - px0, feeds the next pixel's activity.
-    """
-    b, t = x.shape[:2]
-    dev = x.device
-    xs = x.permute(2, 3, 0, 1).contiguous()  # (th, tw, B, T): a step reads one slab
-    off = _image_offsets(b, dev).view(b, 1)
-    bias_f = bias.reshape(-1)
-    wcols = wcols if profile == 2 else None
-    prev1 = torch.zeros((b, t, tw), dtype=torch.int32, device=dev)
-    prev2 = torch.zeros_like(prev1)
-    outs = []
-    for i in range(th):
-        regs = row_start_window(i, prev1, prev2, tw)
-        err = torch.zeros((b, t), dtype=torch.int32, device=dev)
-        row = []
-        for j in range(tw):
-            px0, qd, adr = pixel_model(regs, err, wcols)
-            px, sign = apply_static_bias(bias_f, adr + off, px0)
-            x_orig = xs[i, j]
-            y = residual_fold(x_orig, px, sign, near)
-            x_rec = residual_unfold(y, px, sign, near)
-            err = x_rec - px0
-            row.append(x_rec)
-            outs.append((y, qd, adr, x_orig - px0, x_rec) if stats else (y, qd))
-            regs = slide_window(regs, x_rec, i, j, prev1, prev2, tw)
-        prev1, prev2 = torch.stack(row, dim=-1), prev1
-    return tuple(torch.stack(plane, dim=-1).view(b, t, th, tw) for plane in zip(*outs))
+    over every tile of every image: kernel K7 on the card, its plain version
+    on the CPU (``ops/near_scan.py``; see
+    :func:`~nblic_tpu_torch.ops.near_scan.encode_scan_plain` for the
+    contract).  Returns (y, qd) planes, and with ``stats`` also (adr,
+    x - px0, x_rec)."""
+    return near_scan.encode_scan(x, bias, wcols, th, tw, near, profile, stats)
 
 
 def _refine_near_bias(x, bias, w_q, flags, th: int, tw: int, near: int, profile: int,

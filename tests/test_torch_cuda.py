@@ -18,8 +18,46 @@ import torch
 
 from nblic_tpu_torch.convert import group_args, tables_from_numpy
 from nblic_tpu_torch.models import strips, tiled
-from nblic_tpu_torch.ops import decode, fold, rans
+from nblic_tpu_torch.ops import decode, fold, lsq, near_scan, rans
 from nblic_tpu_torch.utils.synth import synth_image
+
+
+def scan_inputs(seed, b, n_tiles, t, profile):
+    """(x, bias, wcols) of ``b`` images of ``n_tiles`` t x t tiles each.
+
+    Tiles cycle through a noisy ramp, uniform noise and a saturated plateau
+    (0 or 255 with a few outliers), so the fold takes both of its branches
+    and the clamps bind.  Each image's bias table is its own, with a twentieth
+    of its entries at -32768 or 32767.  At profile 2 the weights are each
+    tile's least-squares fit, every fourth tile random int16 weights, and
+    the flags cycle 0, 1, 2.
+    """
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:t, 0:t]
+    x = np.empty((b, n_tiles, t, t), dtype=np.int32)
+    for k in range(b * n_tiles):
+        kind = k % 3
+        if kind == 0:
+            tile = (yy * rng.integers(1, 9) + xx * rng.integers(-4, 5)
+                    + rng.integers(0, 256) + rng.normal(0, 4, (t, t)))
+        elif kind == 1:
+            tile = rng.integers(0, 256, (t, t))
+        else:
+            tile = np.where(rng.random((t, t)) < 0.1, rng.integers(0, 256, (t, t)),
+                            255 * (k % 2))
+        x.flat[k * t * t:(k + 1) * t * t] = np.clip(tile, 0, 255).astype(np.int32).ravel()
+    bias = rng.integers(-2048, 2048, size=(b, 3072)).astype(np.int32)
+    ends = rng.random((b, 3072)) < 0.05
+    bias[ends] = rng.choice([-32768, 32767], size=int(ends.sum()))
+    wcols = None
+    if profile == 2:
+        w_q, _ = lsq.fit_tile_weights(torch.from_numpy(x).view(b * n_tiles, t, t))
+        w_q = w_q.view(b, n_tiles, lsq.N_FEAT)
+        wild = torch.from_numpy(rng.integers(-32768, 32768, size=w_q.shape).astype(np.int32))
+        w_q = torch.where((torch.arange(n_tiles) % 4 == 3)[None, :, None], wild, w_q)
+        flags = torch.arange(b * n_tiles, dtype=torch.int32).view(b, n_tiles) % 3
+        wcols = tiled._lane_wcols(w_q, flags)
+    return torch.from_numpy(x), torch.from_numpy(bias), wcols
 
 
 @pytest.fixture
@@ -391,3 +429,69 @@ def test_interop_engines_on_card_match_cpu(cuda_device, near, effort):
     assert on_card == api.compress(img, near=near, effort=effort, backend="native")
     np.testing.assert_array_equal(api.decompress(on_card, device=cuda_device),
                                   api.decompress(on_card, backend="native"))
+
+
+# K7 against its plain version: the CPU cases of test_torch_near_scan.py
+# (three images, (tile side, tiles an image, profile, near)), then lane
+# counts that are not a multiple of the CTA's 32 lanes (1, 31, 33, a
+# mesh-like 48) and the corpus's 1,728 at 8x8 tiles
+K7_CASES = {
+    "t8-p1-near1": (3, 15, 8, 1, 1),
+    "t8-p1-near255": (3, 15, 8, 1, 255),
+    "t8-p2-near2": (3, 15, 8, 2, 2),
+    "t8-p2-near9": (3, 15, 8, 2, 9),
+    "t16-p1-near2": (3, 6, 16, 1, 2),
+    "t16-p1-near9": (3, 6, 16, 1, 9),
+    "t16-p2-near1": (3, 6, 16, 2, 1),
+    "t16-p2-near255": (3, 6, 16, 2, 255),
+    "t64-p1-near2": (3, 2, 64, 1, 2),
+    "lanes1": (1, 1, 16, 1, 2),
+    "lanes31-p2": (1, 31, 8, 2, 9),
+    "lanes33": (3, 11, 16, 1, 255),
+    "lanes48-p2": (2, 24, 16, 2, 1),
+    "lanes1728": (18, 96, 8, 1, 2),
+    "lanes1728-p2": (18, 96, 8, 2, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_near_scan_kernel_matches_plain(cuda_device, case):
+    b, n_tiles, t, profile, near = K7_CASES[case]
+    x, bias, wcols = (v.to(cuda_device) if v is not None else None
+                      for v in scan_inputs(sum(K7_CASES[case]), b, n_tiles, t, profile))
+    launches = near_scan.encode_scan.launches
+    k = near_scan.encode_scan(x, bias, wcols, t, t, near, profile, stats=True)
+    k_ys = near_scan.encode_scan(x, bias, wcols, t, t, near, profile)
+    torch.cuda.synchronize()
+    assert near_scan.encode_scan.launches == launches + 2
+    ref = near_scan.encode_scan_plain(x, bias, wcols, t, t, near, profile, stats=True)
+    for name, u, v in zip(("y", "qd", "adr", "err", "rec"), k, ref):
+        assert u.shape == x.shape and torch.equal(u, v), name
+    assert len(k_ys) == 2 and torch.equal(k_ys[0], ref[0]) and torch.equal(k_ys[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_near_scan_kernel_refuses_what_it_cannot_hold(cuda_device):
+    x = torch.zeros((1, 1, 1, 4000), dtype=torch.int32, device=cuda_device)
+    bias = torch.zeros((1, 3072), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):  # two rows of 4000 columns x 32 lanes
+        near_scan.encode_scan(x, bias, None, 1, 4000, 2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("effort", [1, 2])
+@pytest.mark.parametrize("near", [2, 9])
+def test_near_encode_corpus_on_card_matches_cpu(cuda_device, near, effort):
+    rng = np.random.default_rng(30 + near + effort)
+    imgs = [synth_image(rng, 48, 80), synth_image(rng, 80, 48)]
+    launches = near_scan.encode_scan.launches
+    card = tiled.encode_corpus(imgs, near=near, tile_h=16, tile_w=16, effort=effort,
+                               device=cuda_device)
+    # two shapes, two batches, each a refinement scan and a final scan
+    assert near_scan.encode_scan.launches == launches + 4
+    assert card == tiled.encode_corpus(imgs, near=near, tile_h=16, tile_w=16, effort=effort,
+                                       device="cpu")
+    for im, c in zip(imgs, card):
+        err = tiled.decode(c, device=cuda_device).astype(int) - im.astype(int)
+        assert np.abs(err).max() <= near
