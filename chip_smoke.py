@@ -61,20 +61,27 @@ Phases, one line each; any failure exits non-zero:
      the same containers on the CPU meanwhile, which must agree.
      (kernel_probe.py p3-stages times one 768x512 encode at the default
      strip height.)
- 13. profile 3, near-lossless (the feedback walk, plain PyTorch): the card's
-     near-2 container of the committed fixture's image equals nblic_tpu's
-     bytes (tests/data_torch_p3/near2.nbtc); the 48x64 / 64x48 pair as one
-     batch at strip height 8, near 1 and near 3, equal to the CPU's and
-     decoded on the card within near; the whole corpus at near 2 through
-     tiled.encode_corpus(effort=3) at strip height 4 (4608 lanes, 2048
-     pixel steps), with its bpp, MPix/s, peak device memory, the walk's time
-     a pixel step, the row coder's and the fold's times and the projected
-     time of one 768x512 image at strip height 768, two of its containers
-     held against the CPU's, then decoded on the card through
-     tiled.decode_batch within 2.  The CPU's encodes of phases 12 and 13
-     and its decodes run in a pool of two processes started before phase
-     12, beside the card's work.  (kernel_probe.py p3-near times the stages
-     against the lane count.)
+ 13. profile 3, near-lossless (the feedback walk on K5, csrc/p3_near_walk.cu,
+     one launch a row): the card's near-2 container of the committed
+     fixture's image equals nblic_tpu's bytes (tests/data_torch_p3/near2.nbtc);
+     the 48x64 / 64x48 pair as one batch at strip height 8, near 1 and
+     near 3, equal to the CPU's and decoded on the card within near; the
+     four edge images (utils/synth.py: checkerboard, saturated ramp,
+     constant, 1-pixel stripes) at th 8, near 1, equal to the CPU's; K5
+     against the plain walk on the card, exact on all five planes and each
+     timed in ms a pixel step: the pair at near 1 and 3 and the edge images
+     under TUNE_V4's and TUNE_V4S's near contracts (mix_e 1 and 0); the
+     whole corpus at near 2 through tiled.encode_corpus(effort=3) at strip
+     height 4 (4608 lanes, 2048 pixel steps), with its bpp, MPix/s, peak
+     device memory, the stages' times and K5's launches, two of its
+     containers held against the CPU's, then K5 against the plain walk on
+     that walk's own input, K5 timed beside its bound and floor; one corpus
+     image's walk at th 768 (one lane, 393,216 steps) timed; the corpus
+     decoded on the card through tiled.decode_batch within 2.  The CPU's
+     encodes of phases 12 and 13 and its decodes run in a pool of two
+     processes started before phase 12, beside the card's work.
+     (kernel_probe.py p3-walk: K5's SASS and step times by lane count;
+     p3-near: the stages against the lane count.)
  14. interop (Q0.2, NBLIC0.3): the port's copy of the native runtime built
      with g++; the 24-image corpus through api.compress / decompress(
      backend="native") at effort 0 (1 and 4 threads), 1, 2, 3 and effort 1
@@ -111,8 +118,8 @@ Phases, one line each; any failure exits non-zero:
 Each kernel's time stands beside its bound (the whole card's roofline:
 bytes over the memory rate, integer operations over the int32 rate) and
 its floor (the least time at the launch's own parallelism: the issue of
-one SM's schedulers for K2 and K2', of one scheduler's warps for K7, the
-serial chain for K1).  Then one
+one SM's schedulers for K2 and K2', of one scheduler's warps for K7 and
+K5, the serial chain for K1).  Then one
 JSON line of the kernels' measured numbers and bounds, the whole command's
 time, and as the last line {"ok": true, "device": {...}}.  Needs no
 network; imports no JAX.
@@ -162,6 +169,39 @@ K2_NEAR_OPS = 3
 K7_OPS_PER_PIXEL = {1: 288, 2: 320}
 K7_STATS_OPS = 1
 K7_LANES = 32  # lanes a CTA: one warp
+# K5 per pixel of a lane of p3_near_row_kernel<10, mix>: arithmetic only,
+# as K7's tally (loads, stores, address and loop arithmetic, the swap of
+# pivot rows are the implementation's), a 64-bit add, shift or compare as
+# two 32-bit instructions and a 64-bit product as three.  Its 495 runtime
+# 64-bit divisions are priced by the path nvcc's code takes for their
+# operands (the SASS listing of kernel_probe.py p3-walk): 385 of tdiv_by
+# (330 in the elimination, 45 in the back substitution, 10 in the
+# prediction) divide magnitudes, unsigned, by a 70-instruction routine;
+# the moments' 110 divide signed by an 84-instruction routine; either
+# takes an inline 19-instruction path where both operands lie in [0,
+# 2^32).  Which path each takes depends on the data, so the walk's own
+# split is counted (_division_paths).  The rest, K5_OTHER_OPS: the window
+# to the unfold, as K7's tally, 288; the dual-bin quantizers (a 32-bit
+# division) 70; the features and the t tap 13; the system from E + F 482;
+# the 375 elimination and back-substitution updates (the wrapping
+# product 3, the magnitude 5, the sign test 1, the division's path test
+# 3, the sign fix 5, the subtraction 2) 7,125; the pivot search and the
+# 18 divisors 675; the prediction's 10 terms (28 each, the path test
+# included), the clip and the rounding 295; the moments' update (the
+# sample weight 23; 111 channels of B and E each decayed and summed, 20
+# an update as the listing's F chain shows; 110 moments' numerators and
+# path tests, 9 each) 5,455; the row's F chain, amortized a pixel, 2,220;
+# the bias moments' index and error 4.  Under mix_e, K5_MIX_OPS: the mix
+# F chain 40, the mix E + F 4, the blend 34 and its division at the
+# inline path (its operands lie below 2^32 wherever the decayed energies
+# stay below 2^28; counted at the least, 19), the mix update 88, the
+# select 1.
+K5_UDIV64 = 70   # the unsigned 64-bit division routine, instructions
+K5_SDIV64 = 84   # the signed one
+K5_DIV32 = 19    # the inline path of either, both operands in [0, 2^32)
+K5_OTHER_OPS = 16627
+K5_MIX_OPS = 186
+K5_LANES = 32  # lanes a CTA: one warp
 NEAR = 2  # the near phase's max error
 T_START = time.perf_counter()
 
@@ -586,11 +626,13 @@ def _p3_cpu_jobs(corpus):
     :func:`_cpu_encode` jobs: (lossless, near-lossless).  Lossless: the pair
     under each contract at th P3_PAIR_TH and 64, then the picked corpus
     images at th 64; near: the pair at near 1 and 3 (th P3_PAIR_TH), the
-    picks at near 2 (th P3_NEAR_TH)."""
+    picks at near 2 (th P3_NEAR_TH), the edge images at near 1 (th 8)."""
+    from nblic_tpu_torch.utils.synth import edge_images
+
     pair, picks = _p3_pair(), [corpus[i] for i in PICKS]
     lossless = [(pair, th, 0, t) for t in P3_TUNES for th in (P3_PAIR_TH, 64)]
     near = [(pair, P3_PAIR_TH, 1, "TUNE_V4"), (pair, P3_PAIR_TH, 3, "TUNE_V4"),
-            (picks, P3_NEAR_TH, NEAR, "TUNE_V4")]
+            (picks, P3_NEAR_TH, NEAR, "TUNE_V4"), (edge_images(), 8, 1, "TUNE_V4")]
     return lossless + [(picks, 64, 0, "TUNE_V4")], near
 
 
@@ -761,41 +803,149 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
     return (conts, pair_conts["TUNE_V4", P3_PAIR_TH]) if same else None
 
 
-def _p3_near_phase(tiled, corpus, dev, card, cpu_job) -> bool:
-    """Profile-3 near-lossless encode: the committed fixture's bytes, the
-    pair at near 1 and 3 against the CPU (``cpu_job``, a future of the
-    near-lossless :func:`_p3_cpu_jobs`) and decoded on the card, the corpus
-    at near 2 through tiled.encode_corpus at th = P3_NEAR_TH stage by stage, then its
-    decode on the card through tiled.decode_batch."""
+def _division_paths(x, n_imgs: int, near: int, tune) -> dict:
+    """The plain walk of ``x`` with its 64-bit divisions sorted by the path
+    K5's code takes for the same operands (the SASS's test: both in [0,
+    2^32) takes the inline path): {"u64", "u32", "s64", "s32"}, divisions a
+    pixel by tdiv_by's unsigned routine or its inline path, by the moments'
+    signed routine or its inline path.  avp.tdiv_by serves the
+    elimination, the back substitution and the prediction, pavp.tdiv the
+    moments, one for one with K5's divisions."""
+    import torch
+
+    from nblic_tpu_torch.models import strips
+    from nblic_tpu_torch.ops import avp, pavp
+
+    tdiv_by, tdiv = avp.tdiv_by, pavp.tdiv
+    n = [0, 0]
+    fast = torch.zeros(2, dtype=torch.int64, device=x.device)
+
+    def counted_tdiv_by(a, b_abs, b_neg):  # K5: |a| / |b|, unsigned
+        n[0] += a.numel()
+        fast[0] += (((torch.abs(a) | b_abs) >> 32) == 0).sum()
+        return tdiv_by(a, b_abs, b_neg)
+
+    def counted_tdiv(a, b):  # K5: a / b, signed
+        n[1] += a.numel()
+        fast[1] += (((a | b) >> 32) == 0).sum()
+        return tdiv_by(a, torch.abs(b), b < 0)
+
+    avp.tdiv_by, pavp.tdiv = counted_tdiv_by, counted_tdiv
+    try:
+        strips._near_walk_plain(x, n_imgs, near, strips.AVP_N, tune)
+    finally:
+        avp.tdiv_by, pavp.tdiv = tdiv_by, tdiv
+    (u32, s32), px = fast.tolist(), x.numel()
+    return {"u64": (n[0] - u32) / px, "u32": u32 / px, "s64": (n[1] - s32) / px,
+            "s32": s32 / px}
+
+
+def _k5_ops(paths: dict, mix: bool) -> float:
+    """K5's operations a pixel: K5_OTHER_OPS (with K5_MIX_OPS under mix_e)
+    and the walk's divisions, each priced by its path (``paths`` of
+    :func:`_division_paths`)."""
+    return (K5_OTHER_OPS + (K5_MIX_OPS if mix else 0) + K5_UDIV64 * paths["u64"]
+            + K5_SDIV64 * paths["s64"] + K5_DIV32 * (paths["u32"] + paths["s32"]))
+
+
+def _walk_bound(x, ops: float) -> tuple[float, str]:
+    """Bound of a feedback walk over (L, th, W) strips: the uint8 pixels
+    read once, five int64 planes written once; ``ops`` a pixel of every
+    lane.  (B and F are the walk's own state, neither input nor output.)"""
+    return _bound(x.numel() * (1 + 5 * 8), x.numel() * ops)
+
+
+def _walk_floor(x, ops: float) -> float:
+    """Least milliseconds of a feedback walk at the launch's own
+    parallelism: CTAs of one warp (32 lanes) spread over the SMs' 4 x 132
+    schedulers, each issuing its warps' th x W x ``ops``, one a cycle."""
+    lanes, th, w = x.shape
+    warps = -(-lanes // K5_LANES)
+    per_scheduler = -(-warps // (4 * SMS))
+    return 1e3 * per_scheduler * th * w * ops / CLOCK_HZ
+
+
+def _k5_case(what, x, n_imgs, near, tune, card):
+    """K5 (``strips._near_walk`` on a CUDA tensor) against the plain walk
+    on the same card tensor, exact on all five planes; each timed by CUDA
+    events in one run (the plain walk takes seconds).  The launches made
+    here are comparisons, not the main path's.  Returns (max error, or None
+    on a mismatch; K5 ms; plain ms)."""
+    import torch
+
+    from nblic_tpu_torch.models import strips
+
+    k, ms = _timed(lambda: strips._near_walk(x, n_imgs, near, strips.AVP_N, tune))
+    plain, pms = _timed(lambda: strips._near_walk_plain(x, n_imgs, near, strips.AVP_N, tune))
+    same = all(torch.equal(u, v) for u, v in zip(k, plain))
+    err = max(int((u - v).abs().max()) for u, v in zip(k, plain))
+    lanes, th, w = x.shape
+    steps = th * w
+    print(f"[K5 p3_near_walk] {what}: {lanes} lanes, {steps} steps, near {near}, mix_e "
+          f"{tune.mix_e}: exact on 5 planes {same} (max error {err}); K5 {ms:.3f} ms "
+          f"({1e3 * ms / steps:.3f} us a step) | plain {pms:.1f} ms ({pms / steps:.3f} ms "
+          f"a step) ({card})", flush=True)
+    return (err if same else None), ms, pms
+
+
+def _entry_walks(fn):
+    """``fn()`` with K5's count set to 0 just before and read just after:
+    (its result, the launches it made)."""
+    from nblic_tpu_torch.ops import near_walk
+
+    near_walk.launch_row.launches = 0
+    out = fn()
+    return out, near_walk.launch_row.launches
+
+
+def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
+    """Profile-3 near-lossless encode, its walk on K5: the committed
+    fixture's bytes, the pair at near 1 and 3 against the CPU (``cpu_job``,
+    a future of the near-lossless :func:`_p3_cpu_jobs`) and decoded on the
+    card, the edge images against the CPU, the corpus at near 2 through
+    tiled.encode_corpus at th = P3_NEAR_TH stage by stage, then its decode
+    on the card through tiled.decode_batch; K5 against the plain walk on
+    the pair (near 1 and 3, both near contracts), the edge images and the
+    corpus's walk, and one corpus image's walk at th 768, timed.  Returns
+    None on a failure, else (K5's launches in the entry-point runs, K5's
+    numbers on the corpus for the kernels line)."""
     import torch
 
     from nblic_tpu_torch.models import strips
     from nblic_tpu_torch.ops import rans_bin
     from nblic_tpu_torch.ops.decode import decode_groups
     from nblic_tpu_torch.ops.fold import encode_fold
-    from nblic_tpu_torch.utils.synth import synth_image
+    from nblic_tpu_torch.utils.synth import edge_images, synth_image
+
+    contracts = {name: strips._near_tune(getattr(strips, name))
+                 for name in ("TUNE_V4", "TUNE_V4S")}
+    launches, errs = 0, []
 
     # ---- (a) nblic_tpu's bytes without JAX: the committed near-2 fixture
     # (tests/test_torch_p3_fixtures.py: fixture_image(), th 16)
     img = synth_image(np.random.default_rng(71), 40, 24)
     want = _p3_fixtures()["near2"][0]
     t0 = time.perf_counter()
-    got = strips.encode(img, th=16, near=NEAR, device=dev)
+    got, n = _entry_walks(lambda: strips.encode(img, th=16, near=NEAR, device=dev))
+    launches += n
     ok = got == want
     print(f"[p3 near fixture] strips.encode of the fixture image (40x24, th 16, near "
           f"{NEAR}) on the card equal to nblic_tpu's committed bytes {ok} "
-          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+          f"({time.perf_counter() - t0:.2f} s, K5 launches {n})", flush=True)
     if not ok:
-        return False
+        return None
 
-    # ---- (b) the pair as one batch at near 1 and 3, against the CPU's
+    # ---- (b) the pair as one batch at near 1 and 3, against the CPU's, and
+    # K5 against the plain walk on its strips under both near contracts
     pair = _p3_pair()
     t0 = time.perf_counter()
     cpu = cpu_job.result()
     wait_s = time.perf_counter() - t0
     for k, near in enumerate((1, 3)):
         t0 = time.perf_counter()
-        on_card = strips.encode_batch(pair, th=P3_PAIR_TH, near=near, device=dev)
+        on_card, n = _entry_walks(
+            lambda: strips.encode_batch(pair, th=P3_PAIR_TH, near=near, device=dev))
+        launches += n
         enc_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         back = strips.decode_batch(on_card, device=dev)
@@ -805,19 +955,49 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job) -> bool:
         print(f"[p3 near reference] near {near} th {P3_PAIR_TH}: the 48x64 and 64x48 "
               f"images as a batch, card == cpu containers {on_card == cpu[k]} (the cpu's encodes "
               f"waited for {wait_s:.1f} s), max error decoded on the card {err} (encode "
-              f"{enc_s:.2f} s, decode {dec_s:.2f} s)", flush=True)
+              f"{enc_s:.2f} s, K5 launches {n}; decode {dec_s:.2f} s)", flush=True)
         if not ok:
-            return False
+            return None
+        st, *_ = strips._prepare(pair, P3_PAIR_TH)
+        x = torch.from_numpy(st).reshape(-1, *st.shape[2:]).to(dev)
+        for name, tune in contracts.items():
+            errs.append(_k5_case(f"the pair at th {P3_PAIR_TH}, {name}'s near contract",
+                                 x, len(pair), near, tune, card)[0])
+
+    # ---- the edge images (a checkerboard, a saturated ramp, a constant
+    # image, 1-pixel stripes) at th 8, near 1: the container against the
+    # CPU's, K5 against the plain walk under both contracts
+    edges = edge_images()
+    on_card, n = _entry_walks(lambda: strips.encode_batch(edges, th=8, near=1, device=dev))
+    launches += n
+    print(f"[p3 near edges] {len(edges)} edge images {edges[0].shape} th 8 near 1: card == "
+          f"cpu containers {on_card == cpu[3]} (K5 launches {n})", flush=True)
+    if on_card != cpu[3]:
+        return None
+    st, *_ = strips._prepare(edges, 8)
+    x = torch.from_numpy(st).reshape(-1, *st.shape[2:]).to(dev)
+    for name, tune in contracts.items():
+        errs.append(_k5_case(f"the edge images at th 8, {name}'s near contract", x,
+                             len(edges), 1, tune, card)[0])
+    if any(e is None for e in errs):
+        return None
 
     # ---- (c) the corpus at near 2 through the entry point, strip height
-    # P3_NEAR_TH (the depth cut: th x 512 walk steps against 393,216 at 768)
+    # P3_NEAR_TH (the depth cut: th x 512 walk steps against 393,216 at
+    # 768); the walk's input is kept for the comparison
     th = P3_NEAR_TH
     n_px = sum(im.size for im in corpus)
     h, w = max(corpus[0].shape), min(corpus[0].shape)  # portrait-normalized
     lanes = len(corpus) * -(-h // th)
     n_steps = th * w
-    saved = strips.TH_DEFAULT
-    strips.TH_DEFAULT = th
+    saved, walk = strips.TH_DEFAULT, strips._near_walk
+    seen = []
+
+    def kept_walk(*args):
+        seen.append(args)
+        return walk(*args)
+
+    strips.TH_DEFAULT, strips._near_walk = th, kept_walk
     encode_fold.launches = decode_groups.launches = 0
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -825,19 +1005,17 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job) -> bool:
                          (rans_bin, "fold", "fold"),
                          (strips, "_finalize", "packing and containers")]) as clock:
             t0 = time.perf_counter()
-            conts = tiled.encode_corpus(corpus, near=NEAR, effort=3, device=dev)
+            conts, n = _entry_walks(
+                lambda: tiled.encode_corpus(corpus, near=NEAR, effort=3, device=dev))
             enc_s = time.perf_counter() - t0
     finally:
-        strips.TH_DEFAULT = saved
+        strips.TH_DEFAULT, strips._near_walk = saved, walk
+    launches += n
     peak = torch.cuda.max_memory_allocated() / 2**30
     st = clock.stages()
     total = sum(st.values())
     tune = strips._near_tune(strips.TUNE)
     fold_steps = n_steps * (tune.n_unary + strips.L_R) // strips.N_PHASE
-    walk_step = st["walk"] / n_steps
-    # one 768x512 image at th 768: 768 / th times the rows of each stage
-    proj_min = (768 * w * walk_step + 768 * st["row coder"] / th
-                + 768 * st["fold"] / th) / 6e4
     hdrs = [tiled.NbtcHeader.from_bytes(c) for c in conts]
     form = all((hd.profile, hd.near, hd.tile_h) == (3, NEAR, th) for hd in hdrs)
     print(f"[p3 near corpus] {len(corpus)} images ({n_px / 1e6:.2f} MPix) near {NEAR} th "
@@ -846,17 +1024,56 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job) -> bool:
           f"{n_px / enc_s / 1e6:.4f} MPix/s ({enc_s:.2f} s), peak device memory {peak:.2f} "
           f"GiB; stages ms " + ", ".join(f"{k} {v:.1f} ({100 * v / total:.1f}%)"
                                          for k, v in st.items())
-          + f"; walk {walk_step:.3f} ms a pixel step, row coder {st['row coder'] / th:.1f} ms "
-          f"a row ({strips._eff_seg(tune.n_seg, w)} segments), fold "
-          f"{1e3 * st['fold'] / fold_steps:.1f} us a step ({fold_steps} steps); one 768x512 "
-          f"image at th 768 ({768 * w} steps) would take {proj_min:.1f} min at these "
-          f"times; profile 3, near {NEAR}, th {th} in every header {form}; launches K1 "
-          f"{encode_fold.launches} K2 {decode_groups.launches} ({card})", flush=True)
+          + f"; walk {1e3 * st['walk'] / n_steps:.2f} us a pixel step, row coder "
+          f"{st['row coder'] / th:.1f} ms a row ({strips._eff_seg(tune.n_seg, w)} segments), "
+          f"fold {1e3 * st['fold'] / fold_steps:.1f} us a step ({fold_steps} steps); profile "
+          f"3, near {NEAR}, th {th} in every header {form}; launches K5 {n} (one a row of "
+          f"{len(seen)} walk), K1 {encode_fold.launches} K2 {decode_groups.launches} ({card})",
+          flush=True)
     same = cpu[2] == [conts[i] for i in PICKS]
     print(f"[p3 near corpus] images {list(PICKS)} encoded on the cpu: containers equal "
           f"{same}", flush=True)
-    if not (form and same):
-        return False
+    if not (form and same and n > 0 and len(seen) == 1):
+        return None
+
+    # K5 against the plain walk on the corpus walk's own input (the plain
+    # walk runs once here), then K5 alone, timed
+    x, n_imgs, near, n_feat, tune_w = seen.pop()
+    err, _, pms = _k5_case(f"the corpus's walk at th {th}", x, n_imgs, near, tune_w, card)
+    if err is None or n_feat != strips.AVP_N:
+        return None
+    errs.append(err)
+    ms = _cuda_ms(lambda: strips._near_walk(x, n_imgs, near, n_feat, tune_w), 3)
+    t0 = time.perf_counter()
+    paths = _division_paths(x, n_imgs, near, tune_w)
+    ops = _k5_ops(paths, bool(tune_w.mix_e))
+    bound, floor = _walk_bound(x, ops), _walk_floor(x, ops)
+    print(f"[K5 p3_near_walk] the corpus's walk ({x.shape[0]} lanes x {th}x{w}): K5 {ms:.3f} ms "
+          f"(median of 3; {1e3 * ms / n_steps:.3f} us a step) | plain {pms:.1f} ms "
+          f"({pms / ms:.0f}x) | bound {bound[0]:.4f} ms ({bound[1]}) | floor {floor:.3f} ms "
+          f"({ops:.1f} ops a pixel; divisions a pixel by path, counted on a plain walk of "
+          f"the same input in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in paths.items()) + f") ({card})", flush=True)
+    del x
+
+    # one corpus image's walk at th 768 (one lane), timed, not compared (a
+    # plain walk there takes about an hour)
+    st768, *_ = strips._prepare([corpus[0]], strips.TH_DEFAULT)
+    x768 = torch.from_numpy(st768).reshape(-1, *st768.shape[2:]).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strips._near_walk(x768, 1, NEAR, strips.AVP_N, tune)
+    torch.cuda.synchronize()
+    s768 = time.perf_counter() - t0
+    rest = (768 * st["row coder"] / th + 768 * st["fold"] / th) / 1e3
+    print(f"[K5 p3_near_walk] one corpus image at th {x768.shape[1]} ({x768.shape[0]} lane, "
+          f"{x768.shape[1] * x768.shape[2]} steps): the walk took {s768:.2f} s "
+          f"({1e6 * s768 / (x768.shape[1] * x768.shape[2]):.2f} us a step; floor "
+          f"{_walk_floor(x768, ops) / 1e3:.2f} s at the corpus's ops a pixel); with the row "
+          f"coder and the fold at the corpus's times a row ({rest:.1f} s projected) the "
+          f"image's encode would take "
+          f"{s768 + rest:.1f} s ({card})", flush=True)
+    del x768
 
     torch.cuda.reset_peak_memory_stats()
     with StageClock([(strips, "_decode_walk", "walk")]) as clock:
@@ -870,7 +1087,9 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job) -> bool:
           f"{err}, tiled.decode_batch {n_px / dec_s / 1e6:.4f} MPix/s ({dec_s:.2f} s), walk "
           f"{walk_ms / 1e3:.2f} s = {walk_ms / n_steps:.3f} ms a pixel step, peak device "
           f"memory {peak:.2f} GiB ({card})", flush=True)
-    return 0 < err <= NEAR
+    if not 0 < err <= NEAR:
+        return None
+    return launches, (max(errs), ms, pms, bound)
 
 
 # the native runtime's corpus runs: (label, near, effort, n_threads)
@@ -1597,10 +1816,13 @@ def main() -> int:
             return 1
         print(f"[p3] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        if not _p3_near_phase(tiled, corpus, dev, card, near_job):
+        p3_near = _p3_near_phase(tiled, corpus, dev, card, near_job)
+        if p3_near is None:
             print("[p3 near] failed: a container differed from nblic_tpu's or the CPU's, "
-                  "a header, or an error past near")
+                  "a header, an error past near, K5 differed from the plain walk or never "
+                  "launched")
             return 1
+        k5_launches, k5_stats = p3_near
         print(f"[p3 near] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
@@ -1644,6 +1866,9 @@ def main() -> int:
             launches8, k8),
         row("near_scan", "nblic_tpu_torch/csrc/near_scan.cu", "nblic_tpu/models/tiled.py:594",
             near_k7, k7_stats, note="an XLA scan (jax.vmap of lax.scan), no pallas_call"),
+        row("p3_near_walk", "nblic_tpu_torch/csrc/p3_near_walk.cu",
+            "nblic_tpu/models/strips.py:796", k5_launches, k5_stats,
+            note="an XLA scan (lax.scan), no pallas_call"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

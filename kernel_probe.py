@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Probes of kernels K1, K2 and K7, and of near-lossless encode, on one NVIDIA GPU.
+"""Probes of kernels K1, K2, K5 and K7, and of near-lossless encode, on one NVIDIA GPU.
 
     python3 kernel_probe.py [--parent PATH] PROBE [PROBE ...]
 
@@ -55,7 +55,8 @@ PROBE is one of:
              on 1, 64 and 1024 images of 64x16 (4, 256 and 4096 strip lanes,
              256 steps each), the step time against the lane count.  Builds
              no variant.
-  p3-near    the profile-3 near-lossless encode (near 2, plain PyTorch) on
+  p3-near    the profile-3 near-lossless encode (near 2; the walk on K5,
+             the rest plain PyTorch) on
              the card, stage by stage (the feedback walk, the row coder, the
              fold, packing and containers; the stage functions called
              directly on strips of synthetic images, each lane its own
@@ -66,6 +67,14 @@ PROBE is one of:
              then a walk row of 32 columns at 1152 lanes under
              torch.profiler: its device time against the wall time and its
              device launches a step.  Builds no variant.
+  p3-walk    kernel K5 (csrc/p3_near_walk.cu), the profile-3 near walk:
+             the package's build (with ptxas's report when it builds); by
+             cuobjdump -sass, the routines each K5 instance calls (nvcc's
+             64-bit divisions) with their instructions and call sites (the
+             whole listing goes to build/probe/p3_walk_sass.txt); then K5's
+             time a pixel step at 1, 32, 1152 and 4608 lanes of 512-column
+             strips (2 rows each; the row loop's torch work included).
+             Builds no variant.
   interop    the interop engines (plain PyTorch, one lane) on the card: the
              Q0.2 encode of a synthetic 768x512 image and of a flat one (every
              pixel one context: the context chain's longest walk) with the
@@ -90,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import shutil
 import subprocess
 import sys
@@ -603,6 +613,58 @@ def p3_near(card: str) -> bool:
     return ok
 
 
+def _routines(body: str) -> dict:
+    """{call target: (instructions from it to its RET, call sites)} of one
+    function's SASS: nvcc's out-of-line routines, such as 64-bit
+    division."""
+    ins = [(int(m.group(1), 16), m.group(2).strip()) for m in
+           re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    at = {a: k for k, (a, _) in enumerate(ins)}
+    sites: dict = {}
+    for _, t in ins:
+        if t.startswith("CALL.REL"):
+            target = int(t.split()[-1], 16)
+            sites[target] = sites.get(target, 0) + 1
+    out = {}
+    for target, n_sites in sorted(sites.items()):
+        k = at[target]
+        while not ins[k][1].startswith("RET"):
+            k += 1
+        out[hex(target)] = (k - at[target] + 1, n_sites)
+    return out
+
+
+def p3_walk(card: str) -> bool:
+    from nblic_tpu_torch.models import strips
+    from nblic_tpu_torch.ops import near_walk
+
+    kernels.build(verbose=True)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(kernels.library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    (PROBE_DIR / "p3_walk_sass.txt").write_text(text)
+    for part in text.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "p3_near_row" in name:
+            print(f"[p3-walk sass] {name}: called routines (their instructions to RET, call "
+                  f"sites): {_routines(part)}; listing in {PROBE_DIR / 'p3_walk_sass.txt'}",
+                  flush=True)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    tune = strips._near_tune(strips.TUNE)
+    for lanes in (1, 32, 1152, 4608):
+        th, w = 2, 512
+        x = torch.from_numpy(synth_image(rng, lanes * th, w).reshape(lanes, th, w)).to(dev)
+        strips._near_walk(x[:, :1, :32].contiguous(), 1, 2, strips.AVP_N, tune)  # warm-up
+        launches = near_walk.launch_row.launches
+        ms = _ms(lambda: strips._near_walk(x, 1, 2, strips.AVP_N, tune), reps=3)
+        print(f"[p3-walk] K5 at {lanes} lanes x {th}x{w} (near 2, TUNE_V4's contract): "
+              f"{ms:.1f} ms, {1e3 * ms / (th * w):.2f} us a pixel step, "
+              f"{near_walk.launch_row.launches - launches} launches ({card})", flush=True)
+    return True
+
+
 def interop(card: str) -> bool:
     from chip_smoke import StageClock
     from nblic_tpu_torch import runtime
@@ -679,7 +741,7 @@ def main(argv=None) -> int:
     ap.add_argument("probes", nargs="+", choices=("cut-chain", "slot-bits", "k2-width", "fold",
                                                      "build", "near-stages", "p3-stages",
                                                      "p3-corpus", "p3-decode",
-                                                     "p3-near", "interop"))
+                                                     "p3-near", "p3-walk", "interop"))
     ap.add_argument("--parent", type=Path,
                     help="cut-chain: also cut this group_decode.cu of the parent design")
     ap.add_argument("--before", type=Path, action="append", default=[],
@@ -740,6 +802,8 @@ def main(argv=None) -> int:
         ok &= p3_decode(card)
     if "p3-near" in args.probes:
         ok &= p3_near(card)
+    if "p3-walk" in args.probes:
+        ok &= p3_walk(card)
     if "interop" in args.probes:
         ok &= interop(card)
     return 0 if ok else 1

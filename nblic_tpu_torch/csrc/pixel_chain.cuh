@@ -1,5 +1,6 @@
 // The per-pixel chain that kernels K2 (group_decode.cu) and K7
-// (near_scan.cu) share: the 11-register causal window, the blend and
+// (near_scan.cu) share, and K5 (p3_near_walk.cu, through avp_chain.cuh)
+// reuses: the 11-register causal window, the blend and
 // least-squares predictions, the 12-bin activity, the context address, the
 // near-aware fold (encode) and unfold (decode), and the cp.async helpers.
 // Each function is the device counterpart of one function of the plain
@@ -148,14 +149,22 @@ __device__ __forceinline__ int predict(const Window& v, const int (&w)[kWeights]
   return px0;
 }
 
-// The 12-bin activity of the window and the carried error.
-__device__ __forceinline__ int activity_bin(const Window& v, int err) {
-  const int delta = iabs(v.a - v.e) + iabs(v.b - v.c) + iabs(v.b - v.d) +
-                    iabs(v.a - v.c) + iabs(v.b - v.f) + iabs(v.d - v.gg) +
-                    2 * iabs(err);
+// The raw texture activity of the window and the carried error.
+__device__ __forceinline__ int activity(const Window& v, int err) {
+  return iabs(v.a - v.e) + iabs(v.b - v.c) + iabs(v.b - v.d) + iabs(v.a - v.c) +
+         iabs(v.b - v.f) + iabs(v.d - v.gg) + 2 * iabs(err);
+}
+
+// The 12-bin quantizer of an activity.
+__device__ __forceinline__ int quantize_activity(int delta) {
   const int t = min(delta, 151);
   return (t >= 1) + (t >= 2) + (t >= 4) + (t >= 6) + (t >= 9) + (t >= 15) +
          (t >= 25) + (t >= 39) + (t >= 63) + (t >= 101) + (t >= 151);
+}
+
+// The 12-bin activity of the window and the carried error.
+__device__ __forceinline__ int activity_bin(const Window& v, int err) {
+  return quantize_activity(activity(v, err));
 }
 
 // The context address: activity bin and the 8-bit texture pattern.

@@ -115,6 +115,11 @@ def library() -> ctypes.CDLL:
     lib.nbt_near_scan.restype = i32
     lib.nbt_near_scan_smem.argtypes = [i32]
     lib.nbt_near_scan_smem.restype = i64
+    lib.nbt_p3_near_row.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i64, ptr, ptr,
+        ptr, i32, ptr,
+    ]
+    lib.nbt_p3_near_row.restype = i32
     lib.nbt_error_string.argtypes = [i32]
     lib.nbt_error_string.restype = ctypes.c_char_p
     return lib

@@ -25,9 +25,11 @@ Near-lossless encode (``near`` > 0) cannot model whole planes: each pixel
 is predicted from the reconstruction of the pixels before it.
 :func:`_near_walk` steps through the pixels of every lane in lockstep,
 folding each residual with step 2 near + 1 and feeding the reconstruction
-back; :func:`_near_code` then runs the coding model a row at a time
-(:func:`_row_code`: bias and mapper row-frozen, counters a segment, with
-k_step = min(3 + 2 near, 16)), and the fold is the lossless one.
+back (on the card kernel K5, ``csrc/p3_near_walk.cu``, a launch a row; on
+the CPU its plain version); :func:`_near_code` then runs the coding model
+a row at a time (:func:`_row_code`: bias and mapper row-frozen, counters
+a segment, with k_step = min(3 + 2 near, 16)), and the fold is the
+lossless one.
 
 Decode (:func:`_decode_walk`) is one lockstep step a pixel over every strip
 lane of every image of a call: the AVP prediction from the reconstructed
@@ -53,7 +55,7 @@ import torch
 
 from ..constants import MAX_VAL, Q_N_CONTEXT
 from ..convert import resolve_device
-from ..ops import coder3, pavp, rans, rans_bin, zcodec3
+from ..ops import coder3, near_walk, pavp, rans, rans_bin, zcodec3
 from ..ops.avp import BETA, FB1, FIT_BASE
 from ..ops.context import BIAS_FRAC_BITS, quantize_bias, residual_fold, residual_unfold
 from ..ops.neighbors import Neighbors, sample
@@ -626,7 +628,25 @@ def _mix_update(x, px_hard, px_s, e_mix, b_mix, j: int, ab_m):
 
 def _near_walk(x, n_imgs: int, near: int, n_feat: int, tune: Tune):
     """Reconstruction-feedback walk of (L, th, W) strips, L = n_imgs strips
-    of each image, image-major: one lockstep step a pixel over every lane.
+    of each image, image-major; ``near`` in 1..255.  Returns the int64 (L,
+    th, W) planes (y, qu, qv, qw, key) on x's device.
+
+    A CPU tensor runs the plain walk (:func:`_near_walk_plain`); a CUDA
+    tensor runs kernel K5 a row at a time (:func:`_near_walk_card`), which
+    raises where it cannot run; any other device raises.
+    """
+    if not 1 <= near <= MAX_VAL:  # the header keeps near in one byte
+        raise ValueError(f"the feedback walk serves near in 1..{MAX_VAL}, got {near}")
+    if x.device.type == "cpu":
+        return _near_walk_plain(x, n_imgs, near, n_feat, tune)
+    if x.device.type == "cuda":
+        return _near_walk_card(x, n_imgs, near, n_feat, tune)
+    raise ValueError(f"the feedback walk runs on cpu or cuda, not {x.device}")
+
+
+def _near_walk_plain(x, n_imgs: int, near: int, n_feat: int, tune: Tune):
+    """The feedback walk in plain PyTorch, one lockstep step a pixel over
+    every lane: the plain version of K5.
 
     Each pixel is predicted from the reconstructed window and chains as the
     decoder will (:func:`_pixel_predict`), corrected by the row-frozen bias,
@@ -684,6 +704,43 @@ def _near_walk(x, n_imgs: int, near: int, n_feat: int, tune: Tune):
                                     tune.bias_cap)
         prev1, prev2 = xr_r, prev1
     return planes.unbind(0)
+
+
+def _near_walk_card(x, n_imgs: int, near: int, n_feat: int, tune: Tune):
+    """The feedback walk on the card: per row, the image's bias table from
+    its moments, kernel K5 over every lane (``ops/near_walk.py``), then the
+    moments take the row.  The state (B, F, the rows) stays on the card in
+    the kernel's layout, lanes fastest; the planes are laid out for
+    :func:`_near_code` once, at the end.  Returns what
+    :func:`_near_walk_plain` returns."""
+    dev = x.device
+    lanes, th, w = x.shape
+    m = pavp.get_m(n_feat)
+    i64 = dict(dtype=torch.int64, device=dev)
+    xs = x.permute(1, 2, 0).to(torch.uint8).contiguous()  # (th, W, L)
+    prev1 = torch.zeros((w, lanes), dtype=torch.uint8, device=dev)
+    prev2 = torch.zeros_like(prev1)
+    b_row = torch.zeros((w, m, lanes), **i64)
+    f_row = torch.empty_like(b_row)
+    b_mix = f_mix = None
+    if tune.mix_e:
+        b_mix = torch.zeros((w, 2, lanes), **i64)
+        f_mix = torch.empty_like(b_mix)
+    bsums = torch.zeros(n_imgs * Q_N_CONTEXT, **i64)
+    bcnts = torch.zeros_like(bsums)
+    btab = torch.empty(n_imgs * Q_N_CONTEXT, dtype=torch.int16, device=dev)
+    planes = torch.empty((near_walk.N_PLANES, th, w, lanes), dtype=torch.int32, device=dev)
+    idx = torch.empty((w, lanes), **i64)
+    dx = torch.empty_like(idx)
+    for i in range(th):
+        # quantize_bias clamps to [-2048, 2047]: the int16 copy is exact
+        btab.copy_(quantize_bias(bsums, bcnts, tune.bias_shrink))
+        near_walk.launch_row(xs[i], btab, prev1, prev2, b_row, f_row, b_mix, f_mix, planes,
+                             idx, dx, i, near, n_feat)
+        bsums, bcnts = _bias_update(bsums, bcnts, idx, dx, tune.bias_cap)
+        prev1, prev2 = prev2, prev1  # row i was written into prev2
+    return planes.permute(0, 3, 1, 2).to(torch.int64,
+                                         memory_format=torch.contiguous_format).unbind(0)
 
 
 def _near_code(y, qu, qv, qw, key, n_imgs: int, k_step: int, tune: Tune):

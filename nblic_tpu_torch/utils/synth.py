@@ -1,7 +1,8 @@
 """Synthetic gray-8 images for runs on machines that hold no image corpus.
 
 ``chip_smoke.py`` and ``kernel_probe.py`` build their Kodak-shaped inputs
-from :func:`synth_image` and a numpy seed.
+from :func:`synth_image` and a numpy seed; :func:`edge_images` are the
+extremes the profile-3 walks are held to, on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -26,3 +27,16 @@ def synth_image(rng, h: int, w: int) -> np.ndarray:
     img += np.where(band, tex, 0.0)
     img += rng.normal(0.0, 2.5, size=(h, w)).astype(np.float32)
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def edge_images() -> list[np.ndarray]:
+    """Images that drive the profile-3 chains to their ends: a 0/255
+    checkerboard, a ramp saturated at both ends, a constant image and
+    1-pixel-wide vertical stripes of 0 and 255, each 24x16 (portrait, so
+    they share one batch shape)."""
+    yy, xx = np.mgrid[0:24, 0:16]
+    checker = np.where((yy + xx) % 2, 255, 0)
+    ramp = np.clip(24 * xx + 16 * yy - 160, 0, 255)
+    flat = np.full(yy.shape, 255)
+    stripes = np.where(xx % 2, 255, 0)
+    return [a.astype(np.uint8) for a in (checker, ramp, flat, stripes)]

@@ -18,8 +18,8 @@ import torch
 
 from nblic_tpu_torch.convert import group_args, tables_from_numpy
 from nblic_tpu_torch.models import strips, tiled
-from nblic_tpu_torch.ops import decode, fold, lsq, near_scan, rans
-from nblic_tpu_torch.utils.synth import synth_image
+from nblic_tpu_torch.ops import decode, fold, lsq, near_scan, near_walk, rans
+from nblic_tpu_torch.utils.synth import edge_images, synth_image
 
 
 def scan_inputs(seed, b, n_tiles, t, profile):
@@ -495,3 +495,89 @@ def test_near_encode_corpus_on_card_matches_cpu(cuda_device, near, effort):
     for im, c in zip(imgs, card):
         err = tiled.decode(c, device=cuda_device).astype(int) - im.astype(int)
         assert np.abs(err).max() <= near
+
+
+# K5 against the plain walk on the card: (lanes, images, strip height,
+# width, near, contract); lanes that are not a multiple of the CTA's 32,
+# images mixed in a warp, a strip of one row and one taller than 16 rows
+K5_CASES = {
+    "lanes1-mix-near1": (1, 1, 5, 16, 1, "TUNE_V4"),
+    "lanes1-nomix-near9": (1, 1, 4, 12, 9, "TUNE_V4S"),
+    "lanes31-nomix-near2": (31, 1, 3, 12, 2, "TUNE_V4S"),
+    "lanes31-mix-near255": (31, 31, 2, 10, 255, "TUNE_V4"),
+    "lanes33-mix-near9": (33, 3, 3, 12, 9, "TUNE_V4"),
+    "lanes33-nomix-near255": (33, 11, 2, 12, 255, "TUNE_V4S"),
+    "lanes40-mix-near2-th1": (40, 8, 1, 24, 2, "TUNE_V4"),
+    "lanes2-nomix-near1-th20": (2, 1, 20, 6, 1, "TUNE_V4S"),
+}
+
+
+def _k5_against_plain(x, n_imgs, near, tune):
+    """K5 through the dispatcher and the plain walk on the same card
+    tensor; asserts one launch a row and equal planes."""
+    before = near_walk.launch_row.launches
+    k = strips._near_walk(x, n_imgs, near, strips.AVP_N, tune)
+    torch.cuda.synchronize()
+    assert near_walk.launch_row.launches == before + x.shape[1]
+    ref = strips._near_walk_plain(x, n_imgs, near, strips.AVP_N, tune)
+    for name, u, v in zip(("y", "qu", "qv", "qw", "key"), k, ref):
+        assert u.shape == x.shape and u.dtype == torch.int64 and torch.equal(u, v), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_near_walk_kernel_matches_plain(cuda_device, case):
+    lanes, n_imgs, th, w, near, tune = K5_CASES[case]
+    rng = np.random.default_rng(lanes + th + near)
+    x = torch.from_numpy(synth_image(rng, lanes * th, w).reshape(lanes, th, w))
+    _k5_against_plain(x.to(cuda_device), n_imgs, near,
+                      strips._near_tune(getattr(strips, tune)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tune", ["TUNE_V4", "TUNE_V4S"])
+@pytest.mark.parametrize("near", [1, 2, 9, 255])
+def test_near_walk_kernel_on_edge_images(cuda_device, tune, near):
+    # a checkerboard, a saturated ramp, a constant image and 1-pixel stripes
+    # as one batch at strip height 8, as strips.encode_batch lays them out
+    st, *_ = strips._prepare(edge_images(), 8)
+    x = torch.from_numpy(st).reshape(-1, *st.shape[2:]).to(cuda_device)
+    _k5_against_plain(x, st.shape[0], near, strips._near_tune(getattr(strips, tune)))
+
+
+@pytest.mark.cuda
+def test_near_walk_edge_images_on_card_match_cpu(cuda_device):
+    imgs = edge_images()
+    card = strips.encode_batch(imgs, th=8, near=1, device=cuda_device)
+    assert card == strips.encode_batch(imgs, th=8, near=1, device="cpu")
+
+
+@pytest.mark.cuda
+def test_near_walk_kernel_refuses_what_it_cannot_run(cuda_device):
+    tune = strips._near_tune(strips.TUNE)
+    x = torch.zeros((2, 2, 8), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="features"):
+        strips._near_walk(x, 1, 2, 6, tune)
+    w, lanes, m = 8, 2, 1 + 10 + 100
+    u8 = dict(dtype=torch.uint8, device=cuda_device)
+    i64 = dict(dtype=torch.int64, device=cuda_device)
+    args = [torch.zeros((w, lanes), **u8), None, torch.zeros((w, lanes), **u8),
+            torch.zeros((w, lanes), **u8), torch.zeros((w, m, lanes), **i64),
+            torch.zeros((w, m, lanes), **i64), None, None,
+            torch.zeros((5, 2, w, lanes), dtype=torch.int32, device=cuda_device),
+            torch.zeros((w, lanes), **i64), torch.zeros((w, lanes), **i64), 0, 2]
+    for bad in (32768, -32769):
+        args[1] = torch.zeros(3072, dtype=torch.int32, device=cuda_device)
+        args[1][7] = bad
+        with pytest.raises(ValueError, match="int16"):
+            near_walk.launch_row(*args)
+    args[1][7] = 32767  # the int16 ends themselves run
+    near_walk.launch_row(*args)
+    args[1][7] = -32768
+    near_walk.launch_row(*args)
+    args[1] = args[1].to(torch.int16)  # an int16 table runs as it is
+    near_walk.launch_row(*args)
+    torch.cuda.synchronize()
+    args[1] = args[1].to(torch.int64)
+    with pytest.raises(ValueError, match="bias"):
+        near_walk.launch_row(*args)
