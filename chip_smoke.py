@@ -42,7 +42,7 @@ Phases, one line each; any failure exits non-zero:
      latter at 64x64 and 16x16 tiles) against the plain decoder, exact,
      <1, false> beside <1, true>.  (kernel_probe.py near-stages times a
      near encode's stages.)
- 12. profile 3 (effort 3; plain PyTorch, no kernel of its own): the card's
+ 12. profile 3 (effort 3; the decodes on K4, csrc/p3_decode_walk.cu): the card's
      containers equal the CPU's for a 48x64 and a 64x48 image as one batch
      at strip heights 16 and 64, and each alone at 16, under TUNE_V4,
      TUNE_MAX and TUNE_V4S; the whole corpus as one strips.encode_batch at
@@ -58,7 +58,8 @@ Phases, one line each; any failure exits non-zero:
      walk's time a pixel step, the peak device memory and the projected
      time of one image at strip height 768, and
      api.decompress of the effort-3 container; a process of its own decodes
-     the same containers on the CPU meanwhile, which must agree.
+     the same containers on the CPU meanwhile, which must agree.  Every
+     decode runs K4 (counted).
      (kernel_probe.py p3-stages times one 768x512 encode at the default
      strip height.)
  13. profile 3, near-lossless (the feedback walk on K5, csrc/p3_near_walk.cu,
@@ -77,12 +78,22 @@ Phases, one line each; any failure exits non-zero:
      containers held against the CPU's, then K5 against the plain walk on
      that walk's own input, K5 timed beside its bound and floor; one corpus
      image's walk at th 768 (one lane, 393,216 steps) timed; the corpus
-     decoded on the card through tiled.decode_batch within 2.  The CPU's
-     encodes of phases 12 and 13 and its decodes run in a pool of two
+     decoded on the card through tiled.decode_batch within 2 (K4).  The
+     CPU's encodes of phases 12-14 and its decodes run in a pool of three
      processes started before phase 12, beside the card's work.
      (kernel_probe.py p3-walk: K5's SASS and step times by lane count;
      p3-near: the stages against the lane count.)
- 14. interop (Q0.2, NBLIC0.3): the port's copy of the native runtime built
+ 14. K4, the profile-3 decode walk (csrc/p3_decode_walk.cu, a launch a
+     row or a column segment): K4 against the plain walk on the card on the
+     same walk inputs, exact and each timed: the pair at th 8 under
+     TUNE_V4, TUNE_MAX and TUNE_V4S, the edge images at near 0 and 3, the
+     pair with 6 AVP features; on the corpus walk's own input of phase 12
+     (th 4), K4 timed (median of 3) beside its bound and floor, its
+     divisions priced by path and its bins counted on a plain walk of the
+     same input, which it must equal; one corpus image encoded on the CPU
+     at th 768 (one lane, 393,216 steps) decoded through strips.decode on
+     K4, exact, with its seconds and us a step.
+ 15. interop (Q0.2, NBLIC0.3): the port's copy of the native runtime built
      with g++; the 24-image corpus through api.compress / decompress(
      backend="native") at effort 0 (1 and 4 threads), 1, 2, 3 and effort 1
      near 2 in a pool of four processes, with host MPix/s and bpp, all
@@ -100,7 +111,7 @@ Phases, one line each; any failure exits non-zero:
      plain fold on the CPU), and timed on the image's beside its bound and
      its serial chain.  (kernel_probe.py interop also times a flat
      image's chain.)
- 15. the mesh (nblic_tpu_torch/parallel/mesh.py): ranks spawned by
+ 16. the mesh (nblic_tpu_torch/parallel/mesh.py): ranks spawned by
      mesh.launch on the one card (gloo; ranks sharing a card measure
      correctness, not scaling): two ranks run the corpus by shape through
      encode_batch_mesh / decode_batch_mesh at (1, 2) (g = 48) and (2, 1)
@@ -108,7 +119,7 @@ Phases, one line each; any failure exits non-zero:
      per rank, the single-process tiled.decode_batches on the card reading
      their containers; p3_encode_batch_mesh of the corpus at (2, 1), th 64,
      equal to phase 12's containers, and p3_decode_batch_mesh of the pair at
-     th 8; four ranks encode the committed JAX mesh fixtures
+     th 8 (K4 on each rank); four ranks encode the committed JAX mesh fixtures
      (tests/data_torch_mesh) at (2, 2) and (1, 4), equal to nblic_tpu's
      bytes, and decode them; K2 against its plain version at g = 2, 6, 24
      and 48 (16x16 tiles) and at the corpus's g = 96 (64x64 tiles), K2' and
@@ -118,8 +129,8 @@ Phases, one line each; any failure exits non-zero:
 Each kernel's time stands beside its bound (the whole card's roofline:
 bytes over the memory rate, integer operations over the int32 rate) and
 its floor (the least time at the launch's own parallelism: the issue of
-one SM's schedulers for K2 and K2', of one scheduler's warps for K7 and
-K5, the serial chain for K1).  Then one
+one SM's schedulers for K2 and K2', of one scheduler's warps for K7, K5
+and K4, the serial chain for K1).  Then one
 JSON line of the kernels' measured numbers and bounds, the whole command's
 time, and as the last line {"ok": true, "device": {...}}.  Needs no
 network; imports no JAX.
@@ -202,6 +213,33 @@ K5_DIV32 = 19    # the inline path of either, both operands in [0, 2^32)
 K5_OTHER_OPS = 16627
 K5_MIX_OPS = 186
 K5_LANES = 32  # lanes a CTA: one warp
+# K4 per pixel of a lane of p3_decode_kernel<10>, counted as K5's: the AVP
+# chain is K5's without the fold (14), its divisions priced by path on the
+# walk's own input; the coder's work, from the source: a pixel's fixed work
+# K4_PIXEL_OPS (the bins' phase, a 64-bit product 9; adjust_qv's two
+# 32-bit divisions by k_step and the select 40, each division ~19 as the
+# inline path; the stop layer, its row and k_end 50; the mapper's index
+# and select 5); an active unary bin K4_UNARY_OPS (two escalated rows,
+# each a 32-bit division 24; the two cells 4; two pair probabilities,
+# each a 64-bit unsigned division at the inline path (4096 c1 < 2^32) 19
+# plus its shift, sum and clip 6; mix_prob 8; the phase 2; the rANS step
+# with its renormalization 19; the count and the loop 4); an active
+# refinement or escape bin K4_REFINE_OPS (the bit position and pair 6, the
+# pair probability 25, the select 1, the phase 3, the rANS step 19, msb
+# and z 4, the loop 2); without sym_cnt the segment's events re-derived
+# from z, K4_EVENT_OPS (a unary layer: two escalated rows 48, the go test
+# with its division 21, the two adds 10, the loop 3; a refinement bit 11;
+# k_end of a pixel 20); a counter pair at a segment's end K4_SWEEP_OPS
+# (the delta's two adds, the sum and test, the two halvings).  Loads,
+# stores, address and loop arithmetic are the implementation's.
+K4_AVP_OPS = K5_OTHER_OPS - 14
+K4_PIXEL_OPS = 104
+K4_UNARY_OPS = 135
+K4_REFINE_OPS = 60
+K4_EVENT_OPS = (82, 11, 20)
+K4_SWEEP_OPS = 8
+K4_LANES = 32  # lanes a CTA: one warp
+P3_FULL_TH = 768  # the full-depth strip height: one corpus image a lane
 NEAR = 2  # the near phase's max error
 T_START = time.perf_counter()
 
@@ -658,8 +696,9 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
     the fixtures on the card against the image (or nblic_tpu's pixels) and
     the CPU (a job of ``pool``), the corpus at th = P3_DECODE_TH through
     tiled.decode_batch with the walk's time a pixel step, and
-    api.decompress.  Returns None on a failure, else (the corpus's
-    containers at th 64, the pair's at th P3_PAIR_TH under TUNE_V4)."""
+    api.decompress, each decode on K4.  Returns None on a failure, else
+    (the corpus's containers at th 64, the pair's containers by (contract,
+    th), K4's launches in the decodes, the corpus walk's arguments)."""
     import torch
 
     from nblic_tpu_torch.models import strips
@@ -742,31 +781,46 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
                   + [[conts_dec[i] for i in picks]])
     cpu_job = pool.submit(_cpu_decode, cpu_groups)
     card_groups = []
+    k4 = 0
     for (tune, th_), batch in decoded_pairs.items():
         t0 = time.perf_counter()
-        back = strips.decode_batch(batch, device=dev)
+        back, n = _entry_decodes(lambda: strips.decode_batch(batch, device=dev))
         dec_s = time.perf_counter() - t0
+        k4 += n
         card_groups.append(back)
         ok = all(np.array_equal(b, im) for b, im in zip(back, pair))
         print(f"[p3 decode] {tune} th {th_}: the pair decoded on the card as one batch "
-              f"equal to the images {ok} ({dec_s:.2f} s)", flush=True)
+              f"equal to the images {ok} ({dec_s:.2f} s, K4 launches {n})", flush=True)
         if not ok:
             return None
     for name, (c, want) in fixtures.items():
-        back = strips.decode(c, device=dev)
+        back, n = _entry_decodes(lambda: strips.decode(c, device=dev))
+        k4 += n
         card_groups.append([back])
         ok = np.array_equal(back, want)
         print(f"[p3 decode] fixture {name} ({len(c)} B, near "
               f"{strips._parse(c)[0][6]}): decoded on the card equal to nblic_tpu's "
-              f"pixels {ok}", flush=True)
+              f"pixels {ok} (K4 launches {n})", flush=True)
         if not ok:
             return None
 
+    # the corpus walk's input is kept for K4's comparison and timing
+    seen, walk = [], strips._decode_walk
+
+    def kept_walk(*args):
+        seen.append(args)
+        return walk(*args)
+
     torch.cuda.reset_peak_memory_stats()
-    with StageClock([(strips, "_decode_walk", "walk")]) as clock:
-        t0 = time.perf_counter()
-        decoded = tiled.decode_batch(conts_dec, device=dev)
-        dec_s = time.perf_counter() - t0
+    strips._decode_walk = kept_walk
+    try:
+        with StageClock([(strips, "_decode_walk", "walk")]) as clock:
+            t0 = time.perf_counter()
+            decoded, n = _entry_decodes(lambda: tiled.decode_batch(conts_dec, device=dev))
+            dec_s = time.perf_counter() - t0
+    finally:
+        strips._decode_walk = walk
+    k4 += n
     peak = torch.cuda.max_memory_allocated() / 2**30
     walk_ms = clock.stages()["walk"]
     exact = all(np.array_equal(d, im) for d, im in zip(decoded, corpus))
@@ -779,16 +833,18 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
           f"tiled.decode_batch {n_px / dec_s / 1e6:.4f} MPix/s ({dec_s:.2f} s), walk "
           f"{walk_ms / 1e3:.2f} s = {ms_step:.3f} ms a pixel step, peak device memory "
           f"{peak:.2f} GiB; one 768x512 image at th 768 ({768 * 512} steps) would take "
-          f"{768 * 512 * ms_step / 6e4:.1f} min at this step time ({card})", flush=True)
-    if not exact:
+          f"{768 * 512 * ms_step / 6e4:.1f} min at this step time; K4 launches {n} (one a "
+          f"column segment of {len(seen)} walk) ({card})", flush=True)
+    if not (exact and n > 0 and len(seen) == 1):
         return None
     card_groups.append([decoded[i] for i in picks])
 
     t0 = time.perf_counter()
-    back = api.decompress(via_api, device=dev)
+    back, n = _entry_decodes(lambda: api.decompress(via_api, device=dev))
+    k4 += n
     ok = np.array_equal(back, img)
     print(f"[p3 decode api] api.decompress of the 16x32 effort-3 container equal to "
-          f"the image {ok} ({time.perf_counter() - t0:.2f} s)", flush=True)
+          f"the image {ok} ({time.perf_counter() - t0:.2f} s, K4 launches {n})", flush=True)
     if not ok:
         return None
 
@@ -800,44 +856,58 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
     print(f"[p3 decode] the cpu's decodes of the {len(cpu_groups)} groups (the pairs, each "
           f"fixture, corpus images {picks}) equal the card's {same} (waited {wait_s:.1f} s "
           f"for them)", flush=True)
-    return (conts, pair_conts["TUNE_V4", P3_PAIR_TH]) if same else None
+    return (conts, pair_conts, k4, seen[0]) if same else None
 
 
-def _division_paths(x, n_imgs: int, near: int, tune) -> dict:
-    """The plain walk of ``x`` with its 64-bit divisions sorted by the path
-    K5's code takes for the same operands (the SASS's test: both in [0,
-    2^32) takes the inline path): {"u64", "u32", "s64", "s32"}, divisions a
-    pixel by tdiv_by's unsigned routine or its inline path, by the moments'
-    signed routine or its inline path.  avp.tdiv_by serves the
-    elimination, the back substitution and the prediction, pavp.tdiv the
-    moments, one for one with K5's divisions."""
+def _division_paths(walk, n_px: int, bins=None) -> tuple:
+    """``walk()``, a plain profile-3 walk over ``n_px`` pixels, with its
+    64-bit divisions sorted by the path K5's and K4's code takes for the
+    same operands (the SASS's test: both in [0, 2^32) takes the inline
+    path): {"u64", "u32", "s64", "s32"}, divisions a pixel by tdiv_by's
+    unsigned routine or its inline path, by the moments' signed routine or
+    its inline path.  avp.tdiv_by serves the elimination, the back
+    substitution and the prediction, pavp.tdiv the moments, one for one
+    with the kernels' divisions.  With ``bins`` = (n_unary, l_tot), a
+    decode walk's active bins a pixel too: "unary", then "refine" (the
+    refinement and escape bits), each bin by its place among its pixel's
+    l_tot calls of rans_bin.dec_masked.  Returns the dict and walk()'s
+    result."""
     import torch
 
-    from nblic_tpu_torch.models import strips
-    from nblic_tpu_torch.ops import avp, pavp
+    from nblic_tpu_torch.ops import avp, pavp, rans_bin
 
-    tdiv_by, tdiv = avp.tdiv_by, pavp.tdiv
-    n = [0, 0]
-    fast = torch.zeros(2, dtype=torch.int64, device=x.device)
+    tdiv_by, tdiv, dec_masked = avp.tdiv_by, pavp.tdiv, rans_bin.dec_masked
+    n = [0, 0, 0]
+    fast = [0, 0, 0, 0]  # device tensors once counted: no sync until the end
 
-    def counted_tdiv_by(a, b_abs, b_neg):  # K5: |a| / |b|, unsigned
+    def counted_tdiv_by(a, b_abs, b_neg):  # the kernels: |a| / |b|, unsigned
         n[0] += a.numel()
         fast[0] += (((torch.abs(a) | b_abs) >> 32) == 0).sum()
         return tdiv_by(a, b_abs, b_neg)
 
-    def counted_tdiv(a, b):  # K5: a / b, signed
+    def counted_tdiv(a, b):  # the kernels: a / b, signed
         n[1] += a.numel()
         fast[1] += (((a | b) >> 32) == 0).sum()
         return tdiv_by(a, torch.abs(b), b < 0)
 
+    def counted_dec_masked(state, ptr, p1, active, words):
+        fast[2 + int(n[2] % bins[1] >= bins[0])] += active.sum()
+        n[2] += 1
+        return dec_masked(state, ptr, p1, active, words)
+
     avp.tdiv_by, pavp.tdiv = counted_tdiv_by, counted_tdiv
+    if bins:
+        rans_bin.dec_masked = counted_dec_masked
     try:
-        strips._near_walk_plain(x, n_imgs, near, strips.AVP_N, tune)
+        out = walk()
     finally:
-        avp.tdiv_by, pavp.tdiv = tdiv_by, tdiv
-    (u32, s32), px = fast.tolist(), x.numel()
-    return {"u64": (n[0] - u32) / px, "u32": u32 / px, "s64": (n[1] - s32) / px,
-            "s32": s32 / px}
+        avp.tdiv_by, pavp.tdiv, rans_bin.dec_masked = tdiv_by, tdiv, dec_masked
+    u32, s32, unary, refine = (int(v) for v in fast)
+    paths = {"u64": (n[0] - u32) / n_px, "u32": u32 / n_px, "s64": (n[1] - s32) / n_px,
+             "s32": s32 / n_px}
+    if bins:
+        paths.update(unary=unary / n_px, refine=refine / n_px)
+    return paths, out
 
 
 def _k5_ops(paths: dict, mix: bool) -> float:
@@ -848,6 +918,21 @@ def _k5_ops(paths: dict, mix: bool) -> float:
             + K5_SDIV64 * paths["s64"] + K5_DIV32 * (paths["u32"] + paths["s32"]))
 
 
+def _k4_ops(paths: dict, con) -> float:
+    """K4's operations a pixel under the walk's ``con``
+    (decode_walk.Contract): K5's AVP chain without the fold and the walk's
+    divisions by path, then the coder's work at the walk's own counts of
+    active bins (``paths`` of :func:`_division_paths` with bins) and the
+    counter sweep of each segment's end."""
+    pairs = 16 * con.n_class + 16 * 5 * 2  # unary and refine counter pairs
+    u, r = paths["unary"], paths["refine"]
+    ops = (_k5_ops(paths, bool(con.mix_e)) - K5_OTHER_OPS + K4_AVP_OPS + K4_PIXEL_OPS
+           + K4_UNARY_OPS * u + K4_REFINE_OPS * r + K4_SWEEP_OPS * pairs / con.ws)
+    if not con.sym_cnt:
+        ops += K4_EVENT_OPS[0] * u + K4_EVENT_OPS[1] * r + K4_EVENT_OPS[2]
+    return ops
+
+
 def _walk_bound(x, ops: float) -> tuple[float, str]:
     """Bound of a feedback walk over (L, th, W) strips: the uint8 pixels
     read once, five int64 planes written once; ``ops`` a pixel of every
@@ -855,14 +940,13 @@ def _walk_bound(x, ops: float) -> tuple[float, str]:
     return _bound(x.numel() * (1 + 5 * 8), x.numel() * ops)
 
 
-def _walk_floor(x, ops: float) -> float:
-    """Least milliseconds of a feedback walk at the launch's own
+def _walk_floor(lanes: int, steps: int, ops: float) -> float:
+    """Least milliseconds of a profile-3 walk (K5, K4) at the launch's own
     parallelism: CTAs of one warp (32 lanes) spread over the SMs' 4 x 132
-    schedulers, each issuing its warps' th x W x ``ops``, one a cycle."""
-    lanes, th, w = x.shape
+    schedulers, each issuing its warps' steps x ``ops``, one a cycle."""
     warps = -(-lanes // K5_LANES)
     per_scheduler = -(-warps // (4 * SMS))
-    return 1e3 * per_scheduler * th * w * ops / CLOCK_HZ
+    return 1e3 * per_scheduler * steps * ops / CLOCK_HZ
 
 
 def _k5_case(what, x, n_imgs, near, tune, card):
@@ -898,6 +982,16 @@ def _entry_walks(fn):
     return out, near_walk.launch_row.launches
 
 
+def _entry_decodes(fn):
+    """``fn()`` with K4's count set to 0 just before and read just after:
+    (its result, the launches it made)."""
+    from nblic_tpu_torch.ops import decode_walk
+
+    decode_walk.launch_segment.launches = 0
+    out = fn()
+    return out, decode_walk.launch_segment.launches
+
+
 def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
     """Profile-3 near-lossless encode, its walk on K5: the committed
     fixture's bytes, the pair at near 1 and 3 against the CPU (``cpu_job``,
@@ -908,7 +1002,8 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
     the pair (near 1 and 3, both near contracts), the edge images and the
     corpus's walk, and one corpus image's walk at th 768, timed.  Returns
     None on a failure, else (K5's launches in the entry-point runs, K5's
-    numbers on the corpus for the kernels line)."""
+    numbers on the corpus for the kernels line, K4's launches in the
+    decodes)."""
     import torch
 
     from nblic_tpu_torch.models import strips
@@ -919,7 +1014,7 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
 
     contracts = {name: strips._near_tune(getattr(strips, name))
                  for name in ("TUNE_V4", "TUNE_V4S")}
-    launches, errs = 0, []
+    launches, errs, k4 = 0, [], 0
 
     # ---- (a) nblic_tpu's bytes without JAX: the committed near-2 fixture
     # (tests/test_torch_p3_fixtures.py: fixture_image(), th 16)
@@ -948,14 +1043,16 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
         launches += n
         enc_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        back = strips.decode_batch(on_card, device=dev)
+        back, n4 = _entry_decodes(lambda: strips.decode_batch(on_card, device=dev))
+        k4 += n4
         dec_s = time.perf_counter() - t0
         err = max(_max_err(b, im) for b, im in zip(back, pair))
         ok = on_card == cpu[k] and 0 < err <= near
         print(f"[p3 near reference] near {near} th {P3_PAIR_TH}: the 48x64 and 64x48 "
               f"images as a batch, card == cpu containers {on_card == cpu[k]} (the cpu's encodes "
               f"waited for {wait_s:.1f} s), max error decoded on the card {err} (encode "
-              f"{enc_s:.2f} s, K5 launches {n}; decode {dec_s:.2f} s)", flush=True)
+              f"{enc_s:.2f} s, K5 launches {n}; decode {dec_s:.2f} s, K4 launches {n4})",
+              flush=True)
         if not ok:
             return None
         st, *_ = strips._prepare(pair, P3_PAIR_TH)
@@ -1045,9 +1142,10 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
     errs.append(err)
     ms = _cuda_ms(lambda: strips._near_walk(x, n_imgs, near, n_feat, tune_w), 3)
     t0 = time.perf_counter()
-    paths = _division_paths(x, n_imgs, near, tune_w)
+    paths, _ = _division_paths(
+        lambda: strips._near_walk_plain(x, n_imgs, near, strips.AVP_N, tune_w), x.numel())
     ops = _k5_ops(paths, bool(tune_w.mix_e))
-    bound, floor = _walk_bound(x, ops), _walk_floor(x, ops)
+    bound, floor = _walk_bound(x, ops), _walk_floor(x.shape[0], th * w, ops)
     print(f"[K5 p3_near_walk] the corpus's walk ({x.shape[0]} lanes x {th}x{w}): K5 {ms:.3f} ms "
           f"(median of 3; {1e3 * ms / n_steps:.3f} us a step) | plain {pms:.1f} ms "
           f"({pms / ms:.0f}x) | bound {bound[0]:.4f} ms ({bound[1]}) | floor {floor:.3f} ms "
@@ -1069,7 +1167,8 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
     print(f"[K5 p3_near_walk] one corpus image at th {x768.shape[1]} ({x768.shape[0]} lane, "
           f"{x768.shape[1] * x768.shape[2]} steps): the walk took {s768:.2f} s "
           f"({1e6 * s768 / (x768.shape[1] * x768.shape[2]):.2f} us a step; floor "
-          f"{_walk_floor(x768, ops) / 1e3:.2f} s at the corpus's ops a pixel); with the row "
+          f"{_walk_floor(1, x768.shape[1] * x768.shape[2], ops) / 1e3:.2f} s at the corpus's "
+          f"ops a pixel); with the row "
           f"coder and the fold at the corpus's times a row ({rest:.1f} s projected) the "
           f"image's encode would take "
           f"{s768 + rest:.1f} s ({card})", flush=True)
@@ -1078,18 +1177,128 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
     torch.cuda.reset_peak_memory_stats()
     with StageClock([(strips, "_decode_walk", "walk")]) as clock:
         t0 = time.perf_counter()
-        decoded = tiled.decode_batch(conts, device=dev)
+        decoded, n4 = _entry_decodes(lambda: tiled.decode_batch(conts, device=dev))
         dec_s = time.perf_counter() - t0
+    k4 += n4
     peak = torch.cuda.max_memory_allocated() / 2**30
     walk_ms = clock.stages()["walk"]
     err = max(_max_err(d, im) for d, im in zip(decoded, corpus))
     print(f"[p3 near decode corpus] {len(corpus)} images near {NEAR} th {th}: max error "
           f"{err}, tiled.decode_batch {n_px / dec_s / 1e6:.4f} MPix/s ({dec_s:.2f} s), walk "
           f"{walk_ms / 1e3:.2f} s = {walk_ms / n_steps:.3f} ms a pixel step, peak device "
-          f"memory {peak:.2f} GiB ({card})", flush=True)
-    if not 0 < err <= NEAR:
+          f"memory {peak:.2f} GiB, K4 launches {n4} ({card})", flush=True)
+    if not (0 < err <= NEAR and n4 > 0):
         return None
-    return launches, (max(errs), ms, pms, bound)
+    return launches, (max(errs), ms, pms, bound), k4
+
+
+def _k4_case(what, args, card):
+    """K4 (``strips._decode_walk`` on card tensors) against the plain walk
+    on the same card tensors (the walk's arguments ``args``), exact; each
+    timed by CUDA events in one run.  The launches made here are
+    comparisons, not the main path's.  Returns (max error, or None on a
+    mismatch; K4 ms; plain ms)."""
+    import torch
+
+    from nblic_tpu_torch.models import strips
+
+    words, _, th, w, s, n_imgs, n_feat, near, tune = args
+    k, ms = _timed(lambda: strips._decode_walk(*args))
+    plain, pms = _timed(lambda: strips._decode_walk_plain(words.to(torch.int64), *args[1:]))
+    same = torch.equal(k, plain)
+    err = int((k.int() - plain.int()).abs().max())
+    steps = th * w
+    print(f"[K4 p3_decode_walk] {what}: {n_imgs * s} lanes, {steps} steps, near {near}, "
+          f"{n_feat} features, n_seg {tune.n_seg} seg_stats {tune.seg_stats} sym_cnt "
+          f"{tune.sym_cnt} mix_e {tune.mix_e}: exact {same} (max error {err}); K4 {ms:.3f} ms "
+          f"({1e3 * ms / steps:.3f} us a step) | plain {pms:.1f} ms ({pms / steps:.3f} ms a "
+          f"step) ({card})", flush=True)
+    return (err if same else None), ms, pms
+
+
+def _k4_phase(corpus, pair_conts, walk_args, dev, card, full_job):
+    """K4 against the plain walk on the card: the pair under each contract
+    (``pair_conts`` of :func:`_p3_phase`), the edge images at near 0 and 3,
+    the pair with 6 AVP features, the corpus walk's own input
+    (``walk_args``), there timed beside its bound and floor; then one
+    corpus image encoded on the CPU at th P3_FULL_TH (``full_job``, a
+    future of :func:`_cpu_encode`) decoded through strips.decode.  Returns
+    None on a failure, else (K4's launches in the full-depth decode, K4's
+    numbers on the corpus for the kernels line)."""
+    import torch
+
+    from nblic_tpu_torch.models import strips
+    from nblic_tpu_torch.ops import decode_walk
+    from nblic_tpu_torch.utils.synth import edge_images
+
+    def args_of(conts):
+        return strips._walk_args([strips._parse(c) for c in conts], dev)[0]
+
+    errs = []
+    for tune in P3_TUNES:
+        errs.append(_k4_case(f"the pair at th {P3_PAIR_TH} under {tune}",
+                             args_of(pair_conts[tune, P3_PAIR_TH]), card)[0])
+    edges = edge_images()
+    for near in (0, 3):
+        conts = strips.encode_batch(edges, th=8, near=near, device=dev)
+        errs.append(_k4_case(f"the edge images at th 8, near {near}", args_of(conts), card)[0])
+    saved = strips.AVP_N
+    strips.AVP_N = 6
+    try:
+        conts = strips.encode_batch(_p3_pair(), th=P3_PAIR_TH, device=dev)
+    finally:
+        strips.AVP_N = saved
+    errs.append(_k4_case(f"the pair at th {P3_PAIR_TH} with 6 AVP features", args_of(conts),
+                         card)[0])
+    if any(e is None for e in errs):
+        return None
+
+    # the corpus walk's own input: K4 against the plain walk, then K4 alone
+    # timed, then a plain walk of it with its divisions and bins counted
+    words, bias, th, w, s, n_imgs, n_feat, near, tune = walk_args
+    lanes, n_px = n_imgs * s, n_imgs * s * th * w
+    err, _, pms = _k4_case(f"the corpus's walk at th {th}", walk_args, card)
+    ms = _cuda_ms(lambda: strips._decode_walk(*walk_args), 3)
+    con = decode_walk.contract(near, n_feat, tune, w // strips._eff_seg(tune.n_seg, w), s)
+    t0 = time.perf_counter()
+    paths, _ = _division_paths(
+        lambda: strips._decode_walk_plain(words.to(torch.int64), *walk_args[1:]), n_px,
+        (tune.n_unary, tune.n_unary + strips.L_R))
+    count_s = time.perf_counter() - t0
+    ops = _k4_ops(paths, con)
+    # each input read once (the stream words), each output written once
+    # (the pixels, and the replay's four int64 planes torch reads)
+    bound = _bound(words.numel() * 4 + n_px * (1 + 4 * 8), n_px * ops)
+    floor = _walk_floor(lanes, th * w, ops)
+    print(f"[K4 p3_decode_walk] the corpus's walk ({lanes} lanes x {th}x{w}, {th * w} steps): "
+          f"K4 {ms:.3f} ms (median of 3; {1e3 * ms / (th * w):.3f} us a step, the torch "
+          f"replays between launches included) | plain {pms:.1f} ms ({pms / ms:.0f}x) | bound "
+          f"{bound[0]:.4f} ms ({bound[1]}) | floor {floor:.3f} ms ({ops:.1f} ops a pixel; a "
+          f"pixel's divisions by path and active bins, counted on a plain walk of the same "
+          f"input in {count_s:.1f} s: "
+          + ", ".join(f"{key} {v:.3f}" for key, v in paths.items()) + f") ({card})",
+          flush=True)
+    if err is None:
+        return None
+
+    # one corpus image at full depth: one lane of 768 x 512 steps
+    t0 = time.perf_counter()
+    ((cont,),) = full_job.result()
+    wait_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back, n = _entry_decodes(lambda: strips.decode(cont, device=dev))
+    dec_s = time.perf_counter() - t0
+    steps = P3_FULL_TH * min(corpus[0].shape)
+    ok = np.array_equal(back, corpus[0])
+    print(f"[K4 p3_decode_walk] one corpus image at th {P3_FULL_TH} (1 lane, {steps} steps; "
+          f"encoded on the cpu meanwhile, {8.0 * len(cont) / corpus[0].size:.4f} bpp, waited "
+          f"{wait_s:.1f} s for it): strips.decode on K4 exact {ok} in {dec_s:.2f} s "
+          f"({1e6 * dec_s / steps:.2f} us a step; floor {_walk_floor(1, steps, ops) / 1e3:.2f} "
+          f"s at the corpus's ops a pixel), K4 launches {n} ({card})", flush=True)
+    if not (ok and n > 0):
+        return None
+    return n, (max(errs + [err]), ms, pms, bound)
 
 
 # the native runtime's corpus runs: (label, near, effort, n_threads)
@@ -1373,7 +1582,8 @@ def _mesh_pairs_job(corpus, small, p3_pair):
     out["p3"] = pmesh.p3_encode_batch_mesh(corpus, mesh, th=64)
     dist.barrier()
     t1 = time.perf_counter()
-    out["p3 dec"] = pmesh.p3_decode_batch_mesh(p3_pair, mesh)
+    out["p3 dec"], out["p3 k4"] = _entry_decodes(lambda: pmesh.p3_decode_batch_mesh(p3_pair,
+                                                                                  mesh))
     dist.barrier()
     out["p3 s"] = (t1 - t0, time.perf_counter() - t1)
     return out
@@ -1406,8 +1616,8 @@ def _mesh_phase(tiled, corpus, p3_corpus, p3_pair, dev, card):
     (1, 4) over the committed JAX fixtures, the profile-3 data-parallel
     encode and decode at (2, 1), one NCCL rank; the single-process decoder
     on the mesh's containers, K2 against its plain version at the widths
-    the mesh writes.  Returns (K1, K2) launches summed over the ranks' runs;
-    raises on any failure."""
+    the mesh writes.  Returns (K1, K2, K4) launches summed over the ranks'
+    runs; raises on any failure."""
     import torch
 
     from nblic_tpu_torch.convert import group_args
@@ -1458,11 +1668,12 @@ def _mesh_phase(tiled, corpus, p3_corpus, p3_pair, dev, card):
           f"equal to the profile-3 phase's strips.encode_batch container {ok} "
           f"({n_px / p3_enc_s / 1e6:.4f} MPix/s, {p3_enc_s:.2f} s) ({card})", flush=True)
     ok_dec = all(exact(r["p3 dec"], _p3_pair()) for r in pairs)
+    k4 = [r["p3 k4"] for r in pairs]
     print(f"[mesh p3 (2, 1)] p3_decode_batch_mesh of the 48x64 and 64x48 pair at th "
           f"{P3_PAIR_TH} (the depth cut: {P3_PAIR_TH} x 48 walk steps) exact {ok_dec} "
-          f"({p3_dec_s:.2f} s) ({card})", flush=True)
-    if not (ok and ok_dec):
-        raise RuntimeError("mesh p3: a container or a decode differed")
+          f"({p3_dec_s:.2f} s), K4 launches per rank {k4} ({card})", flush=True)
+    if not (ok and ok_dec and min(k4) > 0):
+        raise RuntimeError("mesh p3: a container or a decode differed, or K4 never launched")
 
     t0 = time.perf_counter()
     quad = pmesh.launch(4, _mesh_quad_job, {k: v[0] for k, v in fixtures.items()}, small,
@@ -1548,7 +1759,7 @@ def _mesh_phase(tiled, corpus, p3_corpus, p3_pair, dev, card):
         raise RuntimeError("mesh nccl: a round trip failed or a kernel never launched")
     print(f"[mesh] spawned groups' wall times: 2 ranks {t_pairs:.1f} s, 4 ranks "
           f"{t_quad:.1f} s, 1 NCCL rank {t_nccl:.1f} s", flush=True)
-    return k1, k2
+    return k1, k2, sum(k4)
 
 
 def _main_path(api, tiled, corpus, frame, dev, effort, tag, card):
@@ -1801,19 +2012,21 @@ def main() -> int:
     near_k1, near_k2_e1, near_k2_e2, near_k7, k7_stats = near
     print(f"[near] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- profile 3: plain PyTorch on the card, no kernel of its own; a
-    # process pool of the CPU's encodes and decodes for comparison
-    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    # ---- profile 3, its decodes on K4; a process pool of the CPU's encodes
+    # and decodes for comparison, and of the full-depth encode K4 decodes
+    pool = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"))
     try:
         lossless_jobs, near_jobs = _p3_cpu_jobs(corpus)
         lossless_job = pool.submit(_cpu_encode, lossless_jobs)
         near_job = pool.submit(_cpu_encode, near_jobs)
+        full_job = pool.submit(_cpu_encode, [([corpus[0]], P3_FULL_TH, 0, "TUNE_V4")])
         t0 = time.perf_counter()
         p3 = _p3_phase(api, tiled, corpus, dev, card, pool, lossless_job)
         if p3 is None:
             print("[p3] failed: a container or a decode differed from the CPU's, the image "
                   "or nblic_tpu's pixels, or the route")
             return 1
+        p3_conts, pair_conts, k4_launches, walk_args = p3
         print(f"[p3] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         p3_near = _p3_near_phase(tiled, corpus, dev, card, near_job)
@@ -1822,8 +2035,20 @@ def main() -> int:
                   "a header, an error past near, K5 differed from the plain walk or never "
                   "launched")
             return 1
-        k5_launches, k5_stats = p3_near
+        k5_launches, k5_stats, n4 = p3_near
+        k4_launches += n4
         print(f"[p3 near] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        k4 = _k4_phase(corpus, pair_conts, walk_args, dev, card, full_job)
+        del walk_args
+        if k4 is None:
+            print("[K4] failed: K4 differed from the plain walk, or the full-depth image did "
+                  "not come back exact or never launched K4")
+            return 1
+        k4_launches += k4[0]
+        k4_stats = k4[1]
+        print(f"[K4] the phase took {time.perf_counter() - t0:.1f} s; K4 launches on the "
+              f"entry points {k4_launches}", flush=True)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
@@ -1840,7 +2065,8 @@ def main() -> int:
     # ---- the mesh: gloo ranks sharing the card, then one NCCL rank
     t0 = time.perf_counter()
     torch.cuda.empty_cache()  # the ranks allocate on the same card
-    mesh_k1, mesh_k2 = _mesh_phase(tiled, corpus, *p3, dev, card)
+    mesh_k1, mesh_k2, mesh_k4 = _mesh_phase(tiled, corpus, p3_conts,
+                                            pair_conts["TUNE_V4", P3_PAIR_TH], dev, card)
     print(f"[mesh] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
     def row(name_, source, replaces, launches, stats, **extra):
@@ -1868,6 +2094,9 @@ def main() -> int:
             near_k7, k7_stats, note="an XLA scan (jax.vmap of lax.scan), no pallas_call"),
         row("p3_near_walk", "nblic_tpu_torch/csrc/p3_near_walk.cu",
             "nblic_tpu/models/strips.py:796", k5_launches, k5_stats,
+            note="an XLA scan (lax.scan), no pallas_call"),
+        row("p3_decode_walk", "nblic_tpu_torch/csrc/p3_decode_walk.cu",
+            "nblic_tpu/models/strips.py:1222", k4_launches + mesh_k4, k4_stats,
             note="an XLA scan (lax.scan), no pallas_call"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -48,7 +48,7 @@ PROBE is one of:
              chip_smoke.py times it.  Runs on the package beside it, so a
              copy of this file beside an older checkout times that one.
              Builds no variant.
-  p3-decode  the profile-3 decode walk (plain PyTorch) on the card: a
+  p3-decode  the profile-3 decode walk (kernel K4) on the card: a
              48x64 and a 64x48 image as one batch at strip height 16 under
              TUNE_V4, TUNE_MAX, TUNE_V4S and TUNE_V1, each round trip held
              to the images, with the walk's time a pixel step; then TUNE_V4

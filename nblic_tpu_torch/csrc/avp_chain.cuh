@@ -5,9 +5,17 @@
 // mix_blend, contributions, decay, f_chain; ops/avp.py: solve_batch,
 // predict_from_solve, tdiv_by; ops/predict.py: n_quantize_activity).
 // Kernel K5 (p3_near_walk.cu) runs it with a fold where a decoder reads
-// its symbols; nothing here assumes the near contract, so a decode walk
-// can reuse it.  The window, the blend prediction, the activity and the
-// context address are pixel_chain.cuh's, which compute the same thing.
+// its symbols; kernel K4 (p3_decode_walk.cu) runs it with the decoder,
+// and adds the segment-frozen contracts below (pavp.quantize_weights,
+// predict_wq, the decay-extended E).  The window, the blend prediction, the
+// activity and the context address are pixel_chain.cuh's, which compute
+// the same thing.
+//
+// The feature count.  Each function takes the compile-time kN, which
+// sizes its arrays, and a runtime n <= kN, the count it computes with
+// (default kN, which the compiler folds): an instance with kN = 12 serves
+// any count.  A pixel's statistics are m = 1 + n + n^2 channels, laid out
+// with n, and the augmented column of a system is column n.
 //
 // Exactness.  The plain versions compute in int64 with torch's semantics,
 // and each function here reproduces them bit for bit:
@@ -38,10 +46,13 @@ constexpr int kMixSh = 12;     // pavp.MIX_SH
 constexpr int kMaxPxInc = 127; // strips.MAX_PX_INC, the carried error's clip
 constexpr int kBiasFracBits = 4;
 constexpr int kNQw = 32;       // predict.N_QW
+constexpr int kFbw = 12;       // pavp.FBW, the quantized weights' fixed point
+constexpr int kWClip = (1 << 19) - 1;  // pavp.WCLIP
 
 // Statistics a pixel: the energy, n moments, the n x n matrix.
 template <int kN>
 __host__ __device__ constexpr int avp_m() { return 1 + kN + kN * kN; }
+__host__ __device__ constexpr int avp_m(int n) { return 1 + n + n * n; }
 
 // ---- int64 arithmetic as torch computes it
 
@@ -98,40 +109,43 @@ __device__ __forceinline__ int64_t decay(int64_t v) {
 // g, r, s minus FIT_BASE, where t is (i - 1, j + 2) of the reconstructed
 // row above, the caller's d out of range (strips._pixel_taps).
 template <int kN>
-__device__ __forceinline__ void avp_features(const Window& v, int t, int (&feat)[kN]) {
+__device__ __forceinline__ void avp_features(const Window& v, int t, int (&feat)[kN],
+                                             int n = kN) {
   static_assert(kN >= 1 && kN <= kNTaps, "AVP takes 1 to 12 taps");
   const int taps[kNTaps] = {v.a, v.b, v.c, v.d, v.e, v.f, t, v.h, v.q, v.gg, v.r, v.s};
 #pragma unroll
-  for (int k = 0; k < kN; ++k) feat[k] = taps[k] - kFitBase;
+  for (int k = 0; k < kN; ++k)
+    if (k < n) feat[k] = taps[k] - kFitBase;
 }
 
-// pavp.solve_stats's system: the augmented kN x (kN + 1) ridge system of
+// pavp.solve_stats's system: the augmented n x (n + 1) ridge system of
 // the statistics E + F, with E in `e` and F at f[c * stride] for channel c.
 template <int kN>
 __device__ __forceinline__ void ridge_system(const int64_t* e, const int64_t* f,
-                                             size_t stride, int64_t (&a)[kN][kN + 1]) {
-  for (int k = 0; k < kN; ++k) {
-    const int c = 1 + kN + k * kN;
-    for (int l = 0; l < kN; ++l)
-      a[k][l] = wadd(wadd(e[c + l], f[(c + l) * stride]), k == l ? kRidgeBias * kN : 0);
-    a[k][kN] = wadd(wadd(e[1 + k], f[(1 + k) * stride]), kRidgeBias << kFb3);
+                                             size_t stride, int64_t (&a)[kN][kN + 1],
+                                             int n = kN) {
+  for (int k = 0; k < n; ++k) {
+    const int c = 1 + n + k * n;
+    for (int l = 0; l < n; ++l)
+      a[k][l] = wadd(wadd(e[c + l], f[(c + l) * stride]), k == l ? kRidgeBias * n : 0);
+    a[k][n] = wadd(wadd(e[1 + k], f[(1 + k) * stride]), kRidgeBias << kFb3);
   }
 }
 
 // avp.solve_batch on one system: int64 Gaussian elimination with partial
-// pivoting, in place.  Afterwards solution k is a[k][kN] / a[k][k]; returns
+// pivoting, in place.  Afterwards solution k is a[k][n] / a[k][k]; returns
 // false where a pivot was 0 (the plain version then goes on with a divisor
 // of 1, and so does this).  Column k below the diagonal is left as it
 // was: nothing reads it.
 template <int kN>
-__device__ __forceinline__ bool ridge_solve(int64_t (&a)[kN][kN + 1]) {
+__device__ __forceinline__ bool ridge_solve(int64_t (&a)[kN][kN + 1], int n = kN) {
   bool ok = true;
-  for (int k = 0; k < kN - 1; ++k) {
+  for (int k = 0; k < n - 1; ++k) {
     // the first maximum of |a[r][k]| (strict >), as torch.argmax takes it;
     // |INT64_MIN| is INT64_MIN, the least
     int piv = k;
     int64_t best = wabs(a[k][k]);
-    for (int r = k + 1; r < kN; ++r) {
+    for (int r = k + 1; r < n; ++r) {
       const int64_t v = wabs(a[r][k]);
       if (v > best) {
         best = v;
@@ -139,7 +153,7 @@ __device__ __forceinline__ bool ridge_solve(int64_t (&a)[kN][kN + 1]) {
       }
     }
     if (piv != k) {
-      for (int c = k; c <= kN; ++c) {  // columns left of k are not read again
+      for (int c = k; c <= n; ++c) {  // columns left of k are not read again
         const int64_t t = a[k][c];
         a[k][c] = a[piv][c];
         a[piv][c] = t;
@@ -150,20 +164,20 @@ __device__ __forceinline__ bool ridge_solve(int64_t (&a)[kN][kN + 1]) {
     const int64_t safe = d == 0 ? 1 : d;
     const int64_t d_abs = wabs(safe);
     const bool d_neg = safe < 0;
-    for (int r = k + 1; r < kN; ++r) {
+    for (int r = k + 1; r < n; ++r) {
       const int64_t ark = a[r][k];
-      for (int c = k + 1; c <= kN; ++c)  // the product passes 2^63 and wraps
+      for (int c = k + 1; c <= n; ++c)  // the product passes 2^63 and wraps
         a[r][c] = wsub(a[r][c], tdiv_by(wmul(a[k][c], ark), d_abs, d_neg));
     }
   }
-  for (int k = kN - 1; k > 0; --k) {
+  for (int k = n - 1; k > 0; --k) {
     const int64_t d = a[k][k];
     ok = ok && d != 0;
     const int64_t safe = d == 0 ? 1 : d;
     const int64_t d_abs = wabs(safe);
     const bool d_neg = safe < 0;
     for (int r = 0; r < k; ++r)
-      a[r][kN] = wsub(a[r][kN], tdiv_by(wmul(a[k][kN], a[r][k]), d_abs, d_neg));
+      a[r][n] = wsub(a[r][n], tdiv_by(wmul(a[k][n], a[r][k]), d_abs, d_neg));
   }
   return ok;
 }
@@ -172,12 +186,12 @@ __device__ __forceinline__ bool ridge_solve(int64_t (&a)[kN][kN + 1]) {
 // system, clipped to [0, 255 << FB1].
 template <int kN>
 __device__ __forceinline__ int64_t predict_from_solve(const int64_t (&a)[kN][kN + 1],
-                                                      const int (&feat)[kN]) {
+                                                      const int (&feat)[kN], int n = kN) {
   int64_t acc = 0;
-  for (int k = 0; k < kN; ++k) {
+  for (int k = 0; k < n; ++k) {
     const int64_t safe = a[k][k] == 0 ? 1 : a[k][k];
     // safe >> 1: an arithmetic shift of a possibly negative divisor
-    const int64_t t = wadd(wshl(wmul(a[k][kN], feat[k]), kFb2), safe >> 1);
+    const int64_t t = wadd(wshl(wmul(a[k][n], feat[k]), kFb2), safe >> 1);
     acc = wadd(acc, tdiv_by(t, wabs(safe), safe < 0));
   }
   const int64_t px = wadd(static_cast<int64_t>(kFitBase) << kFb1, acc);
@@ -239,16 +253,16 @@ __device__ __forceinline__ void pixel_correct(int px0, int bias, int& sign, int&
 // ---- the moment chains
 
 // pavp.f_chain for one lane: F at each column, the previous row's B
-// accumulated right to left.  b and f: (W, kC, lanes) with the lane's
-// column at the pointers; `acc` holds kC values of scratch.  Channel 0
-// decays by kAb0, the others by kAb.
+// accumulated right to left.  b and f: (W, n_c, lanes) with the lane's
+// column at the pointers, n_c <= kC channels (default kC); `acc` holds n_c
+// values of scratch.  Channel 0 decays by kAb0, the others by kAb.
 template <int kC, int kAb0, int kAb>
 __device__ __forceinline__ void f_chain(const int64_t* b, int64_t* f, int w, size_t lanes,
-                                        int64_t* acc) {
-  for (int c = 0; c < kC; ++c) acc[c] = 0;
+                                        int64_t* acc, int n_c = kC) {
+  for (int c = 0; c < n_c; ++c) acc[c] = 0;
   for (int j = w - 1; j >= 0; --j) {
-    const size_t col = static_cast<size_t>(j) * kC * lanes;
-    for (int c = 0; c < kC; ++c) {
+    const size_t col = static_cast<size_t>(j) * n_c * lanes;
+    for (int c = 0; c < n_c; ++c) {
       const int64_t d = c == 0 ? decay<kAb0>(acc[c]) : decay<kAb>(acc[c]);
       acc[c] = wadd(d, b[col + c * lanes]);
       f[col + c * lanes] = acc[c];
@@ -269,7 +283,8 @@ __device__ __forceinline__ int64_t moment(int left, int right, int shift, int64_
 // of the pixel's E + F.  pavp.contributions gives each channel's term.
 template <int kN>
 __device__ __forceinline__ void avp_update(int x, int px_s, const int (&feat)[kN], int64_t s0,
-                                           int64_t* e, int64_t* b, size_t stride) {
+                                           int64_t* e, int64_t* b, size_t stride,
+                                           int n = kN) {
   const int64_t s_curr = static_cast<int64_t>(iabs(x - px_s)) << kFb1;
   // s_curr * BETA / (BETA - 1) of a non-negative value: C's / is "trunc"
   const int64_t s_sum = wadd(s0, s_curr * kBeta / (kBeta - 1));
@@ -284,10 +299,53 @@ __device__ __forceinline__ void avp_update(int x, int px_s, const int (&feat)[kN
   };
   fold_in(0, s_curr, true);
   const int xf = x - kFitBase;
-  for (int k = 0; k < kN; ++k) fold_in(1 + k, moment(xf, feat[k], 4 + kFb1 + kFb1, s), false);
-  for (int k = 0; k < kN; ++k)
-    for (int l = 0; l < kN; ++l)
-      fold_in(1 + kN + k * kN + l, moment(feat[k], feat[l], 4 + kFb2 + kFb1, s), false);
+  for (int k = 0; k < n; ++k) fold_in(1 + k, moment(xf, feat[k], 4 + kFb1 + kFb1, s), false);
+  for (int k = 0; k < n; ++k)
+    for (int l = 0; l < n; ++l)
+      fold_in(1 + n + k * n + l, moment(feat[k], feat[l], 4 + kFb2 + kFb1, s), false);
+}
+
+// ---- the segment-frozen contracts (seg_stats, w_pred)
+
+// pavp.decay of every channel of E in place, the energy by BETA and the
+// moments by ALPHA: one step of pavp.e_freeze_extend.
+__device__ __forceinline__ void decay_stats(int64_t* e, int m) {
+  e[0] = decay<kBeta>(e[0]);
+  for (int c = 1; c < m; ++c) e[c] = decay<kAlpha>(e[c]);
+}
+
+// pavp.quantize_weights of one weight: num * 2^(FB2 - FB1) / diag at step
+// 2^-FBW, quotient and remainder apart on magnitudes, truncated toward
+// zero and clipped to [-WCLIP, WCLIP].  Trap: |INT64_MIN| is INT64_MIN, a
+// negative magnitude; torch's floor divisions of it round toward minus
+// infinity (floor_div), the products and shifts wrap.
+__device__ __forceinline__ int quantize_weight(int64_t diag, int64_t num) {
+  constexpr int kEfb = kFbw - kFb1 + kFb2;  // 2
+  const int64_t safe = diag == 0 ? 1 : diag;
+  int64_t ad = wabs(safe), an = wabs(num);
+  if (ad >= (1ll << 48)) {  // INT64_MIN's magnitude is negative: not big
+    ad >>= 16;
+    an >>= 16;  // arithmetic, as torch's >>
+  }
+  ad = ad < 1 ? 1 : ad;
+  const int64_t q0 = floor_div(an, ad);
+  const int64_t r = wsub(an, wmul(q0, ad));
+  const int64_t mag = wadd(wshl(q0 > (1ll << 28) ? (1ll << 28) : q0, kEfb),
+                           floor_div(wshl(r, kEfb), ad));
+  const int64_t sgn = static_cast<int64_t>((num > 0) - (num < 0)) * ((safe > 0) - (safe < 0));
+  const int64_t v = wmul(sgn, mag);
+  return static_cast<int>(v < -kWClip ? -kWClip : (v > kWClip ? kWClip : v));
+}
+
+// pavp.predict_wq: the int32 prediction from quantized weights and the
+// features, |acc| < 2^30 (|weight| <= WCLIP, |feature| <= 128, n <= 12).
+template <int kN>
+__device__ __forceinline__ int predict_wq(const int (&wq)[kN], const int (&feat)[kN],
+                                          int n = kN) {
+  int acc = 0;
+  for (int k = 0; k < n; ++k) acc += wq[k] * feat[k];
+  const int px = clampi((kFitBase << kFbw) + acc, 0, 255 << kFbw);
+  return (px + (1 << (kFbw - 1))) >> kFbw;
 }
 
 // strips._mix_update: both predictors' |error| at x into the two mix

@@ -120,6 +120,11 @@ def library() -> ctypes.CDLL:
         ptr, i32, ptr,
     ]
     lib.nbt_p3_near_row.restype = i32
+    lib.nbt_p3_decode_segment.argtypes = [
+        ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ptr, ptr, i32, i32, i32, i32, i32, ptr, i32, ptr,
+    ]
+    lib.nbt_p3_decode_segment.restype = i32
     lib.nbt_error_string.argtypes = [i32]
     lib.nbt_error_string.restype = ctypes.c_char_p
     return lib
@@ -130,6 +135,30 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = library().nbt_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def check_tensors(want: dict, device: torch.device, kernel: str) -> None:
+    """Raise ValueError unless every tensor of ``want`` ({name: (tensor,
+    shape, dtype)}) has its shape and dtype, lies on ``device``, a CUDA
+    device, and is contiguous; shapes and dtypes are checked first."""
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{name} must be {tuple(shape)} {dtype}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    for name, (t, _, _) in want.items():
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{name} lies on {t.device}: {kernel} runs on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def check_int16(table: torch.Tensor) -> None:
+    """Raise ValueError unless an int32 ``table``'s values lie in int16, as
+    a kernel reading it as int16 needs (a readback); int16 passes as it is."""
+    if table.dtype == torch.int32 and table.numel():
+        lo, hi = (int(v) for v in torch.aminmax(table))
+        if lo < -(1 << 15) or hi >= 1 << 15:
+            raise ValueError(f"bias values must lie in int16, got [{lo}, {hi}]")
 
 
 def stream_of(t: torch.Tensor) -> tuple[int, int]:

@@ -35,7 +35,9 @@ Decode (:func:`_decode_walk`) is one lockstep step a pixel over every strip
 lane of every image of a call: the AVP prediction from the reconstructed
 window, the bias correction, up to n_unary + 8 binary decisions read from
 the 16 phase states, the AutoMapper and the unfold, then the same segment
-and row updates of the adaptive state as the encoder's.
+and row updates of the adaptive state as the encoder's (on the card kernel
+K4, ``csrc/p3_decode_walk.cu``, a launch a row or a column segment; on the
+CPU its plain version).
 
 Container (``NBTC0001``, profile 3): header | 32-byte Tune block | u32
 word count per state | the states' u16 streams.  ``tile_h`` is the strip
@@ -55,7 +57,7 @@ import torch
 
 from ..constants import MAX_VAL, Q_N_CONTEXT
 from ..convert import resolve_device
-from ..ops import coder3, near_walk, pavp, rans, rans_bin, zcodec3
+from ..ops import coder3, decode_walk, near_walk, pavp, rans, rans_bin, zcodec3
 from ..ops.avp import BETA, FB1, FIT_BASE
 from ..ops.context import BIAS_FRAC_BITS, quantize_bias, residual_fold, residual_unfold
 from ..ops.neighbors import Neighbors, sample
@@ -773,14 +775,40 @@ def _near_code(y, qu, qv, qw, key, n_imgs: int, k_step: int, tune: Tune):
 
 def _decode_walk(words, bias_tab, th: int, w: int, s: int, n_imgs: int, n_feat: int,
                  near: int, tune: Tune):
-    """Lockstep decode of every strip lane, one step a pixel.
+    """Lockstep decode of every strip lane.
 
-    words: (N_PHASE, L, wmax) int64 streams of the L = n_imgs * s lanes,
-    image-major; ``bias_tab``: None for the row-adaptive bias, else the
-    legacy static tables (n_imgs * C,).  ``tune`` is the container's replay
-    contract.  Returns the (L, th, w) uint8 reconstruction on words'
-    device.  The pixel loop never waits for the host: every index that
-    varies is a tensor, (i, j) and the phase of each bin are Python ints.
+    words: (N_PHASE, L, wmax) int32 streams of u16 words of the L = n_imgs
+    * s lanes, image-major; ``bias_tab``: None for the row-adaptive bias,
+    else the legacy static tables (n_imgs * C,); ``near`` in 0..255,
+    ``n_feat`` in 1..12; ``tune`` is the container's replay contract.
+    Returns the (L, th, w) uint8 reconstruction on words' device.
+
+    A CPU tensor runs the plain walk (:func:`_decode_walk_plain`); a CUDA
+    tensor runs kernel K4 a row or a column segment at a time
+    (:func:`_decode_walk_card`), which raises where it cannot run; any
+    other device raises.
+    """
+    if not 0 <= near <= MAX_VAL:  # the header keeps near in one byte
+        raise ValueError(f"the decode walk serves near in 0..{MAX_VAL}, got {near}")
+    if not 1 <= n_feat <= N_TAPS:
+        raise ValueError(f"the decode walk serves 1 to {N_TAPS} AVP features, got {n_feat}")
+    if words.device.type == "cpu":
+        return _decode_walk_plain(words.to(torch.int64), bias_tab, th, w, s, n_imgs, n_feat,
+                                  near, tune)
+    if words.device.type == "cuda":
+        return _decode_walk_card(words, bias_tab, th, w, s, n_imgs, n_feat, near, tune)
+    raise ValueError(f"the decode walk runs on cpu or cuda, not {words.device}")
+
+
+def _decode_walk_plain(words, bias_tab, th: int, w: int, s: int, n_imgs: int, n_feat: int,
+                       near: int, tune: Tune):
+    """The decode walk in plain PyTorch, one lockstep step a pixel over
+    every lane: the plain version of K4.
+
+    words: (N_PHASE, L, wmax) int64 streams; the rest and the result as
+    :func:`_decode_walk`'s.  The pixel loop never waits for the host: every
+    index that varies is a tensor, (i, j) and the phase of each bin are
+    Python ints.
     """
     dev = words.device
     lanes = n_imgs * s
@@ -1021,6 +1049,59 @@ def _decode_walk(words, bias_tab, th: int, w: int, s: int, n_imgs: int, n_feat: 
     return out
 
 
+def _decode_walk_card(words, bias_tab, th: int, w: int, s: int, n_imgs: int, n_feat: int,
+                      near: int, tune: Tune):
+    """The decode walk on the card: kernel K4 (``ops/decode_walk.py``) a
+    column segment at a time where the contract replays the bias or the
+    mapper a segment (seg_bias, seg_map), else a row at a time.  Between
+    launches torch keeps what an image's lanes share: the bias moments and
+    their int16 table, the mapper history and its order, each updated from
+    the pixels K4 wrote, as :func:`_decode_walk_plain` updates them.  The
+    lanes' own state stays on the card in K4's layout, lanes fastest.
+    Returns what :func:`_decode_walk_plain` returns."""
+    dev = words.device
+    lanes = n_imgs * s
+    adaptive = bias_tab is None
+    n_seg = _eff_seg(tune.n_seg, w)
+    ws = w // n_seg
+    seg_bias = bool(tune.seg_bias) and n_seg > 1 and adaptive
+    seg_map = bool(tune.seg_map) and n_seg > 1
+    span = ws if seg_bias or seg_map else w  # columns a launch
+    con = decode_walk.contract(near, n_feat, tune, ws, s)
+    st = decode_walk.new_state(words, th, w, con, tune.cnt_init)
+    img = torch.arange(n_imgs, device=dev).repeat_interleave(s)
+    mhist = coder3.init_mapper(n_imgs, dev)
+    bsums = torch.zeros(n_imgs * Q_N_CONTEXT, dtype=torch.int64, device=dev)
+    bcnts = torch.zeros_like(bsums)
+    # the static tables, or the moments' quantized means: both lie in int16
+    btab = torch.empty(n_imgs * Q_N_CONTEXT, dtype=torch.int16, device=dev)
+    if not adaptive:
+        btab.copy_(bias_tab)
+    prev1 = torch.zeros((w, lanes), dtype=torch.uint8, device=dev)
+    prev2 = torch.zeros_like(prev1)
+    idx, dx, key, y = st.replay.unbind(0)  # (W, L) each
+    for i in range(th):
+        for c0 in range(0, w, span):
+            cols = slice(c0, c0 + span)
+            if adaptive and (c0 == 0 or seg_bias):
+                btab.copy_(quantize_bias(bsums, bcnts, tune.bias_shrink))
+            if c0 == 0 or seg_map:
+                order = coder3.mapper_order(mhist)
+            decode_walk.launch_segment(st, btab, order, prev1, prev2, i, c0, c0 + span, con)
+            if seg_map:
+                mhist = coder3.mapper_updates(mhist, img, key[cols].t(), y[cols].t(),
+                                              tune.map_bump, tune.map_halve)
+            if seg_bias:
+                bsums, bcnts = _bias_update(bsums, bcnts, idx[cols], dx[cols], tune.bias_cap)
+        if not seg_map:
+            mhist = coder3.mapper_updates(mhist, img, key.t(), y.t(), tune.map_bump,
+                                          tune.map_halve)
+        if adaptive and not seg_bias:
+            bsums, bcnts = _bias_update(bsums, bcnts, idx, dx, tune.bias_cap)
+        prev1, prev2 = prev2, prev1  # row i was written into prev2
+    return st.out.permute(2, 0, 1).contiguous()
+
+
 def _parse(stream: bytes):
     """Header, replay contract and streams of a profile-3 container, every
     field checked before anything is sized from it.  Returns (geometry
@@ -1077,6 +1158,26 @@ def _plane_geom(geom):
     return (s, th, h0 if transposed else w0, n_feat, near, tune)
 
 
+def _walk_args(parsed, dev):
+    """The :func:`_decode_walk` arguments of parsed containers (``_parse``)
+    of one plane geometry, model and bias mode, lanes image-major, and each
+    image's plane height."""
+    s, th, ww, n_feat, near, tune = _plane_geom(parsed[0][0])
+    n_imgs = len(parsed)
+    wmax = max(2, max(int(p[2].max()) for p in parsed))
+    wmax = -(-wmax // 64) * 64
+    smat = np.concatenate([rans.pad_streams(p[3], p[2], wmax) for p in parsed])
+    words = torch.from_numpy(smat).to(dev).view(n_imgs * s, N_PHASE, wmax)
+    words = words.transpose(0, 1).contiguous()  # int32: each walk reads u16 words
+    bias = None if parsed[0][1] is None else torch.from_numpy(
+        np.concatenate([p[1] for p in parsed])).to(dev)
+    # the rows past the plane's height come last in the walk and are cut:
+    # a strip taller than the plane (s = 1) walks only the plane's rows
+    heights = [g[1] if g[4] else g[0] for g, *_ in parsed]
+    rows = min(th, max(heights))
+    return (words, bias, rows, ww, s, n_imgs, n_feat, near, tune), heights
+
+
 def decode(stream: bytes, device="cuda") -> np.ndarray:
     """Decode one profile-3 container."""
     return decode_batch([stream], device=device)[0]
@@ -1094,20 +1195,9 @@ def decode_batch(streams: list[bytes], device="cuda") -> list[np.ndarray]:
     if any(_plane_geom(p[0]) != _plane_geom(parsed[0][0]) or (p[1] is None) != adaptive
            for p in parsed[1:]):
         return [decode(x, device=dev) for x in streams]
-    s, th, ww, n_feat, near, tune = _plane_geom(parsed[0][0])
-    n_imgs = len(parsed)
-    wmax = max(2, max(int(p[2].max()) for p in parsed))
-    wmax = -(-wmax // 64) * 64
-    smat = np.concatenate([rans.pad_streams(p[3], p[2], wmax) for p in parsed])
-    words = torch.from_numpy(smat).to(dev).view(n_imgs * s, N_PHASE, wmax)
-    words = words.transpose(0, 1).to(torch.int64).contiguous()
-    bias = None if adaptive else torch.from_numpy(
-        np.concatenate([p[1] for p in parsed])).to(dev)
-    # the rows past the plane's height come last in the walk and are cut:
-    # a strip taller than the plane (s = 1) walks only the plane's rows
-    heights = [g[1] if g[4] else g[0] for g, *_ in parsed]
-    rows = min(th, max(heights))
-    px = _decode_walk(words, bias, rows, ww, s, n_imgs, n_feat, near, tune).cpu().numpy()
+    args, heights = _walk_args(parsed, dev)
+    s, rows, ww = args[4], args[2], args[3]
+    px = _decode_walk(*args).cpu().numpy()
     out = []
     for b, (geom, *_) in enumerate(parsed):
         transposed = geom[4]

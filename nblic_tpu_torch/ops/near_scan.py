@@ -18,7 +18,6 @@ from .context import apply_static_bias, residual_fold, residual_unfold
 from .decode import N_WROWS, _aligned
 from .window import pixel_model, row_start_window, slide_window
 
-INT16_MIN, INT16_MAX = -(1 << 15), (1 << 15) - 1
 
 
 def encode_scan_plain(x, bias, wcols, th: int, tw: int, near: int, profile: int,
@@ -88,10 +87,7 @@ def _check(x, bias, wcols, th, tw, near, profile):
         raise ValueError(f"inputs lie on several devices: {devices}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"encode_scan runs on cpu or cuda, not {x.device}")
-    if bias.numel():  # the kernel holds the tables as int16, as the container does
-        lo, hi = (int(v) for v in torch.aminmax(bias))
-        if lo < INT16_MIN or hi > INT16_MAX:
-            raise ValueError(f"bias values must lie in int16, got [{lo}, {hi}]")
+    kernels.check_int16(bias)  # the kernel holds the tables as int16, as the container does
 
 
 def encode_scan(x, bias, wcols, th: int, tw: int, near: int, profile: int,

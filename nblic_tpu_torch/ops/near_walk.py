@@ -19,7 +19,6 @@ from ..constants import MAX_VAL, Q_N_CONTEXT
 
 N_FEAT = 10      # the feature count K5 is built for (strips.AVP_N)
 N_PLANES = 5     # y, qu, qv, qw, key
-INT16_MIN, INT16_MAX = -(1 << 15), (1 << 15) - 1
 
 
 def _check(x_row, bias, prev1, prev2, b, f, b_mix, f_mix, out, idx, dx, i, near, n_feat):
@@ -53,17 +52,8 @@ def _check(x_row, bias, prev1, prev2, b, f, b_mix, f_mix, out, idx, dx, i, near,
                          f"lanes {lanes} a multiple of n_images, got {tuple(bias.shape)} "
                          f"{bias.dtype}")
     want["bias"] = (bias, tuple(bias.shape), bias.dtype)
-    for name, (t, shape, dtype) in want.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
-        if t.device.type != "cuda" or t.device != x_row.device:
-            raise ValueError(f"{name} lies on {t.device}: K5 runs on one CUDA device")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if bias.dtype == torch.int32:  # the kernel reads the table as int16
-        lo, hi = (int(v) for v in torch.aminmax(bias))
-        if lo < INT16_MIN or hi > INT16_MAX:
-            raise ValueError(f"bias values must lie in int16, got [{lo}, {hi}]")
+    kernels.check_tensors(want, x_row.device, "K5")
+    kernels.check_int16(bias)  # the kernel reads the table as int16
     return lanes // n_imgs
 
 

@@ -18,7 +18,7 @@ import torch
 
 from nblic_tpu_torch.convert import group_args, tables_from_numpy
 from nblic_tpu_torch.models import strips, tiled
-from nblic_tpu_torch.ops import decode, fold, lsq, near_scan, near_walk, rans
+from nblic_tpu_torch.ops import decode, decode_walk, fold, lsq, near_scan, near_walk, rans
 from nblic_tpu_torch.utils.synth import edge_images, synth_image
 
 
@@ -581,3 +581,126 @@ def test_near_walk_kernel_refuses_what_it_cannot_run(cuda_device):
     args[1] = args[1].to(torch.int64)
     with pytest.raises(ValueError, match="bias"):
         near_walk.launch_row(*args)
+
+
+# K4 against the plain walk on the card, on containers of the port's
+# encoder: every tune the parser accepts, near 0, 1, 3 and 255, the three
+# AVP instances (10, 6, the general one at 12), lane counts 1, 31, 33 and
+# 4,608, a 1-row strip, a strip taller than the image, a width no segment
+# count divides, a 1-pixel column, the legacy fixtures and a garbage
+# payload.  The plain walk takes ~15 ms a step on the card, so the walks
+# are short.
+def _k4_against_plain(conts, rows=None):
+    """K4 through the dispatcher and the plain walk on the same card
+    tensors; asserts K4's launches (a row or a segment each) and equal
+    pixels.  ``rows`` cuts the walk's rows."""
+    args, _ = strips._walk_args([strips._parse(c) for c in conts], torch.device("cuda"))
+    if rows is not None:
+        args = (args[0], args[1], min(rows, args[2]), *args[3:])
+    words, bias, th, w, s, n_imgs, n_feat, near, tune = args
+    n_seg = strips._eff_seg(tune.n_seg, w)
+    per_seg = n_seg > 1 and ((tune.seg_bias and bias is None) or tune.seg_map)
+    before = decode_walk.launch_segment.launches
+    k = strips._decode_walk(*args)
+    torch.cuda.synchronize()
+    assert decode_walk.launch_segment.launches - before == th * (n_seg if per_seg else 1)
+    ref = strips._decode_walk_plain(words.to(torch.int64), *args[1:])
+    assert k.shape == (n_imgs * s, th, w) and k.dtype == torch.uint8
+    assert torch.equal(k, ref)
+
+
+K4_TUNES = ("TUNE_V1", "TUNE_V2", "TUNE_V3", "TUNE_V4", "TUNE_MAX", "TUNE_V3S", "TUNE_V4S")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tune", K4_TUNES)
+@pytest.mark.parametrize("near", [0, 3])
+def test_decode_walk_kernel_under_every_tune(cuda_device, monkeypatch, tune, near):
+    monkeypatch.setattr(strips, "TUNE", getattr(strips, tune))
+    imgs = [synth_image(np.random.default_rng(K4_TUNES.index(tune)), 24, 16)]
+    conts = strips.encode_batch(imgs, th=4, near=near, device="cpu")
+    _k4_against_plain(conts, rows=2)
+
+
+def _thin(seed, n, h, w):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, size=(h, w), dtype=np.uint8) for _ in range(n)]
+
+
+# (images, th, near, AVP_N): each container's strips of th rows are lanes
+K4_CASES = {
+    "lanes1-near1": (lambda: _thin(1, 1, 4, 4), 4, 1, 10),
+    "lanes31-near255": (lambda: _thin(2, 31, 4, 4), 4, 255, 10),
+    "lanes33-three-strips": (lambda: _thin(3, 11, 12, 4), 4, 0, 10),
+    "lanes4608": (lambda: [synth_image(np.random.default_rng(4), 1024, 8) for _ in range(9)],
+                  2, 0, 10),
+    "th1": (lambda: _thin(5, 2, 16, 16), 1, 0, 10),
+    "strip-taller-than-image": (lambda: _thin(6, 1, 5, 8), 16, 0, 10),
+    "w48": (lambda: _thin(7, 1, 48, 48), 1, 0, 10),
+    "w1": (lambda: _thin(8, 3, 16, 1), 16, 2, 10),
+    "n_feat6": (lambda: _thin(9, 2, 8, 8), 4, 0, 6),
+    "n_feat12": (lambda: _thin(10, 2, 8, 8), 4, 1, 12),
+    "n_feat3": (lambda: _thin(11, 2, 8, 8), 4, 0, 3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_decode_walk_kernel_matches_plain(cuda_device, monkeypatch, case):
+    make, th, near, n_feat = K4_CASES[case]
+    monkeypatch.setattr(strips, "AVP_N", n_feat)
+    conts = strips.encode_batch(make(), th=th, near=near, device="cpu")
+    _k4_against_plain(conts, rows=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("near", [0, 3])
+def test_decode_walk_kernel_on_edge_images(cuda_device, near):
+    # a checkerboard, a saturated ramp, a constant image and 1-pixel
+    # stripes as one batch at strip height 8
+    imgs = edge_images()
+    conts = strips.encode_batch(imgs, th=8, near=near, device="cpu")
+    _k4_against_plain(conts, rows=4)
+    for got, im in zip(strips.decode_batch(conts, device=cuda_device), imgs):
+        assert np.abs(got.astype(int) - im.astype(int)).max() <= near
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["legacy", "static", "near2", "garbage"])
+def test_decode_walk_kernel_on_fixtures(cuda_device, form):
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_torch_p3")
+    with open(os.path.join(data, ("near2" if form == "garbage" else form) + ".nbtc"),
+              "rb") as f:
+        stream = bytearray(f.read())
+    if form == "garbage":  # random payload bytes: z's events, not the bins read
+        stream[-40:] = np.random.default_rng(73).integers(0, 256, 40, dtype=np.uint8).tobytes()
+    _k4_against_plain([bytes(stream)], rows=4)
+
+
+@pytest.mark.cuda
+def test_decode_walk_kernel_refuses_what_it_cannot_run(cuda_device):
+    tune = strips.TUNE_V4
+    w, lanes, th = 8, 2, 3
+    con = decode_walk.contract(0, 10, tune, 4, lanes)
+    words = torch.zeros((16, lanes, 64), dtype=torch.int32, device=cuda_device)
+    st = decode_walk.new_state(words, th, w, con, tune.cnt_init)
+    order = strips.coder3.mapper_order(strips.coder3.init_mapper(1, cuda_device))
+    rows = [torch.zeros((w, lanes), dtype=torch.uint8, device=cuda_device) for _ in range(2)]
+    bias = torch.zeros(3072, dtype=torch.int32, device=cuda_device)
+    for bad in (32768, -32769):
+        bias[7] = bad
+        with pytest.raises(ValueError, match="int16"):
+            decode_walk.launch_segment(st, bias, order, *rows, 0, 0, 4, con)
+    bias[7] = 32767  # the int16 ends themselves run
+    decode_walk.launch_segment(st, bias, order, *rows, 0, 0, 4, con)
+    decode_walk.launch_segment(st, bias.to(torch.int16), order, *rows, 0, 4, 8, con)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="features"):
+        decode_walk.launch_segment(st, bias, order, *rows, 1, 0, 4, con._replace(n_feat=13))
+    with pytest.raises(ValueError, match="bias"):
+        decode_walk.launch_segment(st, bias.to(torch.int64), order, *rows, 1, 0, 4, con)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_walk.launch_segment(st, bias, order.cpu(), *rows, 1, 0, 4, con)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_walk.launch_segment(st._replace(b=st.b.transpose(0, 2).contiguous().transpose(
+            0, 2)), bias, order, *rows, 1, 0, 4, con)
