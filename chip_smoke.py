@@ -6,7 +6,10 @@
 Phases, one line each; any failure exits non-zero:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: compile the CUDA kernels from nblic_tpu_torch/csrc (nvcc, sm_90a,
-     one process a source), with ptxas's registers and spills, then K2's
+     one process a source), with ptxas's report and a line of registers,
+     stack frame and spills for each K5 and K4 instance, then K5's warp
+     chain alone (one warp a system: the solve and the prediction) held
+     exact to avp.solve_batch / predict_from_solve at n = 1..12, then K2's
      slot-table k, stream ring and shared memory a CTA, K7's shared memory
      a CTA and K1's a block;
   3. K1 (rANS fold) against its plain version on the card, exact;
@@ -77,7 +80,8 @@ Phases, one line each; any failure exits non-zero:
      device memory, the stages' times and K5's launches, two of its
      containers held against the CPU's, then K5 against the plain walk on
      that walk's own input, K5 timed beside its bound and floor; one corpus
-     image's walk at th 768 (one lane, 393,216 steps) timed; the corpus
+     corpus's walk at th 768 (24 lanes, one an image, 393,216 steps)
+     timed; the corpus
      decoded on the card through tiled.decode_batch within 2 (K4).  The
      CPU's encodes of phases 12-14 and its decodes run in a pool of three
      processes started before phase 12, beside the card's work.
@@ -92,7 +96,8 @@ Phases, one line each; any failure exits non-zero:
      divisions priced by path and its bins counted on a plain walk of the
      same input, which it must equal; one corpus image encoded on the CPU
      at th 768 (one lane, 393,216 steps) decoded through strips.decode on
-     K4, exact, with its seconds and us a step.
+     K4, exact, with its seconds and us a step, then that container as the
+     corpus's 24 lanes at th 768, the walk cut to its first 192 rows, exact.
  15. interop (Q0.2, NBLIC0.3): the port's copy of the native runtime built
      with g++; the 24-image corpus through api.compress / decompress(
      backend="native") at effort 0 (1 and 4 threads), 1, 2, 3 and effort 1
@@ -129,8 +134,9 @@ Phases, one line each; any failure exits non-zero:
 Each kernel's time stands beside its bound (the whole card's roofline:
 bytes over the memory rate, integer operations over the int32 rate) and
 its floor (the least time at the launch's own parallelism: the issue of
-one SM's schedulers for K2 and K2', of one scheduler's warps for K7, K5
-and K4, the serial chain for K1).  Then one
+one SM's schedulers for K2 and K2', of one scheduler's warps for K7, the
+larger of a scheduler's warps' issue and the chain's dependent path for
+K5 and K4 (one warp a lane), the serial chain for K1).  Then one
 JSON line of the kernels' measured numbers and bounds, the whole command's
 time, and as the last line {"ok": true, "device": {...}}.  Needs no
 network; imports no JAX.
@@ -138,6 +144,8 @@ network; imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import multiprocessing
 import statistics
@@ -212,7 +220,34 @@ K5_SDIV64 = 84   # the signed one
 K5_DIV32 = 19    # the inline path of either, both operands in [0, 2^32)
 K5_OTHER_OPS = 16627
 K5_MIX_OPS = 186
-K5_LANES = 32  # lanes a CTA: one warp
+# K5 and K4 run one warp a lane, and a warp instruction does as
+# many of a lane's operations as it has threads at work on them.  So the
+# operations above go to the floor's issue term by the share of a warp's
+# 32 threads each part of the chain keeps busy (avp_chain.cuh): what is
+# one value a pixel (the window to the unfold, the quantizers, the
+# features, the pivot search and the divisors' preparation, the mix
+# chain, the bias moments' index) every thread computes alike, 1/32; the
+# system, the moments and their update and the F chain run over the m =
+# 111 channels in 4 slots of 32, 111/128; the elimination's 330 updates
+# (and their quotients) in 15 rounds of 32 over the 9 levels, 330/480; the
+# back substitution's 45 in 9 rounds, 45/288; the prediction's 10 terms
+# in one round, 10/32.  (K5_OPS_BY_SHARE: ops a pixel, share.)
+K5_OPS_BY_SHARE = ((288 + 70 + 13 + 4 + 675, 1 / 32), (482 + 5455 + 2220, 111 / 128),
+                   (7125 * 330 / 375, 330 / 480), (7125 * 45 / 375, 45 / 288), (295, 10 / 32))
+K5_TDIV_SHARES = ((330 / 385, 330 / 480), (45 / 385, 45 / 288), (10 / 385, 10 / 32))
+# The chain's dependent path a pixel on one warp, in cycles, counted from
+# avp_chain.cuh at ~4 cycles a dependent integer instruction, ~30 a
+# shared-memory load, a shuffle or a warp barrier, ~100 an FP64 division:
+# an elimination level 780 (the pivot's load and its butterfly of 4
+# shuffle rounds 190, the swap and the divisor's load 90, its reciprocal
+# 350 (two FP64 divisions, two 128-bit products and the fixes), up to
+# three rounds of updates, each three shared loads, a wrapping product, a
+# multiply-high quotient and a store, 150) x 9; the last divisor's
+# reciprocal 350; the back substitution 9 x (a shuffle, a product and a
+# quotient) 90; the prediction 260 (a quotient, 5 shuffle rounds); the
+# update 450 (s and its reciprocal 350, the channels 100); the window to
+# the unfold 400; the system's stores and the barriers 100.
+K5_PATH_CYCLES = 780 * 9 + 350 + 90 * 9 + 260 + 450 + 400 + 100
 # K4 per pixel of a lane of p3_decode_kernel<10>, counted as K5's: the AVP
 # chain is K5's without the fold (14), its divisions priced by path on the
 # walk's own input; the coder's work, from the source: a pixel's fixed work
@@ -238,10 +273,82 @@ K4_UNARY_OPS = 135
 K4_REFINE_OPS = 60
 K4_EVENT_OPS = (82, 11, 20)
 K4_SWEEP_OPS = 8
-K4_LANES = 32  # lanes a CTA: one warp
+# On one warp a lane K4's coder runs on the warp's first thread (share
+# 1/32); a symbol's events over the layers' and bits' threads (one round:
+# warp instructions a pixel the ops of one layer and one bit, K4_EVENT_OPS
+# [0] + [1] + [2]); the segment end's sweep over the pairs, 32 a round.
+# Its dependent path adds to K5's K4_BIN_CYCLES an active bin (its two
+# counter pairs' shared loads, the probability's division at the inline
+# path, the rANS step, a stream word from L2) and K4_SYMBOL_CYCLES a pixel
+# (the symbol's shuffle, the mapper's load, the events' ballot and atomics).
+K4_BIN_CYCLES = 150
+K4_SYMBOL_CYCLES = 300
 P3_FULL_TH = 768  # the full-depth strip height: one corpus image a lane
+P3_FULL_ROWS = 192  # rows of the th-768 walk over the corpus's 24 lanes (K4)
 NEAR = 2  # the near phase's max error
 T_START = time.perf_counter()
+
+
+def ptxas_summary(report: str, names=("p3_near_row_kernel", "p3_decode_kernel",
+                                       "avp_solve_kernel")) -> list:
+    """One line a kernel instance named in ``names`` from nvcc's ``-Xptxas
+    -v`` report: its template arguments, registers, stack frame and spill
+    bytes."""
+    import re
+
+    lines = []
+    for part in report.split("Compiling entry function '")[1:]:
+        mangled = part.split("'", 1)[0]
+        name = next((n for n in names if n in mangled), None)
+        if name is None:
+            continue
+        args = re.match(r"I((?:L[ib]\d+E)+)E", mangled.split(name, 1)[1])
+        targs = [("true" if v == "1" else "false") if k == "b" else v
+                 for k, v in re.findall(r"L([ib])(\d+)E", args.group(1))] if args else []
+        regs = re.search(r"Used (\d+) registers", part)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", part)
+        lines.append(f"{name}<{', '.join(targs)}>: {regs.group(1) if regs else '?'} registers, "
+                     + (f"{frame.group(1)} B stack frame, {frame.group(2)} B spill stores, "
+                        f"{frame.group(3)} B spill loads" if frame else "no frame line"))
+    return lines
+
+
+def _warp_chain_check(dev, card) -> bool:
+    """K5's warp chain alone (ops/near_walk.py::solve_systems, one warp a
+    system) against avp.solve_batch / predict_from_solve on the CPU, at n =
+    1..12: ridge systems at the walk's magnitudes, wrapping entries, small
+    entries full of pivot ties and zeros, and INT64_MIN / INT64_MAX among
+    them; exact."""
+    import torch
+
+    from nblic_tpu_torch.ops import avp, near_walk
+
+    rng = np.random.default_rng(15)
+    p, same = 128, True
+    t0 = time.perf_counter()
+    for n in range(1, 13):
+        x = rng.integers(-128, 128, size=(n, 40, p)).astype(np.int64)
+        ridge = np.concatenate([np.einsum("kip,lip->klp", x, x) << 16,
+                                rng.integers(-(1 << 40), 1 << 40, size=(n, 1, p))], 1)
+        wrapping = rng.integers(-(1 << 62), 1 << 62, size=(n, n + 1, p), dtype=np.int64)
+        ties = rng.integers(-2, 3, size=(n, n + 1, p)).astype(np.int64)
+        edges = rng.integers(-50, 50, size=(n, n + 1, p)).astype(np.int64)
+        pick = rng.random(edges.shape)
+        edges[pick < 0.15] = np.iinfo(np.int64).min
+        edges[pick > 0.9] = np.iinfo(np.int64).max
+        full = torch.from_numpy(np.concatenate([ridge, wrapping, ties, edges], 2))
+        feats = torch.from_numpy(rng.integers(-128, 128, size=(n, 4 * p)).astype(np.int64))
+        a, b = full[:, :n], full[:, n]
+        diag, num, ok = avp.solve_batch(a.clone(), b.clone(), n)
+        want = (diag, num, ok, avp.predict_from_solve(diag, num, feats))
+        got = near_walk.solve_systems(a.to(dev), b.to(dev), feats.to(dev))
+        same &= all(torch.equal(u.cpu(), v) for u, v in zip(got, want))
+    print(f"[K5 chain] the warp chain alone (one warp a system: solve and prediction) on "
+          f"{4 * p} systems at each n = 1..12 (ridge, wrapping, ties and zeros, int64 edges): "
+          f"equal to avp.solve_batch / predict_from_solve {same} "
+          f"({time.perf_counter() - t0:.1f} s) ({card})", flush=True)
+    return same
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -940,13 +1047,53 @@ def _walk_bound(x, ops: float) -> tuple[float, str]:
     return _bound(x.numel() * (1 + 5 * 8), x.numel() * ops)
 
 
-def _walk_floor(lanes: int, steps: int, ops: float) -> float:
+def _k5_issue(paths: dict, mix: bool) -> float:
+    """K5's warp instructions a pixel on one warp a lane: each part of
+    K5_OTHER_OPS (with K5_MIX_OPS, all alike, under mix_e) and each
+    division by its path (``paths`` of :func:`_division_paths`) over the
+    share of the warp's threads that part keeps busy (K5_OPS_BY_SHARE,
+    K5_TDIV_SHARES; the moments' divisions at 111/128)."""
+    tdiv = K5_UDIV64 * paths["u64"] + K5_DIV32 * paths["u32"]
+    moments = K5_SDIV64 * paths["s64"] + K5_DIV32 * paths["s32"]
+    return (sum(ops / (32 * share) for ops, share in K5_OPS_BY_SHARE)
+            + sum(tdiv * part / (32 * share) for part, share in K5_TDIV_SHARES)
+            + moments / (32 * 111 / 128) + (K5_MIX_OPS if mix else 0))
+
+
+def _k4_issue(paths: dict, con) -> float:
+    """K4's warp instructions a pixel on one warp a lane under ``con``:
+    K5's chain without the fold (14, every thread alike), the coder's
+    fixed work and its active bins on one thread, the events in one round,
+    the segment end's sweep 32 pairs a round."""
+    pairs = 16 * con.n_class + 16 * 5 * 2
+    issue = (_k5_issue(paths, bool(con.mix_e)) - 14 + K4_PIXEL_OPS
+             + K4_UNARY_OPS * paths["unary"] + K4_REFINE_OPS * paths["refine"]
+             + K4_SWEEP_OPS * pairs / 32 / con.ws)
+    return issue + (0 if con.sym_cnt else sum(K4_EVENT_OPS))
+
+
+def _k4_path(paths: dict) -> float:
+    """K4's dependent path a pixel in cycles: K5's and the coder's."""
+    return (K5_PATH_CYCLES + K4_BIN_CYCLES * (paths["unary"] + paths["refine"])
+            + K4_SYMBOL_CYCLES)
+
+
+def _walk_floor(lanes: int, steps: int, issue: float, path: float) -> tuple:
     """Least milliseconds of a profile-3 walk (K5, K4) at the launch's own
-    parallelism: CTAs of one warp (32 lanes) spread over the SMs' 4 x 132
-    schedulers, each issuing its warps' steps x ``ops``, one a cycle."""
-    warps = -(-lanes // K5_LANES)
-    per_scheduler = -(-warps // (4 * SMS))
-    return 1e3 * per_scheduler * steps * ops / CLOCK_HZ
+    parallelism, one warp a lane: the larger of the issue term, each of the
+    SMs' 4 x 132 schedulers issuing its share of the warps' ``issue`` warp
+    instructions a step, one a cycle, and the chain's dependent ``path``
+    cycles a step.  Returns (floor ms, issue ms, path ms)."""
+    per_scheduler = -(-lanes // (4 * SMS))
+    issue_ms = 1e3 * per_scheduler * steps * issue / CLOCK_HZ
+    path_ms = 1e3 * steps * path / CLOCK_HZ
+    return max(issue_ms, path_ms), issue_ms, path_ms
+
+
+def _floor_text(floor: tuple, issue: float, path: float) -> str:
+    """A floor of :func:`_walk_floor` with its two terms."""
+    return (f"floor {floor[0]:.3f} ms (issue {floor[1]:.3f} ms at {issue:.1f} warp "
+            f"instructions a step, path {floor[2]:.3f} ms at {path:.0f} cycles a step)")
 
 
 def _k5_case(what, x, n_imgs, near, tune, card):
@@ -1000,7 +1147,7 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
     tiled.encode_corpus at th = P3_NEAR_TH stage by stage, then its decode
     on the card through tiled.decode_batch; K5 against the plain walk on
     the pair (near 1 and 3, both near contracts), the edge images and the
-    corpus's walk, and one corpus image's walk at th 768, timed.  Returns
+    corpus's walk, and the corpus's walk at th 768, timed.  Returns
     None on a failure, else (K5's launches in the entry-point runs, K5's
     numbers on the corpus for the kernels line, K4's launches in the
     decodes)."""
@@ -1145,33 +1292,36 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
     paths, _ = _division_paths(
         lambda: strips._near_walk_plain(x, n_imgs, near, strips.AVP_N, tune_w), x.numel())
     ops = _k5_ops(paths, bool(tune_w.mix_e))
-    bound, floor = _walk_bound(x, ops), _walk_floor(x.shape[0], th * w, ops)
+    issue = _k5_issue(paths, bool(tune_w.mix_e))
+    bound, floor = _walk_bound(x, ops), _walk_floor(x.shape[0], th * w, issue, K5_PATH_CYCLES)
     print(f"[K5 p3_near_walk] the corpus's walk ({x.shape[0]} lanes x {th}x{w}): K5 {ms:.3f} ms "
           f"(median of 3; {1e3 * ms / n_steps:.3f} us a step) | plain {pms:.1f} ms "
-          f"({pms / ms:.0f}x) | bound {bound[0]:.4f} ms ({bound[1]}) | floor {floor:.3f} ms "
-          f"({ops:.1f} ops a pixel; divisions a pixel by path, counted on a plain walk of "
-          f"the same input in {time.perf_counter() - t0:.1f} s: "
+          f"({pms / ms:.0f}x) | bound {bound[0]:.4f} ms ({bound[1]}) | "
+          f"{_floor_text(floor, issue, K5_PATH_CYCLES)} ({ops:.1f} ops a pixel; divisions a "
+          f"pixel by path, counted on a plain walk of the same input in "
+          f"{time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{k} {v:.3f}" for k, v in paths.items()) + f") ({card})", flush=True)
     del x
 
-    # one corpus image's walk at th 768 (one lane), timed, not compared (a
-    # plain walk there takes about an hour)
-    st768, *_ = strips._prepare([corpus[0]], strips.TH_DEFAULT)
+    # the corpus's walk at th 768 (24 lanes, one an image: the default
+    # strip height's own parallelism), timed, not compared (a plain walk
+    # there takes about an hour)
+    st768, *_ = strips._prepare(corpus, strips.TH_DEFAULT)
     x768 = torch.from_numpy(st768).reshape(-1, *st768.shape[2:]).to(dev)
+    lanes768, steps768 = x768.shape[0], x768.shape[1] * x768.shape[2]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    strips._near_walk(x768, 1, NEAR, strips.AVP_N, tune)
+    strips._near_walk(x768, lanes768, NEAR, strips.AVP_N, tune)
     torch.cuda.synchronize()
     s768 = time.perf_counter() - t0
+    floor768 = _walk_floor(lanes768, steps768, issue, K5_PATH_CYCLES)
     rest = (768 * st["row coder"] / th + 768 * st["fold"] / th) / 1e3
-    print(f"[K5 p3_near_walk] one corpus image at th {x768.shape[1]} ({x768.shape[0]} lane, "
-          f"{x768.shape[1] * x768.shape[2]} steps): the walk took {s768:.2f} s "
-          f"({1e6 * s768 / (x768.shape[1] * x768.shape[2]):.2f} us a step; floor "
-          f"{_walk_floor(1, x768.shape[1] * x768.shape[2], ops) / 1e3:.2f} s at the corpus's "
-          f"ops a pixel); with the row "
-          f"coder and the fold at the corpus's times a row ({rest:.1f} s projected) the "
-          f"image's encode would take "
-          f"{s768 + rest:.1f} s ({card})", flush=True)
+    print(f"[K5 p3_near_walk] the corpus at th {x768.shape[1]} ({lanes768} lanes, one an image, "
+          f"{steps768} steps): the walk took {s768:.2f} s ({1e6 * s768 / steps768:.2f} us a "
+          f"step; {_floor_text(floor768, issue, K5_PATH_CYCLES)} at the th-{th} walk's ops a "
+          f"pixel); with the row coder and the fold at the th-{th} corpus's times a row "
+          f"({rest:.1f} s projected) the corpus's encode would take {s768 + rest:.1f} s "
+          f"({card})", flush=True)
     del x768
 
     torch.cuda.reset_peak_memory_stats()
@@ -1265,17 +1415,17 @@ def _k4_phase(corpus, pair_conts, walk_args, dev, card, full_job):
         lambda: strips._decode_walk_plain(words.to(torch.int64), *walk_args[1:]), n_px,
         (tune.n_unary, tune.n_unary + strips.L_R))
     count_s = time.perf_counter() - t0
-    ops = _k4_ops(paths, con)
+    ops, issue, path = _k4_ops(paths, con), _k4_issue(paths, con), _k4_path(paths)
     # each input read once (the stream words), each output written once
     # (the pixels, and the replay's four int64 planes torch reads)
     bound = _bound(words.numel() * 4 + n_px * (1 + 4 * 8), n_px * ops)
-    floor = _walk_floor(lanes, th * w, ops)
+    floor = _walk_floor(lanes, th * w, issue, path)
     print(f"[K4 p3_decode_walk] the corpus's walk ({lanes} lanes x {th}x{w}, {th * w} steps): "
           f"K4 {ms:.3f} ms (median of 3; {1e3 * ms / (th * w):.3f} us a step, the torch "
           f"replays between launches included) | plain {pms:.1f} ms ({pms / ms:.0f}x) | bound "
-          f"{bound[0]:.4f} ms ({bound[1]}) | floor {floor:.3f} ms ({ops:.1f} ops a pixel; a "
-          f"pixel's divisions by path and active bins, counted on a plain walk of the same "
-          f"input in {count_s:.1f} s: "
+          f"{bound[0]:.4f} ms ({bound[1]}) | {_floor_text(floor, issue, path)} ({ops:.1f} ops "
+          f"a pixel; a pixel's divisions by path and active bins, counted on a plain walk of "
+          f"the same input in {count_s:.1f} s: "
           + ", ".join(f"{key} {v:.3f}" for key, v in paths.items()) + f") ({card})",
           flush=True)
     if err is None:
@@ -1294,9 +1444,31 @@ def _k4_phase(corpus, pair_conts, walk_args, dev, card, full_job):
     print(f"[K4 p3_decode_walk] one corpus image at th {P3_FULL_TH} (1 lane, {steps} steps; "
           f"encoded on the cpu meanwhile, {8.0 * len(cont) / corpus[0].size:.4f} bpp, waited "
           f"{wait_s:.1f} s for it): strips.decode on K4 exact {ok} in {dec_s:.2f} s "
-          f"({1e6 * dec_s / steps:.2f} us a step; floor {_walk_floor(1, steps, ops) / 1e3:.2f} "
-          f"s at the corpus's ops a pixel), K4 launches {n} ({card})", flush=True)
+          f"({1e6 * dec_s / steps:.2f} us a step; "
+          f"{_floor_text(_walk_floor(1, steps, issue, path), issue, path)} at the th-{th} "
+          f"walk's ops a pixel), K4 launches {n} ({card})", flush=True)
     if not (ok and n > 0):
+        return None
+    # that container as the corpus's 24 lanes (one an image, the default
+    # strip height's parallelism), the walk cut to its first P3_FULL_ROWS
+    # rows (the depth cut: its launches are host-bound as the image's)
+    n_lanes, rows = len(corpus), P3_FULL_ROWS
+    args24 = strips._walk_args([strips._parse(c) for c in [cont] * n_lanes], dev)[0]
+    args24 = (args24[0], args24[1], rows, *args24[3:])
+    want = torch.from_numpy(np.ascontiguousarray(corpus[0].T[:rows])).to(dev)  # its strip
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out24 = strips._decode_walk(*args24)
+    torch.cuda.synchronize()
+    dec24_s = time.perf_counter() - t0
+    steps24 = rows * min(corpus[0].shape)
+    ok24 = all(torch.equal(o, want) for o in out24)
+    print(f"[K4 p3_decode_walk] that container as {n_lanes} lanes at th {P3_FULL_TH}, the "
+          f"walk's first {rows} rows ({steps24} steps): K4 exact {ok24} in {dec24_s:.2f} s "
+          f"({1e6 * dec24_s / steps24:.2f} us a step, the replays included; "
+          f"{_floor_text(_walk_floor(n_lanes, steps24, issue, path), issue, path)}) ({card})",
+          flush=True)
+    if not ok24:
         return None
     return n, (max(errs + [err]), ms, pms, bound)
 
@@ -1830,10 +2002,19 @@ def main() -> int:
 
     # ---- build
     t0 = time.perf_counter()
-    kernels.build(verbose=True)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        kernels.build(verbose=True)
+    print(report.getvalue(), end="")
     lib = kernels.library()
     print(f"[build] {time.perf_counter() - t0:.2f} s -> {kernels.library_path()} "
           f"({card})", flush=True)
+    for line in ptxas_summary(report.getvalue()) or ["not reported: the library was built "
+                                                     "before this run"]:
+        print(f"[build ptxas] {line}", flush=True)
+    if not _warp_chain_check(dev, card):
+        print("[K5 chain] failed: the warp chain differed from avp.solve_batch")
+        return 1
     print(f"[layout] K2: slot table k={SLOT_BITS}, stream ring "
           f"{lib.nbt_group_decode_ring_words(128)} words at g=128, shared memory "
           f"{lib.nbt_group_decode_smem(64, 128)} B a CTA at 64x64 tiles, "

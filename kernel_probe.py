@@ -67,14 +67,28 @@ PROBE is one of:
              then a walk row of 32 columns at 1152 lanes under
              torch.profiler: its device time against the wall time and its
              device launches a step.  Builds no variant.
-  p3-walk    kernel K5 (csrc/p3_near_walk.cu), the profile-3 near walk:
-             the package's build (with ptxas's report when it builds); by
-             cuobjdump -sass, the routines each K5 instance calls (nvcc's
-             64-bit divisions) with their instructions and call sites (the
-             whole listing goes to build/probe/p3_walk_sass.txt); then K5's
-             time a pixel step at 1, 32, 1152 and 4608 lanes of 512-column
-             strips (2 rows each; the row loop's torch work included).
-             Builds no variant.
+  p3-walk    kernels K5 (csrc/p3_near_walk.cu) and K4
+             (csrc/p3_decode_walk.cu), one warp a strip lane: the package's
+             build with ptxas's registers and spills of each instance (when
+             it builds); by cuobjdump -sass, the routines each instance
+             calls (nvcc's 64-bit divisions) with their instructions and
+             call sites (the whole listing goes to
+             build/probe/p3_walk_sass.txt); then K5's time a pixel step at 1,
+             32, 1152 and 4608 lanes of 512-column strips (2 rows each; the
+             row loop's torch work included) and K4's at as many 16x16
+             strips of 1-4 images (th 16, TUNE_V4: a launch a column, the
+             replays included, each decode held to the images), each at 1,
+             2 and 4 warps a CTA.  Builds no variant.
+  p3-walk-bounds  K5 and K4 variants timed in turns beside the package's
+             kernels at 4 warps a CTA, each held exact to them: with
+             __launch_bounds__'s minimum of 5 and 9 CTAs an SM (registers
+             capped at 102 and 56, for 20 and 36 resident warps), and with
+             --chain-before DIR, on the avp_chain.cuh and udiv64.cuh in DIR;
+             K5 at 1 and 4,608 lanes of 2 x 512, K4 on a corpus-shaped th-4
+             input's first 2 rows (4,608 lanes).  Also K5 with one part of
+             its chain cut (the reciprocals, the elimination, the back
+             substitution, the moment update, the F chain; WALK_CUTS), whose
+             output is wrong on purpose (reported, not failed on).
   interop    the interop engines (plain PyTorch, one lane) on the card: the
              Q0.2 encode of a synthetic 768x512 image and of a flat one (every
              pixel one context: the context chain's longest walk) with the
@@ -98,7 +112,9 @@ Run from the repository root.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import io
 import re
 import shutil
 import subprocess
@@ -119,6 +135,31 @@ from nblic_tpu_torch.utils.synth import synth_image
 PROBE_DIR = kernels.BUILD_DIR.parent / "probe"
 K2_SRC = kernels.CSRC / "group_decode.cu"
 K1_SRC = kernels.CSRC / "rans_fold.cu"
+WALK_SRCS = {"k5": kernels.CSRC / "p3_near_walk.cu", "k4": kernels.CSRC / "p3_decode_walk.cu"}
+WALK_BOUNDS_LINE = "__global__ void __launch_bounds__(kMaxWarps * kWarp)"
+WALK_MIN_CTAS = (5, 9)  # CTAs of 4 warps an SM: <= 102 and <= 56 registers
+# K5 with one part of its chain cut (avp_chain.cuh / udiv64.cuh edits):
+# each variant's output is wrong on purpose; its time against the
+# package's gives the part's share of a step
+WALK_CUTS = {
+    "no reciprocals": ("udiv64.cuh", "NBT_HD UDiv64 udiv64_gen(uint64_t d) {  // d >= 1\n",
+                       "NBT_HD UDiv64 udiv64_gen(uint64_t d) {  // d >= 1\n"
+                       "  if (d != 0) return {d | 1, 3, false};\n"),
+    "no elimination": ("avp_chain.cuh", "  for (int k = 0; k < n - 1; ++k) {\n    // the pivot",
+                       "  for (int k = 0; k < 0; ++k) {\n    // the pivot"),
+    "no back substitution": ("avp_chain.cuh",
+                             "  for (int k = n - 1; k > 0; --k) {\n    const int64_t xk",
+                             "  for (int k = n - 1; k > n; --k) {\n    const int64_t xk"),
+    "no moment update": ("avp_chain.cuh",
+                         "  const int64_t s_curr = static_cast<int64_t>(iabs(x - px_s)) << kFb1;\n"
+                         "  // s_curr * BETA",
+                         "  if (t < kWarp) return;\n"
+                         "  const int64_t s_curr = static_cast<int64_t>(iabs(x - px_s)) << kFb1;\n"
+                         "  // s_curr * BETA"),
+    "no F chain": ("avp_chain.cuh", "  int64_t acc[kS];\n#pragma unroll\n  for (int s = 0;",
+                   "  if (t < kWarp) return;\n  int64_t acc[kS];\n#pragma unroll\n"
+                   "  for (int s = 0;"),
+}
 
 # (old lines, new lines) per cut; each old text must occur in its source once
 CUTS_PARENT = {
@@ -202,8 +243,10 @@ def variant(source: Path, name: str, repl) -> tuple[str, str]:
     return name, text
 
 
-def _build(name: str, text: str) -> Path:
-    src, lib = PROBE_DIR / f"{name}.cu", PROBE_DIR / f"lib_{name}.so"
+def _build(name: str, text: str, where: Path = PROBE_DIR) -> Path:
+    """nvcc ``text`` into ``where``/lib_``name``.so (its quoted includes
+    found in ``where`` first, then in the package's csrc/)."""
+    src, lib = where / f"{name}.cu", where / f"lib_{name}.so"
     src.write_text(text)
     cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(kernels.CSRC),
            "-Xptxas", "-v", "-o", str(lib), str(src)]
@@ -635,17 +678,24 @@ def _routines(body: str) -> dict:
 
 
 def p3_walk(card: str) -> bool:
+    from chip_smoke import ptxas_summary
     from nblic_tpu_torch.models import strips
-    from nblic_tpu_torch.ops import near_walk
+    from nblic_tpu_torch.ops import decode_walk, near_walk
 
-    kernels.build(verbose=True)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        kernels.build(verbose=True)
+    for line in ptxas_summary(report.getvalue()) or ["not reported: the library was built "
+                                                     "before this run"]:
+        print(f"[p3-walk ptxas] {line} ({card})", flush=True)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(kernels.library_path())], capture_output=True,
                           text=True, check=True).stdout
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
     (PROBE_DIR / "p3_walk_sass.txt").write_text(text)
     for part in text.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
-        if "p3_near_row" in name:
+        if "p3_near_row" in name or "p3_decode_kernel" in name:
             print(f"[p3-walk sass] {name}: called routines (their instructions to RET, call "
                   f"sites): {_routines(part)}; listing in {PROBE_DIR / 'p3_walk_sass.txt'}",
                   flush=True)
@@ -653,16 +703,119 @@ def p3_walk(card: str) -> bool:
     dev = torch.device("cuda")
     rng = np.random.default_rng(13)
     tune = strips._near_tune(strips.TUNE)
-    for lanes in (1, 32, 1152, 4608):
-        th, w = 2, 512
-        x = torch.from_numpy(synth_image(rng, lanes * th, w).reshape(lanes, th, w)).to(dev)
-        strips._near_walk(x[:, :1, :32].contiguous(), 1, 2, strips.AVP_N, tune)  # warm-up
-        launches = near_walk.launch_row.launches
-        ms = _ms(lambda: strips._near_walk(x, 1, 2, strips.AVP_N, tune), reps=3)
-        print(f"[p3-walk] K5 at {lanes} lanes x {th}x{w} (near 2, TUNE_V4's contract): "
-              f"{ms:.1f} ms, {1e3 * ms / (th * w):.2f} us a pixel step, "
-              f"{near_walk.launch_row.launches - launches} launches ({card})", flush=True)
-    return True
+    ok, default = True, near_walk.CTA_WARPS
+    try:
+        for lanes in (1, 32, 1152, 4608):
+            th, w = 2, 512
+            x = torch.from_numpy(synth_image(rng, lanes * th, w).reshape(lanes, th, w)).to(dev)
+            strips._near_walk(x[:, :1, :32].contiguous(), 1, 2, strips.AVP_N, tune)  # warm-up
+            for warps in (1, 2, 4):
+                near_walk.CTA_WARPS = warps
+                launches = near_walk.launch_row.launches
+                ms = _ms(lambda: strips._near_walk(x, 1, 2, strips.AVP_N, tune), reps=3)
+                print(f"[p3-walk] K5 at {lanes} lanes x {th}x{w} (near 2, TUNE_V4's contract), "
+                      f"{warps} warps a CTA: {ms:.2f} ms, {1e3 * ms / (th * w):.2f} us a pixel "
+                      f"step, {near_walk.launch_row.launches - launches} launches ({card})",
+                      flush=True)
+    finally:
+        near_walk.CTA_WARPS = default
+    # K4 on images 16 columns wide at th 16 (lanes strips of 256 steps,
+    # at most 1,152 an image: an image holds 65,535 rows; TUNE_V4: a launch
+    # a one-column segment, the images' replays between launches)
+    default = decode_walk.CTA_WARPS
+    try:
+        for lanes in (1, 32, 1152, 4608):
+            n_img = -(-lanes // 1152)
+            imgs = [synth_image(rng, 16 * lanes // n_img, 16) for _ in range(n_img)]
+            conts = strips.encode_batch(imgs, th=16, device=dev)
+            args = strips._walk_args([strips._parse(c) for c in conts], dev)[0]
+            want = torch.from_numpy(np.concatenate(imgs).reshape(lanes, 16, 16)).to(dev)
+            for warps in (1, 2, 4):
+                decode_walk.CTA_WARPS = warps
+                same = torch.equal(strips._decode_walk(*args), want)
+                ok &= same
+                ms = _ms(lambda: strips._decode_walk(*args), reps=3)
+                print(f"[p3-walk] K4 at {lanes} lanes x 16x16 ({n_img} images, TUNE_V4), {warps} "
+                      f"warps a CTA: exact {same}, {ms:.2f} ms, {1e3 * ms / 256:.2f} us a pixel "
+                      f"step, the replays between launches included ({card})", flush=True)
+    finally:
+        decode_walk.CTA_WARPS = default
+    return ok
+
+
+class _SwappedLib:
+    """The package's kernel library with some C entries replaced."""
+
+    def __init__(self, base, **entries):
+        self._base = base
+        self.__dict__.update(entries)
+
+    def __getattr__(self, name):
+        return getattr(self._base, name)
+
+
+def _walk_entries(lib_path: Path) -> dict:
+    """The K5 or K4 entry of a variant library, typed as the package's."""
+    lib, base = ctypes.CDLL(str(lib_path)), kernels.library()
+    out = {}
+    for name in ("nbt_p3_near_row", "nbt_p3_decode_segment"):
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = getattr(base, name).argtypes, ctypes.c_int
+            out[name] = fn
+    return out
+
+
+def p3_walk_bounds(libs: dict, card: str) -> bool:
+    """K5 and K4 variants (``libs``: {(kernel, tag): library}) timed in
+    turns beside the package's kernels, each held exact to them."""
+    from nblic_tpu_torch.models import strips
+    from nblic_tpu_torch.ops import decode_walk, near_walk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(15)
+    base = kernels.library()
+    tune = strips._near_tune(strips.TUNE)
+    lanes_x = {n: torch.from_numpy(synth_image(rng, n * 2, 512).reshape(n, 2, 512)).to(dev)
+               for n in (1, 4608)}
+    corpus = [synth_image(rng, 512, 768) for _ in range(18)]
+    corpus += [synth_image(rng, 768, 512) for _ in range(6)]
+    conts = strips.encode_batch(corpus, th=4, device=dev)
+    args = strips._walk_args([strips._parse(c) for c in conts], dev)[0]
+    args = (args[0], args[1], 2, *args[3:])  # the first 2 rows of each strip
+
+    def k5(n):
+        return lambda: strips._near_walk(lanes_x[n], n, 2, strips.AVP_N, tune)
+
+    def k4():
+        return strips._decode_walk(*args)
+
+    runs = {"k5 at 1 lane": (k5(1), "nbt_p3_near_row"),
+            "k5 at 4608 lanes": (k5(4608), "nbt_p3_near_row"),
+            "k4 at 4608 lanes (the th-4 corpus, 2 rows)": (k4, "nbt_p3_decode_segment")}
+    want = {what: fn() for what, (fn, _) in runs.items()}
+    ok, saved = True, (kernels.library, near_walk.CTA_WARPS, decode_walk.CTA_WARPS)
+    near_walk.CTA_WARPS = decode_walk.CTA_WARPS = 4
+    try:
+        for rnd in range(2):
+            for what, (fn, entry) in runs.items():
+                kernel = "k5" if entry == "nbt_p3_near_row" else "k4"
+                tags = ["package"] + [t for (k, t) in libs if k == kernel]
+                for tag in (tags if rnd == 0 else tags[::-1]):
+                    kernels.library = ((lambda: base) if tag == "package" else
+                                       (lambda s=_SwappedLib(base, **_walk_entries(
+                                           libs[kernel, tag])): s))
+                    got = fn()
+                    same = all(torch.equal(u, v) for u, v in zip(got, want[what])) \
+                        if isinstance(got, tuple) else torch.equal(got, want[what])
+                    ok &= same or tag in WALK_CUTS
+                    ms = _ms(fn, reps=3)
+                    print(f"[p3-walk-bounds] round {rnd + 1}, {what}, 4 warps a CTA, {tag}: "
+                          f"{ms:.3f} ms, exact against the package's {same} ({card})",
+                          flush=True)
+    finally:
+        kernels.library, near_walk.CTA_WARPS, decode_walk.CTA_WARPS = saved
+    return ok
 
 
 def interop(card: str) -> bool:
@@ -741,11 +894,15 @@ def main(argv=None) -> int:
     ap.add_argument("probes", nargs="+", choices=("cut-chain", "slot-bits", "k2-width", "fold",
                                                      "build", "near-stages", "p3-stages",
                                                      "p3-corpus", "p3-decode",
-                                                     "p3-near", "p3-walk", "interop"))
+                                                     "p3-near", "p3-walk", "p3-walk-bounds",
+                                                     "interop"))
     ap.add_argument("--parent", type=Path,
                     help="cut-chain: also cut this group_decode.cu of the parent design")
     ap.add_argument("--before", type=Path, action="append", default=[],
                     help="k2-width: also time this group_decode.cu (repeatable)")
+    ap.add_argument("--chain-before", type=Path,
+                    help="p3-walk-bounds: also build K5 and K4 on the avp_chain.cuh and "
+                         "udiv64.cuh in this directory")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_probe: needs a CUDA GPU", file=sys.stderr)
@@ -770,11 +927,43 @@ def main(argv=None) -> int:
         for block in (32, 64, 128):
             specs[("fold", block)] = variant(K1_SRC, f"fold_{block}",
                                              [(BLOCK_LINE, f"constexpr int kBlock = {block};")])
+    if "p3-walk-bounds" in args.probes:
+        for kernel, src in WALK_SRCS.items():
+            for n in WALK_MIN_CTAS:
+                specs[(kernel, f"min {n} CTAs")] = variant(
+                    src, f"{kernel}_min{n}",
+                    [(WALK_BOUNDS_LINE, f"{WALK_BOUNDS_LINE[:-1]}, {n})")])
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    before_dir = PROBE_DIR / "chain_before"
+    cut_dirs = {}
+    if "p3-walk-bounds" in args.probes:
+        for cut, (header, old, new) in WALK_CUTS.items():
+            where = PROBE_DIR / ("cut_" + cut.replace(" ", "_"))
+            where.mkdir(parents=True, exist_ok=True)
+            for h in ("avp_chain.cuh", "udiv64.cuh"):
+                text = (kernels.CSRC / h).read_text()
+                if h == header:
+                    if text.count(old) != 1:
+                        raise ValueError(f"{cut}: {old!r} occurs {text.count(old)} times in {h}")
+                    text = text.replace(old, new)
+                (where / h).write_text(text)
+            specs[("k5", cut)] = (f"k5_{where.name}", WALK_SRCS["k5"].read_text())
+            cut_dirs[("k5", cut)] = where
+    if "p3-walk-bounds" in args.probes and args.chain_before:
+        before_dir.mkdir(exist_ok=True)
+        for header in ("avp_chain.cuh", "udiv64.cuh"):
+            shutil.copy(args.chain_before / header, before_dir / header)
+        for kernel, src in WALK_SRCS.items():
+            specs[(kernel, "chain before")] = (f"{kernel}_chain_before", src.read_text())
     libs = {}
     if specs:
+        def build(key):
+            name, text = specs[key]
+            return _build(name, text, cut_dirs.get(key, before_dir if key[1] == "chain before"
+                                                   else PROBE_DIR))
+
         with ThreadPoolExecutor(len(specs)) as pool:
-            libs = dict(zip(specs, pool.map(lambda nt: _build(*nt), specs.values())))
+            libs = dict(zip(specs, pool.map(build, specs)))
 
     def of(group):
         return {key: lib for (g, key), lib in libs.items() if g == group}
@@ -804,6 +993,9 @@ def main(argv=None) -> int:
         ok &= p3_near(card)
     if "p3-walk" in args.probes:
         ok &= p3_walk(card)
+    walk_libs = {key: lib for key, lib in libs.items() if key[0] in WALK_SRCS}
+    if walk_libs:
+        ok &= p3_walk_bounds(walk_libs, card)
     if "interop" in args.probes:
         ok &= interop(card)
     return 0 if ok else 1

@@ -117,12 +117,14 @@ def library() -> ctypes.CDLL:
     lib.nbt_near_scan_smem.restype = i64
     lib.nbt_p3_near_row.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i64, ptr, ptr,
-        ptr, i32, ptr,
+        ptr, i32, i32, ptr,
     ]
     lib.nbt_p3_near_row.restype = i32
+    lib.nbt_avp_solve.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr, ptr, i32, ptr]
+    lib.nbt_avp_solve.restype = i32
     lib.nbt_p3_decode_segment.argtypes = [
         ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        ptr, ptr, i32, i32, i32, i32, i32, ptr, i32, ptr,
+        i32, i32, i32, i32, i32, ptr, i32, i32, ptr,
     ]
     lib.nbt_p3_decode_segment.restype = i32
     lib.nbt_error_string.argtypes = [i32]

@@ -711,10 +711,10 @@ def _near_walk_plain(x, n_imgs: int, near: int, n_feat: int, tune: Tune):
 def _near_walk_card(x, n_imgs: int, near: int, n_feat: int, tune: Tune):
     """The feedback walk on the card: per row, the image's bias table from
     its moments, kernel K5 over every lane (``ops/near_walk.py``), then the
-    moments take the row.  The state (B, F, the rows) stays on the card in
-    the kernel's layout, lanes fastest; the planes are laid out for
-    :func:`_near_code` once, at the end.  Returns what
-    :func:`_near_walk_plain` returns."""
+    moments take the row.  The state stays on the card in the kernel's
+    layout (B and F (L, W, m), a lane's channels contiguous; the rows lanes
+    fastest); the planes are laid out for :func:`_near_code` once, at the
+    end.  Returns what :func:`_near_walk_plain` returns."""
     dev = x.device
     lanes, th, w = x.shape
     m = pavp.get_m(n_feat)
@@ -722,11 +722,11 @@ def _near_walk_card(x, n_imgs: int, near: int, n_feat: int, tune: Tune):
     xs = x.permute(1, 2, 0).to(torch.uint8).contiguous()  # (th, W, L)
     prev1 = torch.zeros((w, lanes), dtype=torch.uint8, device=dev)
     prev2 = torch.zeros_like(prev1)
-    b_row = torch.zeros((w, m, lanes), **i64)
+    b_row = torch.zeros((lanes, w, m), **i64)
     f_row = torch.empty_like(b_row)
     b_mix = f_mix = None
     if tune.mix_e:
-        b_mix = torch.zeros((w, 2, lanes), **i64)
+        b_mix = torch.zeros((lanes, w, 2), **i64)
         f_mix = torch.empty_like(b_mix)
     bsums = torch.zeros(n_imgs * Q_N_CONTEXT, **i64)
     bcnts = torch.zeros_like(bsums)
@@ -1057,7 +1057,8 @@ def _decode_walk_card(words, bias_tab, th: int, w: int, s: int, n_imgs: int, n_f
     launches torch keeps what an image's lanes share: the bias moments and
     their int16 table, the mapper history and its order, each updated from
     the pixels K4 wrote, as :func:`_decode_walk_plain` updates them.  The
-    lanes' own state stays on the card in K4's layout, lanes fastest.
+    lanes' own state stays on the card in K4's layout
+    (``decode_walk.State``).
     Returns what :func:`_decode_walk_plain` returns."""
     dev = words.device
     lanes = n_imgs * s

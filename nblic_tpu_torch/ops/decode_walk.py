@@ -6,9 +6,11 @@ package runs as a jitted ``lax.scan`` (no ``pallas_call``).  The plain
 version is ``models/strips.py::_decode_walk_plain``; the dispatcher
 ``strips._decode_walk`` takes it for a CPU tensor and runs the loop around
 :func:`launch_segment` for a CUDA tensor (``strips._decode_walk_card``).
-What a lane owns lives in a :class:`State` on the card in K4's layout,
-lanes fastest in every array; what an image's lanes share (the bias table
-and the mapper's order) is handed to each launch.
+What a lane owns lives in a :class:`State` on the card in K4's layout: K4
+runs one warp a lane, so a lane's channels and counters are contiguous (B,
+F (L, W, m), the counter tables (L, cells)), the rows and the replay
+planes lanes fastest; what an image's lanes share (the bias table and the
+mapper's order) is handed to each launch.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ MAX_UNARY = 20       # Tune.n_unary's bound
 N_CARRY = 12         # the window's 11 registers and the error
 N_REPLAY = 4         # a pixel's image x 3072 + context address, x - px0, key, y
 REFINE_CELLS = zcodec3.N_ROW * zcodec3.N_REFINE * 2 * 2
+CTA_WARPS = 2        # lanes (warps) a CTA, 1 to 4; fewer where the counters pass its memory
 
 
 class Contract(NamedTuple):
@@ -70,21 +73,19 @@ def contract(near: int, n_feat: int, tune, ws: int, lanes_per_image: int) -> Con
 
 
 class State(NamedTuple):
-    """What K4 keeps of every lane between launches, lanes fastest."""
+    """What K4 keeps of every lane between launches."""
 
     words: torch.Tensor    # (16, L, wmax) int32 u16 words
     rans: torch.Tensor     # (2, 16, L) int64 states, then pointers
-    utab: torch.Tensor     # (16 n_class 2, L) int32 unary counts
-    udelta: torch.Tensor   # their events in the segment (without sym_cnt)
-    rtab: torch.Tensor     # (320, L) int32 refine counts
-    rdelta: torch.Tensor
-    b: torch.Tensor        # (W, m, L) int64 column moments
-    f: torch.Tensor        # (W, m, L) int64, F of the row
-    b_mix: torch.Tensor | None  # (W, 2, L) int64 under mix_e, else None
+    utab: torch.Tensor     # (L, 16 n_class 2) int32 unary counts
+    rtab: torch.Tensor     # (L, 320) int32 refine counts
+    b: torch.Tensor        # (L, W, m) int64 column moments
+    f: torch.Tensor        # (L, W, m) int64, F of the row
+    b_mix: torch.Tensor | None  # (L, W, 2) int64 under mix_e, else None
     f_mix: torch.Tensor | None
     carry: torch.Tensor    # (12, L) int32 window and error between a row's launches
-    e: torch.Tensor        # (m, L) int64 E between a row's launches
-    e_mix: torch.Tensor    # (2, L) int64
+    e: torch.Tensor        # (L, m) int64 E between a row's launches
+    e_mix: torch.Tensor    # (L, 2) int64
     out: torch.Tensor      # (th, W, L) uint8 the decoded pixels
     replay: torch.Tensor   # (4, W, L) int64: image x 3072 + address, x - px0, key, y
 
@@ -99,14 +100,13 @@ def new_state(words, th: int, w: int, con: Contract, cnt_init: int) -> State:
     i32 = dict(dtype=torch.int32, device=dev)
     i64 = dict(dtype=torch.int64, device=dev)
     state, ptr = rans_bin.dec_init(words[..., :2])
-    utab = torch.full((zcodec3.N_ROW * con.n_class * 2, lanes), cnt_init, **i32)
-    rtab = torch.full((REFINE_CELLS, lanes), cnt_init, **i32)
-    mix = (lambda: torch.zeros((w, 2, lanes), **i64)) if con.mix_e else (lambda: None)
-    return State(words, torch.stack([state, ptr]), utab, torch.zeros_like(utab), rtab,
-                 torch.zeros_like(rtab), torch.zeros((w, m, lanes), **i64),
-                 torch.zeros((w, m, lanes), **i64), mix(), mix(),
-                 torch.zeros((N_CARRY, lanes), **i32), torch.zeros((m, lanes), **i64),
-                 torch.zeros((2, lanes), **i64),
+    utab = torch.full((lanes, zcodec3.N_ROW * con.n_class * 2), cnt_init, **i32)
+    rtab = torch.full((lanes, REFINE_CELLS), cnt_init, **i32)
+    mix = (lambda: torch.zeros((lanes, w, 2), **i64)) if con.mix_e else (lambda: None)
+    return State(words, torch.stack([state, ptr]), utab, rtab,
+                 torch.zeros((lanes, w, m), **i64), torch.zeros((lanes, w, m), **i64), mix(),
+                 mix(), torch.zeros((N_CARRY, lanes), **i32), torch.zeros((lanes, m), **i64),
+                 torch.zeros((lanes, 2), **i64),
                  torch.zeros((th, w, lanes), dtype=torch.uint8, device=dev),
                  torch.zeros((N_REPLAY, w, lanes), **i64))
 
@@ -137,13 +137,11 @@ def _check(st: State, bias, order, prev1, prev2, i: int, c0: int, c1: int, con: 
     i32 = torch.int32
     want = {"words": (st.words, st.words.shape, i32),
             "rans": (st.rans, (2, rans_bin.N_PHASE, lanes), torch.int64),
-            "utab": (st.utab, (zcodec3.N_ROW * con.n_class * 2, lanes), i32),
-            "udelta": (st.udelta, (zcodec3.N_ROW * con.n_class * 2, lanes), i32),
-            "rtab": (st.rtab, (REFINE_CELLS, lanes), i32),
-            "rdelta": (st.rdelta, (REFINE_CELLS, lanes), i32),
-            "b": (st.b, (w, m, lanes), torch.int64), "f": (st.f, (w, m, lanes), torch.int64),
+            "utab": (st.utab, (lanes, zcodec3.N_ROW * con.n_class * 2), i32),
+            "rtab": (st.rtab, (lanes, REFINE_CELLS), i32),
+            "b": (st.b, (lanes, w, m), torch.int64), "f": (st.f, (lanes, w, m), torch.int64),
             "carry": (st.carry, (N_CARRY, lanes), i32),
-            "e": (st.e, (m, lanes), torch.int64), "e_mix": (st.e_mix, (2, lanes), torch.int64),
+            "e": (st.e, (lanes, m), torch.int64), "e_mix": (st.e_mix, (lanes, 2), torch.int64),
             "out": (st.out, (th, w, lanes), torch.uint8),
             "replay": (st.replay, (N_REPLAY, w, lanes), torch.int64),
             "prev1": (prev1, (w, lanes), torch.uint8), "prev2": (prev2, (w, lanes), torch.uint8),
@@ -152,8 +150,8 @@ def _check(st: State, bias, order, prev1, prev2, i: int, c0: int, c1: int, con: 
     if (st.b_mix is None) != (not con.mix_e) or (st.f_mix is None) != (not con.mix_e):
         raise ValueError("b_mix and f_mix come with mix_e and only with it")
     if con.mix_e:
-        want["b_mix"] = (st.b_mix, (w, 2, lanes), torch.int64)
-        want["f_mix"] = (st.f_mix, (w, 2, lanes), torch.int64)
+        want["b_mix"] = (st.b_mix, (lanes, w, 2), torch.int64)
+        want["f_mix"] = (st.f_mix, (lanes, w, 2), torch.int64)
     kernels.check_tensors(want, st.words.device, "K4")
     kernels.check_int16(bias)  # the kernel reads the table as int16
 
@@ -184,12 +182,12 @@ def launch_segment(st: State, bias, order, prev1, prev2, i: int, c0: int, c1: in
     bias16 = bias.to(torch.int16)
     rc = lib.nbt_p3_decode_segment(
         st.words.data_ptr(), st.words.shape[2], st.rans.data_ptr(), st.utab.data_ptr(),
-        st.udelta.data_ptr(), st.rtab.data_ptr(), st.rdelta.data_ptr(), st.b.data_ptr(),
-        st.f.data_ptr(), st.b_mix.data_ptr() if mix else None,
+        st.rtab.data_ptr(), st.b.data_ptr(), st.f.data_ptr(), st.b_mix.data_ptr() if mix else None,
         st.f_mix.data_ptr() if mix else None, st.carry.data_ptr(), st.e.data_ptr(),
         st.e_mix.data_ptr(), prev1.data_ptr(), prev2.data_ptr(),
         bias16.data_ptr(), order.data_ptr(), st.out[i].data_ptr(), st.replay.data_ptr(),
-        lanes, w, i, c0, c1, (ctypes.c_int * len(ints))(*ints), *kernels.stream_of(st.words))
+        lanes, w, i, c0, c1, (ctypes.c_int * len(ints))(*ints), CTA_WARPS,
+        *kernels.stream_of(st.words))
     kernels.check(rc, "nbt_p3_decode_segment")
     launch_segment.launches += 1
 

@@ -18,7 +18,7 @@ import torch
 
 from nblic_tpu_torch.convert import group_args, tables_from_numpy
 from nblic_tpu_torch.models import strips, tiled
-from nblic_tpu_torch.ops import decode, decode_walk, fold, lsq, near_scan, near_walk, rans
+from nblic_tpu_torch.ops import avp, decode, decode_walk, fold, lsq, near_scan, near_walk, rans
 from nblic_tpu_torch.utils.synth import edge_images, synth_image
 
 
@@ -509,6 +509,8 @@ K5_CASES = {
     "lanes33-nomix-near255": (33, 11, 2, 12, 255, "TUNE_V4S"),
     "lanes40-mix-near2-th1": (40, 8, 1, 24, 2, "TUNE_V4"),
     "lanes2-nomix-near1-th20": (2, 1, 20, 6, 1, "TUNE_V4S"),
+    "lanes100-mix-near2": (100, 4, 2, 12, 2, "TUNE_V4"),
+    "lanes99-nomix-near3": (99, 9, 2, 10, 3, "TUNE_V4S"),
 }
 
 
@@ -562,8 +564,8 @@ def test_near_walk_kernel_refuses_what_it_cannot_run(cuda_device):
     u8 = dict(dtype=torch.uint8, device=cuda_device)
     i64 = dict(dtype=torch.int64, device=cuda_device)
     args = [torch.zeros((w, lanes), **u8), None, torch.zeros((w, lanes), **u8),
-            torch.zeros((w, lanes), **u8), torch.zeros((w, m, lanes), **i64),
-            torch.zeros((w, m, lanes), **i64), None, None,
+            torch.zeros((w, lanes), **u8), torch.zeros((lanes, w, m), **i64),
+            torch.zeros((lanes, w, m), **i64), None, None,
             torch.zeros((5, 2, w, lanes), dtype=torch.int32, device=cuda_device),
             torch.zeros((w, lanes), **i64), torch.zeros((w, lanes), **i64), 0, 2]
     for bad in (32768, -32769):
@@ -632,6 +634,8 @@ K4_CASES = {
     "lanes1-near1": (lambda: _thin(1, 1, 4, 4), 4, 1, 10),
     "lanes31-near255": (lambda: _thin(2, 31, 4, 4), 4, 255, 10),
     "lanes33-three-strips": (lambda: _thin(3, 11, 12, 4), 4, 0, 10),
+    "lanes100": (lambda: _thin(12, 25, 16, 8), 4, 0, 10),
+    "lanes99-near3": (lambda: _thin(13, 33, 12, 4), 4, 3, 10),
     "lanes4608": (lambda: [synth_image(np.random.default_rng(4), 1024, 8) for _ in range(9)],
                   2, 0, 10),
     "th1": (lambda: _thin(5, 2, 16, 16), 1, 0, 10),
@@ -704,3 +708,50 @@ def test_decode_walk_kernel_refuses_what_it_cannot_run(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         decode_walk.launch_segment(st._replace(b=st.b.transpose(0, 2).contiguous().transpose(
             0, 2)), bias, order, *rows, 1, 0, 4, con)
+
+
+# K5's warp chain alone (ops/near_walk.py::solve_systems) against
+# avp.solve_batch / predict_from_solve on the CPU: systems of every size
+# n = 1..12, at the walk's magnitudes and at the int64 edges.
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def _systems(kind, n, p, rng):
+    """(a (n, n, P), b (n, P), feats (n, P)) int64 of one kind."""
+    shape = (n, n + 1, p)
+    if kind == "ridge":  # E + F of random features, as a walk builds them
+        x = rng.integers(-128, 128, size=(n, 40, p)).astype(np.int64)
+        m = np.einsum("kip,lip->klp", x, x) << 16
+        m += (8 * n * np.eye(n, dtype=np.int64))[:, :, None]
+        rhs = rng.integers(-(1 << 40), 1 << 40, size=(n, 1, p))
+        full = np.concatenate([m, rhs], 1)
+    elif kind == "wrapping":  # products of the elimination pass 2^63
+        full = rng.integers(-(1 << 62), 1 << 62, size=shape, dtype=np.int64)
+    elif kind == "ties":  # equal |pivot| candidates of either sign, zero pivots
+        full = rng.integers(-2, 3, size=shape).astype(np.int64)
+    elif kind == "zero-columns":
+        full = rng.integers(-1000, 1000, size=shape).astype(np.int64)
+        full[:, rng.integers(0, n)] = 0
+        full[rng.integers(0, n)] = 0
+    else:  # "int64-edges": INT64_MIN, INT64_MAX and 0 among small values
+        full = rng.integers(-50, 50, size=shape).astype(np.int64)
+        pick = rng.random(shape)
+        full[pick < 0.15] = I64_MIN
+        full[(pick >= 0.15) & (pick < 0.25)] = I64_MAX
+        full[(pick >= 0.25) & (pick < 0.3)] = 0
+    feats = rng.integers(-128, 128, size=(n, p)).astype(np.int64)
+    return full[:, :n], full[:, n], feats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ridge", "wrapping", "ties", "zero-columns", "int64-edges"])
+@pytest.mark.parametrize("n", range(1, 13))
+def test_warp_chain_matches_plain_solve(cuda_device, kind, n):
+    rng = np.random.default_rng(100 * n + len(kind))
+    a, b, feats = (torch.from_numpy(v) for v in _systems(kind, n, 97, rng))
+    diag, num, ok = avp.solve_batch(a.clone(), b.clone(), n)
+    px = avp.predict_from_solve(diag, num, feats)
+    got = near_walk.solve_systems(a.to(cuda_device), b.to(cuda_device), feats.to(cuda_device))
+    torch.cuda.synchronize()
+    for name, u, v in zip(("diag", "num", "ok", "px"), got, (diag, num, ok, px)):
+        assert torch.equal(u.cpu(), v), name

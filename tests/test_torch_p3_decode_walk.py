@@ -35,8 +35,10 @@ def _oracle_untuned():
 
 
 def _emulated_launch_segment(st, bias, order, prev1, prev2, i, c0, c1, con):
-    """What one K4 launch computes, on CPU tensors in the kernel's layout,
-    from the plain walk's per-pixel functions: F at the row's first launch,
+    """What one K4 launch computes, on CPU tensors in the kernel's layout
+    (B and F (L, W, m), the mix chains (L, W, 2), E (L, m), the counters
+    (L, cells)), from the plain walk's per-pixel functions, which take
+    (W, m, L) views of them: F at the row's first launch,
     the columns' pixels segment by segment with the counters' replay at each
     segment's end, then the state back into ``st`` (the carry where the row
     goes on), row i into ``st.out`` and ``prev2``, the columns' replay
@@ -61,15 +63,18 @@ def _emulated_launch_segment(st, bias, order, prev1, prev2, i, c0, c1, con):
     i_vals = torch.tensor(con.ival)
     r_layers = torch.arange(strips.L_R)[:, None]
     p1, p2 = prev1.t().to(torch.int64), prev2.t().to(torch.int64)  # (L, W) copies
-    utab = st.utab.t().to(torch.int64).reshape(lanes, zcodec3.N_ROW, n_class, 2).contiguous()
-    rtab = st.rtab.t().to(torch.int64).reshape(lanes, zcodec3.N_ROW, zcodec3.N_REFINE, 2,
-                                                2).contiguous()
+    bw, fw = st.b.permute(1, 2, 0), st.f.permute(1, 2, 0)  # views: writes land in K4's layout
+    b_mix = f_mix = None
+    if mix:
+        b_mix, f_mix = st.b_mix.permute(1, 2, 0), st.f_mix.permute(1, 2, 0)
+    utab = st.utab.to(torch.int64).reshape(lanes, zcodec3.N_ROW, n_class, 2)
+    rtab = st.rtab.to(torch.int64).reshape(lanes, zcodec3.N_ROW, zcodec3.N_REFINE, 2, 2)
     states, ptrs = list(st.rans[0].unbind(0)), list(st.rans[1].unbind(0))
     phase_words = list(words.unbind(0))
     if c0 == 0:
-        st.f.copy_(pavp.f_chain(st.b, ab=ab))
+        fw.copy_(pavp.f_chain(bw, ab=ab))
         if mix:
-            st.f_mix.copy_(pavp.f_chain(st.b_mix, ab=ab_m))
+            f_mix.copy_(pavp.f_chain(b_mix, ab=ab_m))
         regs = row_start_window(i, p1, p2, w)
         err = torch.zeros(lanes, dtype=torch.int64)
         e_acc = torch.zeros((m, lanes), dtype=torch.int64)
@@ -77,7 +82,7 @@ def _emulated_launch_segment(st, bias, order, prev1, prev2, i, c0, c1, con):
     else:
         regs = tuple(st.carry[:11].to(torch.int64).unbind(0))
         err = st.carry[11].to(torch.int64)
-        e_acc, e_mix = st.e.clone(), st.e_mix.clone()
+        e_acc, e_mix = st.e.t().clone(), st.e_mix.t().clone()
 
     def code_bin(c, p1b, active):
         b, states[c], ptrs[c] = rans_bin.dec_masked(states[c], ptrs[c], p1b, active,
@@ -89,7 +94,7 @@ def _emulated_launch_segment(st, bias, order, prev1, prev2, i, c0, c1, con):
         rprob = coder3.prob_table(rtab).reshape(-1)
         e_seg = e_acc.clone()
         if w_pred:
-            stats0 = e_seg + st.f[j0]
+            stats0 = e_seg + fw[j0]
             diag, num, ok_seg = pavp.solve_stats(stats0, n)
             wq = pavp.quantize_weights(diag, num)
         cols = []
@@ -99,12 +104,12 @@ def _emulated_launch_segment(st, bias, order, prev1, prev2, i, c0, c1, con):
                 px0 = torch.where(ok_seg, pavp.predict_wq(wq, feats.to(torch.int32)), px_s)
                 s0 = stats0[0]
             else:
-                stats = (e_seg if seg_stats else e_acc) + st.f[j]
+                stats = (e_seg if seg_stats else e_acc) + fw[j]
                 px_f, ok = pavp.predict_from_stats(stats, feats, n)
                 px_hard = strips._round_px(px_f, ok, px_s)
                 px0 = px_hard
                 if mix:
-                    em = e_mix + st.f_mix[j]
+                    em = e_mix + f_mix[j]
                     px0 = pavp.mix_blend(px_hard, px_s, em[0], em[1], ok)
                 s0 = stats[0]
                 if seg_stats:
@@ -156,9 +161,9 @@ def _emulated_launch_segment(st, bias, order, prev1, prev2, i, c0, c1, con):
             err = torch.clamp(x - px0, -strips.MAX_PX_INC, strips.MAX_PX_INC)
             # B's column and E take the pixel at once, the segment-frozen
             # contracts too (_pixel_update reads channel 0 of the statistics)
-            e_acc = strips._pixel_update(x, px_s, feats, s0[None], e_acc, st.b, j, ab, n)
+            e_acc = strips._pixel_update(x, px_s, feats, s0[None], e_acc, bw, j, ab, n)
             if mix:
-                e_mix = strips._mix_update(x, px_hard, px_s, e_mix, st.b_mix, j, ab_m)
+                e_mix = strips._mix_update(x, px_hard, px_s, e_mix, b_mix, j, ab_m)
             regs = slide_window(regs, x, i, j, p1, p2, w)
             st.out[i, j] = x.to(torch.uint8)
             prev2[j] = x.to(torch.uint8)
@@ -176,13 +181,13 @@ def _emulated_launch_segment(st, bias, order, prev1, prev2, i, c0, c1, con):
                 utab, rtab, qw_c, unary, refine,
                 coder3.unary_cells(lane, unary, k_step, l_u, n_class),
                 coder3.refine_cells(lane, row_end, k_end, refine[2]), con.cnt_halve)
-    st.utab.copy_(utab.reshape(lanes, -1).t())
-    st.rtab.copy_(rtab.reshape(lanes, -1).t())
+    st.utab.copy_(utab.reshape(lanes, -1))
+    st.rtab.copy_(rtab.reshape(lanes, -1))
     st.rans.copy_(torch.stack([torch.stack(states), torch.stack(ptrs)]))
     if c1 < w:
         st.carry.copy_(torch.stack([*regs, err]))
-        st.e.copy_(e_acc)
-        st.e_mix.copy_(e_mix)
+        st.e.copy_(e_acc.t())
+        st.e_mix.copy_(e_mix.t())
     _emulated_launch_segment.launches += 1
 
 

@@ -41,10 +41,15 @@ def _strips(seed, lanes, th, w):
 
 def _emulated_launch_row(x_row, bias, prev1, prev2, b, f, b_mix, f_mix, out, idx, dx, i,
                          near, n_feat):
-    """What one K5 launch computes, on CPU tensors in the kernel's layout,
-    from the plain walk's per-pixel functions: F into ``f``, the row's
-    pixels, B in place, row i into ``prev2``, the planes, idx and dx."""
+    """What one K5 launch computes, on CPU tensors in the kernel's layout
+    (B and F (L, W, m), the mix chains (L, W, 2)), from the plain walk's
+    per-pixel functions, which take (W, m, L) views of them: F into ``f``,
+    the row's pixels, B in place, row i into ``prev2``, the planes, idx
+    and dx."""
     w, lanes = x_row.shape
+    b, f = b.permute(1, 2, 0), f.permute(1, 2, 0)  # views: writes land in K5's layout
+    if b_mix is not None:
+        b_mix, f_mix = b_mix.permute(1, 2, 0), f_mix.permute(1, 2, 0)
     n_imgs = bias.numel() // Q_N_CONTEXT
     off = torch.arange(n_imgs).repeat_interleave(lanes // n_imgs) * Q_N_CONTEXT
     ab, ab_m = pavp.ab_vec(pavp.get_m(n_feat)), pavp.ab_vec(pavp.mix_ab())
@@ -141,7 +146,7 @@ def test_launch_row_refuses_what_k5_cannot_run():
     u8, i64 = dict(dtype=torch.uint8), dict(dtype=torch.int64)
     args = [torch.zeros((w, lanes), **u8), torch.zeros(Q_N_CONTEXT, dtype=torch.int32),
             torch.zeros((w, lanes), **u8), torch.zeros((w, lanes), **u8),
-            torch.zeros((w, m, lanes), **i64), torch.zeros((w, m, lanes), **i64), None, None,
+            torch.zeros((lanes, w, m), **i64), torch.zeros((lanes, w, m), **i64), None, None,
             torch.zeros((5, th, w, lanes), dtype=torch.int32), torch.zeros((w, lanes), **i64),
             torch.zeros((w, lanes), **i64), 0, 2]
     with pytest.raises(ValueError, match="CUDA"):  # CPU tensors: the plain walk's
