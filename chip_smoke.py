@@ -283,6 +283,44 @@ K4_SWEEP_OPS = 8
 # (the symbol's shuffle, the mapper's load, the events' ballot and atomics).
 K4_BIN_CYCLES = 150
 K4_SYMBOL_CYCLES = 300
+# K8 (row_scan.cuh under p3_row_scan_kernel): the arithmetic the function
+# needs, each value counted once (loads, stores, address and loop
+# arithmetic, and what the kernel recomputes, are the implementation's): a
+# pixel's fixed work K8_PIXEL_OPS[near] (both: qu / k_step and qv / k_step,
+# two 32-bit divisions 21 each, adjust_qv's compare and select 2, the
+# mapper's rank 40 (20 compares of 64-bit counts), the kept word 3;
+# lossless also: the bias quantization, its 64-bit division at the inline
+# path 19 and the rest 16, the correction and the fold 18, the key 2); a
+# unary slot K8_UNARY_OPS (two escalated rows from the pixel's quotients,
+# each an add, a multiply, a min and the select of esc == 0 4; the two
+# cells 4; two pair probabilities, each a division at the inline path 19
+# plus its shift, sum and clip 6; mix_prob 8; the go test, the layer's
+# quotient as a min and a select and z's shift and compare 4; the bin and
+# mask 4); a refinement slot of a symbol that did not escape K8_REFINE_OPS
+# (the pair 6, its probability 25, the bit 4, msb 2); any other slot
+# K8_PAD_OPS (the bypass, the escape bit 4); the events, with or without
+# sym_cnt, their adds alone: a reached unary layer's K8_EVENT_OPS[0], a
+# refinement bit's K8_EVENT_OPS[1]; a counter pair at a segment's end
+# K8_SWEEP_OPS (the sum, the test, the two halvings); a mapper count swept
+# K8_MAP_OPS[0] (the max and the shift), a mapper event K8_MAP_OPS[1] (the
+# cell and the add); a bias context swept K8_BIAS_OPS[0], a bias event
+# K8_BIAS_OPS[1].
+K8_PIXEL_OPS = {False: 142, True: 87}
+K8_UNARY_OPS = 78
+K8_REFINE_OPS = 37
+K8_PAD_OPS = 4
+K8_EVENT_OPS = (4, 2)
+K8_SWEEP_OPS = 6
+K8_MAP_OPS = (3, 6)
+K8_BIAS_OPS = (4, 8)
+K8_THREADS = 256  # threads a CTA (an image); a thread walks lanes t, t + 256, ...
+# K3 (bin_fold.cu) a slot: a live one K3_LIVE_OPS (the word 1, the live
+# test 2, p1's sign extension and clip 4, the bin 2, f and the offset 3, the
+# renormalization test and shift 4, the 32-bit division 19, the remainder
+# and the new state 5, the emit flag 2), a masked one K3_MASKED_OPS (the
+# word, the live test, the store's value).
+K3_LIVE_OPS = 42
+K3_MASKED_OPS = 4
 P3_FULL_TH = 768  # the full-depth strip height: one corpus image a lane
 P3_FULL_ROWS = 192  # rows of the th-768 walk over the corpus's 24 lanes (K4)
 NEAR = 2  # the near phase's max error
@@ -290,7 +328,8 @@ T_START = time.perf_counter()
 
 
 def ptxas_summary(report: str, names=("p3_near_row_kernel", "p3_decode_kernel",
-                                       "avp_solve_kernel")) -> list:
+                                       "avp_solve_kernel", "p3_row_scan_kernel",
+                                       "bin_fold_kernel")) -> list:
     """One line a kernel instance named in ``names`` from nvcc's ``-Xptxas
     -v`` report: its template arguments, registers, stack frame and spill
     bytes."""
@@ -799,16 +838,20 @@ def _p3_fixtures():
 def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
     """Profile 3: the card against the CPU (``cpu_job``, a future of the
     lossless :func:`_p3_cpu_jobs`) on small images, the corpus as one batch
-    stage by stage, the public route; then decode: the small containers and
-    the fixtures on the card against the image (or nblic_tpu's pixels) and
-    the CPU (a job of ``pool``), the corpus at th = P3_DECODE_TH through
-    tiled.decode_batch with the walk's time a pixel step, and
-    api.decompress, each decode on K4.  Returns None on a failure, else
-    (the corpus's containers at th 64, the pair's containers by (contract,
-    th), K4's launches in the decodes, the corpus walk's arguments)."""
+    stage by stage (its scan on K8, its fold on K3, each then held exact
+    against its plain version on the corpus's own input), the public route;
+    then decode: the small containers and the fixtures on the card against
+    the image (or nblic_tpu's pixels) and the CPU (a job of ``pool``), the
+    corpus at th = P3_DECODE_TH through tiled.decode_batch with the walk's
+    time a pixel step, and api.decompress, each decode on K4.  Returns None
+    on a failure, else (the corpus's containers at th 64, the pair's
+    containers by (contract, th), K4's launches in the decodes, the corpus
+    walk's arguments, K8's and K3's launches in the corpus encode, K8's and
+    K3's numbers for the kernels line)."""
     import torch
 
     from nblic_tpu_torch.models import strips
+    from nblic_tpu_torch.ops import rans_bin
     from nblic_tpu_torch.ops.decode import decode_groups
     from nblic_tpu_torch.ops.fold import encode_fold
     from nblic_tpu_torch.utils.synth import synth_image
@@ -829,14 +872,16 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
     finally:
         strips.TUNE = default
 
-    # ---- the corpus at th = 64: one batch of 24 x 12 strips, staged
+    # ---- the corpus at th = 64: one batch of 24 x 12 strips, staged, its
+    # scan's and fold's arguments kept for K8's and K3's holds
     th = 64
     n_px = sum(im.size for im in corpus)
     encode_fold.launches = decode_groups.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    with StageClock(p3_stage_targets(strips)) as clock:
+    with Kept(strips, "_row_scan") as scans, Kept(rans_bin, "fold") as folds, \
+            StageClock(p3_stage_targets(strips)) as clock:
         t0 = time.perf_counter()
-        conts = strips.encode_batch(corpus, th=th, device=dev)
+        conts, n8, n3 = _entry_codes(lambda: strips.encode_batch(corpus, th=th, device=dev))
         enc_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     stages = clock.stages()
@@ -849,8 +894,16 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
           f"strips.encode_batch {n_px / enc_s / 1e6:.4f} MPix/s ({enc_s:.2f} s), peak "
           f"device memory {peak:.2f} GiB; stages ms "
           + ", ".join(f"{k} {v:.1f} ({100 * v / total:.1f}%)" for k, v in stages.items())
-          + f"; launches K1 {encode_fold.launches} K2 {decode_groups.launches} ({card})",
-          flush=True)
+          + f"; launches K8 {n8} K3 {n3} K1 {encode_fold.launches} K2 "
+          f"{decode_groups.launches} ({card})", flush=True)
+    if not (n8 > 0 and n3 > 0 and len(scans.calls) == 1 and len(folds.calls) == 1):
+        return None
+    # K8 and K3 against their plain versions on the corpus's own planes and
+    # slots (the plain scan and fold run once each here)
+    k8 = _k8_case(f"the corpus's scan at th {th}", scans.calls.pop(), False, card)
+    k3 = _k3_case(f"the corpus's fold at th {th}", folds.calls.pop(), card)
+    if k8[0] is None or k3[0] is None:
+        return None
     t0 = time.perf_counter()
     *cpu_pairs, on_cpu = cpu_job.result()
     wait_s = time.perf_counter() - t0
@@ -963,7 +1016,7 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
     print(f"[p3 decode] the cpu's decodes of the {len(cpu_groups)} groups (the pairs, each "
           f"fixture, corpus images {picks}) equal the card's {same} (waited {wait_s:.1f} s "
           f"for them)", flush=True)
-    return (conts, pair_conts, k4, seen[0]) if same else None
+    return (conts, pair_conts, k4, seen[0], (n8, n3), k8, k3) if same else None
 
 
 def _division_paths(walk, n_px: int, bins=None) -> tuple:
@@ -1119,6 +1172,140 @@ def _k5_case(what, x, n_imgs, near, tune, card):
     return (err if same else None), ms, pms
 
 
+def _k8_work(planes, n_imgs: int, tune, k_step: int, near: bool, masks) -> tuple:
+    """K8's operations on these planes (L, th, W) at this run's slots
+    (``masks`` of the scan): (the lanes' walks, a lane's chain at the most
+    lanes a thread, the shared tables' adds and sweeps a CTA)."""
+    from nblic_tpu_torch.models import strips
+
+    n_l, th, w = planes[0].shape
+    n_px, n_u = n_l * th * w, tune.n_unary
+    n_seg = strips._eff_seg(tune.n_seg, w)
+    live = masks.sum(dim=(0, 2, 3)).tolist()  # active slots by layer
+    esc = live[n_u + strips.L_R - 1]  # only an escaped symbol masks in the last layer
+    reached, bits = sum(live[:n_u]), sum(live[n_u:n_u + 5]) - 5 * esc
+    walk = (n_px * (K8_PIXEL_OPS[near] + n_u * K8_UNARY_OPS + 3 * K8_PAD_OPS)
+            + (n_px - esc) * 5 * K8_REFINE_OPS + esc * 5 * K8_PAD_OPS
+            + reached * K8_EVENT_OPS[0] + bits * K8_EVENT_OPS[1])
+    seg_map = bool(tune.seg_map) and n_seg > 1 and not near
+    seg_bias = bool(tune.seg_bias) and n_seg > 1 and not near
+    pairs = 16 * (256 >> (15 // k_step)) + 160  # unary and refine counter pairs a lane
+    tables = (th * n_seg * n_l * pairs * K8_SWEEP_OPS
+              + th * (n_seg if seg_map else 1) * n_imgs * 512 * 20 * K8_MAP_OPS[0]
+              + n_px * K8_MAP_OPS[1])
+    if not near:
+        tables += (th * (n_seg if seg_bias else 1) * n_imgs * 3072 * K8_BIAS_OPS[0]
+                   + n_px * K8_BIAS_OPS[1])
+    lpi = n_l // n_imgs
+    chain = -(-lpi // K8_THREADS) * walk / n_l
+    return walk, chain, tables / n_imgs
+
+
+def _k8_case(what, args, near: bool, card, reps: int = 3):
+    """K8 (``strips._row_scan`` / ``_near_code`` on card tensors, the scan's
+    arguments ``args``) against its plain version on the same tensors,
+    exact on the three slot planes; K8 timed (median of ``reps``) beside
+    the plain version's one run, its bound and its floor.  The launches
+    made here are comparisons, not the main path's.  Returns (max error, or
+    None on a mismatch; K8 ms; plain ms; bound)."""
+    import torch
+
+    from nblic_tpu_torch.models import strips
+
+    if near:
+        *planes, n_imgs, k_step, tune = args
+        kern, plain = strips._near_code, strips._near_code_plain
+    else:
+        *planes, n_imgs, tune = args
+        k_step = strips.K_STEP
+        kern, plain = strips._row_scan, strips._row_scan_plain
+    got = kern(*args)
+    want, pms = _timed(lambda: plain(*args))
+    same = all(torch.equal(u, v) for u, v in zip(got, want))
+    err = max(int((u.int() - v.int()).abs().max()) for u, v in zip(got, want))
+    ms = _cuda_ms(lambda: kern(*args), reps)
+    walk, chain, tables = _k8_work(planes, n_imgs, tune, k_step, near, got[2])
+    n_bytes = sum(p.numel() * p.element_size() for p in planes) + sum(
+        t.numel() * t.element_size() for t in got)
+    bound = _bound(n_bytes, walk + tables * n_imgs)
+    floor = max(bound[0], 1e3 * (chain + tables / K8_THREADS) / CLOCK_HZ)
+    n_l, th, w = planes[0].shape
+    n_seg = strips._eff_seg(tune.n_seg, w)
+    print(f"[K8 p3_row_scan] {what}: {n_imgs} images x {n_l // n_imgs} lanes, {th}x{w}, "
+          f"{n_seg} segments a row, {'near coder' if near else 'lossless scan'}, sym_cnt "
+          f"{tune.sym_cnt} seg_bias {tune.seg_bias} seg_map {tune.seg_map}: exact on 3 "
+          f"slot planes {same} (max error {err}); K8 {ms:.3f} ms (median of {reps}) | plain "
+          f"{pms:.1f} ms ({pms / ms:.0f}x) | bound {bound[0]:.4f} ms ({bound[1]}) | floor "
+          f"{floor:.3f} ms (a lane's chain {chain / (th * w):.0f} ops a pixel, one a cycle, "
+          f"and the tables' sweeps over {K8_THREADS} threads) ({card})", flush=True)
+    return (err if same else None), ms, pms, bound
+
+
+def _k3_case(what, args, card, reps: int = 3):
+    """K3 (``rans_bin.fold`` on card tensors, the fold's arguments
+    ``args``) against :func:`rans_bin.fold_plain` on the same tensors,
+    exact on every word, emit and state; K3 timed (median of ``reps``)
+    beside the plain fold's one run, its bound and its floor.  Returns
+    (max error, or None on a mismatch; K3 ms; plain ms; bound)."""
+    import torch
+
+    from nblic_tpu_torch.ops import rans_bin
+
+    p1, bins, mask = args
+    got = rans_bin.fold(*args)
+    want, pms = _timed(lambda: rans_bin.fold_plain(*args))
+    same = all(torch.equal(u, v) for u, v in zip(got, want))
+    err = max(int((u.long() - v.long()).abs().max()) for u, v in zip(got, want))
+    ms = _cuda_ms(lambda: rans_bin.fold(*args), reps)
+    s, n = p1.shape
+    live = mask.sum(1)
+    n_live = int(live.sum())
+    ops = n_live * K3_LIVE_OPS + (s * n - n_live) * K3_MASKED_OPS
+    n_bytes = sum(t.numel() * t.element_size() for t in args) + s * n * (4 + 1) + s * 8
+    bound = _bound(n_bytes, ops)
+    longest = int(live.max())
+    floor = max(bound[0], 1e3 * (longest * K3_LIVE_OPS + (n - longest) * K3_MASKED_OPS)
+                / CLOCK_HZ)
+    print(f"[K3 bin_fold] {what}: {s} states x {n} slots, {n_live} live ({longest} on the "
+          f"longest chain), {int(got[1].sum())} words emitted: exact {same} (max error "
+          f"{err}); K3 {ms:.3f} ms (median of {reps}; {1e6 * ms / longest:.1f} ns a live "
+          f"step of the longest chain) | plain {pms:.1f} ms ({pms / ms:.0f}x) | bound "
+          f"{bound[0]:.4f} ms ({bound[1]}) | floor {floor:.3f} ms (the longest chain's "
+          f"ops, one a cycle) ({card})", flush=True)
+    return (err if same else None), ms, pms, bound
+
+
+def _entry_codes(fn):
+    """``fn()`` with K8's and K3's counts set to 0 just before and read
+    just after: (its result, K8's launches, K3's)."""
+    from nblic_tpu_torch.ops import rans_bin, row_scan
+
+    row_scan.scan.launches = rans_bin.fold_card.launches = 0
+    out = fn()
+    return out, row_scan.scan.launches, rans_bin.fold_card.launches
+
+
+class Kept:
+    """Wraps ``module.name`` so that every call's arguments are kept in
+    ``calls``; the original comes back on exit."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = fn = getattr(self.module, self.name)
+
+        def kept(*args):
+            self.calls.append(args)
+            return fn(*args)
+
+        setattr(self.module, self.name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
 def _entry_walks(fn):
     """``fn()`` with K5's count set to 0 just before and read just after:
     (its result, the launches it made)."""
@@ -1147,10 +1334,11 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
     tiled.encode_corpus at th = P3_NEAR_TH stage by stage, then its decode
     on the card through tiled.decode_batch; K5 against the plain walk on
     the pair (near 1 and 3, both near contracts), the edge images and the
-    corpus's walk, and the corpus's walk at th 768, timed.  Returns
-    None on a failure, else (K5's launches in the entry-point runs, K5's
-    numbers on the corpus for the kernels line, K4's launches in the
-    decodes)."""
+    corpus's walk, K8's near mode against the plain row coder on the
+    corpus's planes, and the corpus's walk at th 768, timed.  Returns None
+    on a failure, else (K5's launches in the entry-point runs, K5's numbers
+    on the corpus for the kernels line, K4's launches in the decodes, K8's
+    and K3's launches in the corpus encode, K8's numbers on its planes)."""
     import torch
 
     from nblic_tpu_torch.models import strips
@@ -1245,12 +1433,13 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
     encode_fold.launches = decode_groups.launches = 0
     torch.cuda.reset_peak_memory_stats()
     try:
-        with StageClock([(strips, "_near_walk", "walk"), (strips, "_near_code", "row coder"),
-                         (rans_bin, "fold", "fold"),
-                         (strips, "_finalize", "packing and containers")]) as clock:
+        with Kept(strips, "_near_code") as codes, \
+                StageClock([(strips, "_near_walk", "walk"), (strips, "_near_code", "row coder"),
+                            (rans_bin, "fold", "fold"),
+                            (strips, "_finalize", "packing and containers")]) as clock:
             t0 = time.perf_counter()
-            conts, n = _entry_walks(
-                lambda: tiled.encode_corpus(corpus, near=NEAR, effort=3, device=dev))
+            (conts, n), n8, n3 = _entry_codes(lambda: _entry_walks(
+                lambda: tiled.encode_corpus(corpus, near=NEAR, effort=3, device=dev)))
             enc_s = time.perf_counter() - t0
     finally:
         strips.TH_DEFAULT, strips._near_walk = saved, walk
@@ -1272,12 +1461,18 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
           f"{st['row coder'] / th:.1f} ms a row ({strips._eff_seg(tune.n_seg, w)} segments), "
           f"fold {1e3 * st['fold'] / fold_steps:.1f} us a step ({fold_steps} steps); profile "
           f"3, near {NEAR}, th {th} in every header {form}; launches K5 {n} (one a row of "
-          f"{len(seen)} walk), K1 {encode_fold.launches} K2 {decode_groups.launches} ({card})",
-          flush=True)
+          f"{len(seen)} walk), K8 {n8}, K3 {n3}, K1 {encode_fold.launches} K2 "
+          f"{decode_groups.launches} ({card})", flush=True)
     same = cpu[2] == [conts[i] for i in PICKS]
     print(f"[p3 near corpus] images {list(PICKS)} encoded on the cpu: containers equal "
           f"{same}", flush=True)
-    if not (form and same and n > 0 and len(seen) == 1):
+    if not (form and same and n > 0 and len(seen) == 1 and n8 > 0 and n3 > 0
+            and len(codes.calls) == 1):
+        return None
+    # K8's near mode against the plain row coder on the corpus's own planes
+    k8 = _k8_case(f"the near-{NEAR} corpus's row coder at th {th}", codes.calls.pop(), True,
+                  card)
+    if k8[0] is None:
         return None
 
     # K5 against the plain walk on the corpus walk's own input (the plain
@@ -1339,7 +1534,7 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
           f"memory {peak:.2f} GiB, K4 launches {n4} ({card})", flush=True)
     if not (0 < err <= NEAR and n4 > 0):
         return None
-    return launches, (max(errs), ms, pms, bound), k4
+    return launches, (max(errs), ms, pms, bound), k4, (n8, n3), k8
 
 
 def _k4_case(what, args, card):
@@ -1471,6 +1666,33 @@ def _k4_phase(corpus, pair_conts, walk_args, dev, card, full_job):
     if not ok24:
         return None
     return n, (max(errs + [err]), ms, pms, bound)
+
+
+def _p3_full_encode(corpus, dev, card, full_job):
+    """One corpus image encoded on the card at th P3_FULL_TH (one lane, the
+    default strip height's own depth), stage by stage, its container
+    against the CPU's (``full_job``, a future of :func:`_cpu_encode`) byte
+    for byte.  Returns None on a failure, else K8's and K3's launches in
+    that encode."""
+    import torch
+
+    from nblic_tpu_torch.models import strips
+
+    ((cont,),) = full_job.result()
+    torch.cuda.synchronize()
+    with StageClock(p3_stage_targets(strips)) as clock:
+        t0 = time.perf_counter()
+        mine, n8, n3 = _entry_codes(lambda: strips.encode(corpus[0], th=P3_FULL_TH, device=dev))
+        enc_s = time.perf_counter() - t0
+    stages = clock.stages()
+    total = sum(stages.values())
+    same = mine == cont
+    print(f"[p3 full] corpus image 0 ({corpus[0].shape}) at th {P3_FULL_TH}, one lane: "
+          f"strips.encode on the card {enc_s:.2f} s, {8.0 * len(mine) / corpus[0].size:.4f} "
+          f"bpp, container equal to the cpu's byte for byte {same}; stages ms "
+          + ", ".join(f"{k} {v:.1f} ({100 * v / total:.1f}%)" for k, v in stages.items())
+          + f"; launches K8 {n8} K3 {n3} ({card})", flush=True)
+    return (n8, n3) if same and n8 > 0 and n3 > 0 else None
 
 
 # the native runtime's corpus runs: (label, near, effort, n_threads)
@@ -2020,7 +2242,8 @@ def main() -> int:
           f"{lib.nbt_group_decode_smem(64, 128)} B a CTA at 64x64 tiles, "
           f"{lib.nbt_group_decode_smem(16, 128)} B at 16x16 (K2' the same) | K7: "
           f"{lib.nbt_near_scan_smem(64)} B a CTA of {K7_LANES} lanes at 64x64 | K1: "
-          f"{lib.nbt_rans_fold_smem()} B a block", flush=True)
+          f"{lib.nbt_rans_fold_smem()} B a block | K8: {lib.nbt_p3_row_scan_smem()} B a CTA "
+          f"(an image's bias moments and mapper)", flush=True)
 
     # ---- K1 against the plain fold on the card
     rng = np.random.default_rng(0)
@@ -2207,7 +2430,8 @@ def main() -> int:
             print("[p3] failed: a container or a decode differed from the CPU's, the image "
                   "or nblic_tpu's pixels, or the route")
             return 1
-        p3_conts, pair_conts, k4_launches, walk_args = p3
+        p3_conts, pair_conts, k4_launches, walk_args, (k8_launches, k3_launches), k8_stats, \
+            k3_stats = p3
         print(f"[p3] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         p3_near = _p3_near_phase(tiled, corpus, dev, card, near_job)
@@ -2216,8 +2440,10 @@ def main() -> int:
                   "a header, an error past near, K5 differed from the plain walk or never "
                   "launched")
             return 1
-        k5_launches, k5_stats, n4 = p3_near
+        k5_launches, k5_stats, n4, (n8, n3), _ = p3_near
         k4_launches += n4
+        k8_launches += n8
+        k3_launches += n3
         print(f"[p3 near] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         k4 = _k4_phase(corpus, pair_conts, walk_args, dev, card, full_job)
@@ -2230,6 +2456,13 @@ def main() -> int:
         k4_stats = k4[1]
         print(f"[K4] the phase took {time.perf_counter() - t0:.1f} s; K4 launches on the "
               f"entry points {k4_launches}", flush=True)
+        full = _p3_full_encode(corpus, dev, card, full_job)
+        if full is None:
+            print("[p3 full] failed: the card's th-768 container differed from the CPU's, or "
+                  "K8 or K3 never launched")
+            return 1
+        k8_launches += full[0]
+        k3_launches += full[1]
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
@@ -2278,6 +2511,11 @@ def main() -> int:
             note="an XLA scan (lax.scan), no pallas_call"),
         row("p3_decode_walk", "nblic_tpu_torch/csrc/p3_decode_walk.cu",
             "nblic_tpu/models/strips.py:1222", k4_launches + mesh_k4, k4_stats,
+            note="an XLA scan (lax.scan), no pallas_call"),
+        row("bin_fold", "nblic_tpu_torch/csrc/bin_fold.cu", "nblic_tpu/ops/rans_bin.py:48",
+            k3_launches, k3_stats, note="an XLA scan (lax.scan), no pallas_call"),
+        row("p3_row_scan", "nblic_tpu_torch/csrc/p3_row_scan.cu",
+            "nblic_tpu/models/strips.py:649", k8_launches, k8_stats,
             note="an XLA scan (lax.scan), no pallas_call"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -89,6 +89,16 @@ PROBE is one of:
              its chain cut (the reciprocals, the elimination, the back
              substitution, the moment update, the F chain; WALK_CUTS), whose
              output is wrong on purpose (reported, not failed on).
+  p3-decode-feat  K4's three instances (10, 6 and the general one at 12
+             AVP features) timed in turns beside variants of
+             csrc/p3_decode_walk.cu (--decode-variant DIR, repeatable: DIR
+             holds a p3_decode_walk.cu and any headers of its own, the
+             package's csrc/ behind them), each held exact to the
+             package's kernel: the ptxas registers and spills of every
+             build, then K4 on a corpus-shaped th-4 input's first 2 rows
+             (4,608 lanes) and on one 768x512 image at th 768 (one lane),
+             its first 8 rows, TUNE_V4, the replays between launches
+             included.
   interop    the interop engines (plain PyTorch, one lane) on the card: the
              Q0.2 encode of a synthetic 768x512 image and of a flat one (every
              pixel one context: the context chain's longest walk) with the
@@ -253,8 +263,8 @@ def _build(name: str, text: str, where: Path = PROBE_DIR) -> Path:
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}:\n{res.stdout}{res.stderr}")
-    regs = [ln.split("ptxas info    : ")[-1] for ln in res.stderr.splitlines()
-            if "registers" in ln]
+    regs = [ln.split("ptxas info    : ")[-1].strip() for ln in res.stderr.splitlines()
+            if "registers" in ln or "spill" in ln]
     print(f"[build {name}] {regs}", flush=True)
     return lib
 
@@ -677,17 +687,24 @@ def _routines(body: str) -> dict:
     return out
 
 
-def p3_walk(card: str) -> bool:
+def _package_ptxas(tag: str, card: str) -> None:
+    """Build the package's library and print ptxas's line of each walk
+    kernel instance (when this run built it)."""
     from chip_smoke import ptxas_summary
-    from nblic_tpu_torch.models import strips
-    from nblic_tpu_torch.ops import decode_walk, near_walk
 
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         kernels.build(verbose=True)
     for line in ptxas_summary(report.getvalue()) or ["not reported: the library was built "
                                                      "before this run"]:
-        print(f"[p3-walk ptxas] {line} ({card})", flush=True)
+        print(f"[{tag} ptxas] {line} ({card})", flush=True)
+
+
+def p3_walk(card: str) -> bool:
+    from nblic_tpu_torch.models import strips
+    from nblic_tpu_torch.ops import decode_walk, near_walk
+
+    _package_ptxas("p3-walk", card)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(kernels.library_path())], capture_output=True,
                           text=True, check=True).stdout
@@ -818,6 +835,47 @@ def p3_walk_bounds(libs: dict, card: str) -> bool:
     return ok
 
 
+def p3_decode_feat(libs: dict, card: str) -> bool:
+    """K4 at 10, 6 and 12 AVP features: the package's kernel and the
+    variants ``libs`` ({tag: library}) timed in turns, each held exact to
+    the package's."""
+    from nblic_tpu_torch.models import strips
+
+    _package_ptxas("p3-decode-feat", card)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(16)
+    corpus = [synth_image(rng, 512, 768) for _ in range(18)]
+    corpus += [synth_image(rng, 768, 512) for _ in range(6)]
+    inputs = {"4608 lanes (a th-4 corpus, 2 rows)": (corpus, 4, 2),
+              "1 lane (a 768x512 image at th 768, 8 rows)": (corpus[-1:], 768, 8)}
+    base, default_n = kernels.library(), strips.AVP_N
+    ok, saved = True, kernels.library
+    try:
+        for n_feat in (10, 6, 12):
+            strips.AVP_N = n_feat
+            for what, (imgs, th, rows) in inputs.items():
+                conts = strips.encode_batch(imgs, th=th, device=dev)
+                args = strips._walk_args([strips._parse(c) for c in conts], dev)[0]
+                args = (args[0], args[1], rows, *args[3:])
+                kernels.library = lambda: base
+                want = strips._decode_walk(*args)
+                for rnd in range(2):
+                    tags = ["package", *libs]
+                    for tag in (tags if rnd == 0 else tags[::-1]):
+                        kernels.library = ((lambda: base) if tag == "package" else
+                                           (lambda s=_SwappedLib(base, **_walk_entries(
+                                               libs[tag])): s))
+                        same = torch.equal(strips._decode_walk(*args), want)
+                        ok &= same
+                        ms = _ms(lambda: strips._decode_walk(*args), reps=3)
+                        print(f"[p3-decode-feat] round {rnd + 1}, K4 at {n_feat} features, "
+                              f"{what}, {tag}: {ms:.3f} ms, exact against the package's "
+                              f"{same} ({card})", flush=True)
+    finally:
+        kernels.library, strips.AVP_N = saved, default_n
+    return ok
+
+
 def interop(card: str) -> bool:
     from chip_smoke import StageClock
     from nblic_tpu_torch import runtime
@@ -895,6 +953,7 @@ def main(argv=None) -> int:
                                                      "build", "near-stages", "p3-stages",
                                                      "p3-corpus", "p3-decode",
                                                      "p3-near", "p3-walk", "p3-walk-bounds",
+                                                     "p3-decode-feat",
                                                      "interop"))
     ap.add_argument("--parent", type=Path,
                     help="cut-chain: also cut this group_decode.cu of the parent design")
@@ -903,6 +962,9 @@ def main(argv=None) -> int:
     ap.add_argument("--chain-before", type=Path,
                     help="p3-walk-bounds: also build K5 and K4 on the avp_chain.cuh and "
                          "udiv64.cuh in this directory")
+    ap.add_argument("--decode-variant", type=Path, action="append", default=[],
+                    help="p3-decode-feat: also time the p3_decode_walk.cu in this directory "
+                         "(repeatable)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_probe: needs a CUDA GPU", file=sys.stderr)
@@ -936,6 +998,11 @@ def main(argv=None) -> int:
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
     before_dir = PROBE_DIR / "chain_before"
     cut_dirs = {}
+    if "p3-decode-feat" in args.probes:
+        for where in args.decode_variant:
+            specs[("k4-feat", where.name)] = (f"k4_{where.name}",
+                                              (where / "p3_decode_walk.cu").read_text())
+            cut_dirs[("k4-feat", where.name)] = where
     if "p3-walk-bounds" in args.probes:
         for cut, (header, old, new) in WALK_CUTS.items():
             where = PROBE_DIR / ("cut_" + cut.replace(" ", "_"))
@@ -993,6 +1060,8 @@ def main(argv=None) -> int:
         ok &= p3_near(card)
     if "p3-walk" in args.probes:
         ok &= p3_walk(card)
+    if "p3-decode-feat" in args.probes:
+        ok &= p3_decode_feat(of("k4-feat"), card)
     walk_libs = {key: lib for key, lib in libs.items() if key[0] in WALK_SRCS}
     if walk_libs:
         ok &= p3_walk_bounds(walk_libs, card)

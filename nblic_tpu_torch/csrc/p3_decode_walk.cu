@@ -28,7 +28,9 @@
 // column, E, the mix chains and the window take the pixel.  At a segment's
 // end the counter tables take its events and halve (coder3.row_updates,
 // halve_pairs).  The AVP chain is avp_chain.cuh's, the window and contexts
-// pixel_chain.cuh's.
+// pixel_chain.cuh's, the coder's arithmetic (the rANS step, the pair
+// probabilities, the layer walk's rows, a symbol's events and the tables'
+// halving) coder3.cuh's, which kernel K8 (p3_row_scan.cu) codes with.
 //
 // State.  What a lane owns stays on the card across launches: the 16
 // states and pointers (2, 16, L), the counter tables (L, cells) int32
@@ -57,23 +59,12 @@
 #include <cuda_runtime.h>
 
 #include "avp_chain.cuh"
+#include "coder3.cuh"
 
 namespace {
 
 constexpr int kMaxWarps = 4;      // warps (lanes) a CTA at most
 constexpr int kSmemMax = 232448;  // bytes of shared memory a Hopper CTA may use
-constexpr int kPhases = 16;       // rans_bin.N_PHASE
-constexpr int kProbBits = 12;     // rans_bin.PROB_BITS
-constexpr int kProbMax = 1 << kProbBits;
-constexpr uint32_t kAnsLow = 1u << 16;
-constexpr int kBypassP1 = kProbMax / 2;
-constexpr int kNRow = 16;         // zcodec3.N_ROW
-constexpr int kNRefine = 5;       // zcodec3.N_REFINE
-constexpr int kEscapeBits = 8;    // zcodec3.ESCAPE_BITS, strips.L_R
-constexpr int kMaxUnary = 20;     // Tune.n_unary's bound
-constexpr int kNMap = 20;         // coder3.N_MAP
-constexpr int kMapKeys = 512;     // coder3.MAP_KEYS
-constexpr int kRefinePairs = kNRow * kNRefine * 2;  // (row, bit position, msb)
 constexpr int kCarry = 12;        // the window's 11 registers and the error
 
 // The walk's constants: the replay contract, the escalation step and the
@@ -108,42 +99,7 @@ int warp_bytes(int n_class, bool sym) {
   return table_offset<kN>() + ((4 * cells * (sym ? 1 : 2) + 15) & ~15);
 }
 
-// ---- the coder (the warp's first thread)
-
-// rans_bin.dec_masked on an active lane: the bin from the state, then the
-// renormalization against the lane's stream row, reads clamped to the
-// padded matrix's last word.  uint32 arithmetic: (state >> 12) * p < 2^32.
-__device__ __forceinline__ int dec_bin(uint32_t& st, long long& ptr, int p1,
-                                       const int32_t* row, int wmax) {
-  const uint32_t p0 = kProbMax - p1;
-  const uint32_t lb = st & (kProbMax - 1);
-  const bool one = lb >= p0;
-  uint32_t s = (st >> kProbBits) * (one ? p1 : p0) + lb - (one ? p0 : 0);
-  if (s < kAnsLow) {
-    const long long at = ptr < wmax - 1 ? ptr : wmax - 1;
-    s = (s << 16) | static_cast<uint32_t>(row[at]);
-    ++ptr;
-  }
-  st = s;
-  return one;
-}
-
-// coder3.prob_table / strips._pair_prob of one counter pair (counts >= 1):
-// floor(4096 c1 / (c0 + c1)) clipped to [1, 4095].
-__device__ __forceinline__ int pair_prob(const int32_t* pair) {
-  const uint64_t c0 = static_cast<uint32_t>(pair[0]), c1 = static_cast<uint32_t>(pair[1]);
-  return clampi(static_cast<int>((c1 << kProbBits) / (c0 + c1)), 1, kProbMax - 1);
-}
-
-// coder3.mix_prob: the two probabilities interpolated by qw / 32.
-__device__ __forceinline__ int mix_prob(int pu, int pv, int qw) {
-  return clampi((pu * (kNQw - qw) + pv * qw + kNQw / 2) >> 5, 1, kProbMax - 1);
-}
-
-// zcodec3.escalated_row: the context row after `esc` escalations.
-__device__ __forceinline__ int escalated_row(int q, int esc, int k_step) {
-  return esc == 0 ? q : min((q / k_step + esc) * k_step, kNRow - 1);
-}
+// ---- the coder (the warp's first thread; its arithmetic is coder3.cuh's)
 
 // One symbol: the unary walk (layer l reads rows escalated l's way; the
 // walk goes on while it decodes ones), then the refinement bits MSB first
@@ -191,63 +147,6 @@ __device__ __forceinline__ int decode_symbol(const Contract& c, DecShared<kN>& s
   return z;
 }
 
-// The segment's events of one decoded symbol z into the event tables (ud:
-// unary pairs (row, class) x 2 bins; rd: refine pairs (row, bit position,
-// msb) x 2 bins), as coder3.row_updates folds zcodec3.unary_layers /
-// refine_layers of z: re-derived from z, not from the bins read (a garbage
-// stream's bins need not be z's).  Over the warp: thread l takes unary
-// layer l, which the walk reaches where no layer before it stopped (two
-// layers, or a layer's u and v rows, may share a pair: the adds are
-// atomic), and thread kk refinement bit kk.
-template <int kN>
-__device__ __forceinline__ void warp_symbol_events(const Contract& c, const DecShared<kN>& sh,
-                                                   int z, int qu, int qv2, int qw, int32_t* ud,
-                                                   int32_t* rd, int t) {
-  const bool layer = t < c.n_unary;
-  int ru = 0, rv = 0;
-  bool go = false;
-  if (layer) {
-    ru = escalated_row(qu, sh.esc[t], c.k_step);
-    rv = escalated_row(qv2, sh.esc[t], c.k_step);
-    go = sh.cls[t] < (z >> (ru / c.k_step));
-  }
-  const unsigned stops = __ballot_sync(kFull, layer && !go);
-  const int stop = stops ? __ffs(stops) - 1 : c.n_unary;  // n_unary: escaped
-  if (layer && t <= stop) {
-    atomicAdd(&ud[2 * (ru * c.n_class + sh.cls[t]) + go], kNQw - qw);
-    atomicAdd(&ud[2 * (rv * c.n_class + sh.cls[t]) + go], qw);
-  }
-  if (stop == c.n_unary) return;
-  const int row_end = escalated_row(qu, sh.esc[stop], c.k_step);
-  const int k_end = row_end / c.k_step;  // <= 5 = N_REFINE
-  if (t < k_end) {
-    // bit t, seen where a higher bit below k_end was 1
-    const int seen = ((z >> (t + 1)) & ((1 << (k_end - 1 - t)) - 1)) != 0;
-    rd[2 * ((row_end * kNRefine + t) * 2 + seen) + ((z >> t) & 1)] += 1;
-  }
-}
-
-// A segment's end over the warp: the events into the table (`add`,
-// without sym_cnt), then coder3.halve_pairs: both counts of a pair whose
-// sum passes the threshold become (c + 1) >> 1.
-__device__ __forceinline__ void warp_segment_end(int32_t* tab, int32_t* delta, int pairs,
-                                                 int thresh, bool add, int t) {
-  for (int p = t; p < pairs; p += kWarp) {
-    int c0 = tab[2 * p], c1 = tab[2 * p + 1];
-    if (add) {
-      c0 += delta[2 * p];
-      c1 += delta[2 * p + 1];
-      delta[2 * p] = delta[2 * p + 1] = 0;
-    }
-    if (c0 + c1 > thresh) {
-      c0 = (c0 + 1) >> 1;
-      c1 = (c1 + 1) >> 1;
-    }
-    tab[2 * p] = c0;
-    tab[2 * p + 1] = c1;
-  }
-}
-
 // K4, row i, columns [c0, c1) (whole segments of c.ws): warp `lane` walks
 // its strip.  words: (16, lanes, wmax) int32 u16 words; rans: (2, 16,
 // lanes) int64 states then pointers; utab: (lanes, 16 n_class 2) int32
@@ -287,6 +186,10 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
   const int l_tot = c.n_unary + kEscapeBits;
   const int n_ucells = kNRow * c.n_class * 2;
   const bool mix = c.mix_e != 0, sym = c.sym_cnt != 0;
+  // Built here, not at its one call: ptxas then gives <12> 168 registers
+  // (a spill of 60 B) instead of 196, and it runs faster at many lanes
+  // (kernel_probe.py p3-decode-feat).
+  const Layers layers{c.k_step, c.n_class, c.n_unary, sh.esc, sh.cls};
 
   // the lane's tables into shared memory, the event tables zeroed
   int32_t* ut = reinterpret_cast<int32_t*>(mine + table_offset<kN>());
@@ -425,7 +328,7 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
       err = clampi(x - px0, -kMaxPxInc, kMaxPxInc);
       warp_update<kN>(x, px_s, s0, sh.avp.feat, sl, e, bc, bl + static_cast<size_t>(j) * m, t);
       if (mix) mix_update(x, px_hard, px_s, em, bmc);
-      if (!sym) warp_symbol_events<kN>(c, sh, z, qu, qv2, qw, ud, rd, t);
+      if (!sym) warp_symbol_events(layers, z, qu, qv2, qw, ud, rd, t);
       if (t == 0) {
         if (mix) {
           bml[2 * j] = bmc[0];
@@ -448,8 +351,8 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
     }
     // the segment's end: the counters take its events (live under
     // sym_cnt) and halve
-    warp_segment_end(ut, ud, n_ucells / 2, c.cnt_halve, !sym, t);
-    warp_segment_end(rt, rd, kRefinePairs, c.cnt_halve, !sym, t);
+    segment_end(ut, ud, n_ucells / 2, c.cnt_halve, !sym, t, kWarp);
+    segment_end(rt, rd, kRefinePairs, c.cnt_halve, !sym, t, kWarp);
     __syncwarp();
   }
 

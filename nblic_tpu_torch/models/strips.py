@@ -17,9 +17,11 @@ lockstep:
   (``ops/zcodec3.py``) turns it into binary decisions whose probabilities
   come from the counter tables (``ops/coder3.py``); the tables, the mapper
   history and the bias moments then take the segment's events.  Counters
-  are per lane; the mapper and the bias are per image.
+  are per lane; the mapper and the bias are per image.  On the card kernel
+  K8 (``csrc/p3_row_scan.cu``), one launch; on the CPU its plain version.
 - Fold (``ops/rans_bin.py``): binary rANS over 16 phase states a strip,
-  slots assigned to phases statically, then ``rans.pack_streams``.
+  slots assigned to phases statically (on the card kernel K3,
+  ``csrc/bin_fold.cu``), then ``rans.pack_streams``.
 
 Near-lossless encode (``near`` > 0) cannot model whole planes: each pixel
 is predicted from the reconstruction of the pixels before it.
@@ -28,8 +30,8 @@ folding each residual with step 2 near + 1 and feeding the reconstruction
 back (on the card kernel K5, ``csrc/p3_near_walk.cu``, a launch a row; on
 the CPU its plain version); :func:`_near_code` then runs the coding model
 a row at a time (:func:`_row_code`: bias and mapper row-frozen, counters
-a segment, with k_step = min(3 + 2 near, 16)), and the fold is the
-lossless one.
+a segment, with k_step = min(3 + 2 near, 16); on the card K8's near mode),
+and the fold is the lossless one.
 
 Decode (:func:`_decode_walk`) is one lockstep step a pixel over every strip
 lane of every image of a call: the AVP prediction from the reconstructed
@@ -57,7 +59,7 @@ import torch
 
 from ..constants import MAX_VAL, Q_N_CONTEXT
 from ..convert import resolve_device
-from ..ops import coder3, decode_walk, near_walk, pavp, rans, rans_bin, zcodec3
+from ..ops import coder3, decode_walk, near_walk, pavp, rans, rans_bin, row_scan, zcodec3
 from ..ops.avp import BETA, FB1, FIT_BASE
 from ..ops.context import BIAS_FRAC_BITS, quantize_bias, residual_fold, residual_unfold
 from ..ops.neighbors import Neighbors, sample
@@ -344,8 +346,21 @@ def _row_scan(x, px0, adr, qu, qv, qw, n_imgs: int, tune: Tune):
     L = n_imgs strips of each image, image-major.
 
     Returns (probs, bins, masks), each (th, n_unary + L_R, L, W): every
-    slot's 12-bit probability, bin and live mask.  Nothing in the loop
-    waits for the host.
+    slot's 12-bit probability, bin and live mask.  A CPU tensor runs the
+    plain scan (:func:`_row_scan_plain`); a CUDA tensor launches kernel K8
+    (``ops/row_scan.py::scan``) or raises; any other device raises.
+    """
+    if x.device.type == "cpu":
+        return _row_scan_plain(x, px0, adr, qu, qv, qw, n_imgs, tune)
+    if x.device.type == "cuda":
+        return row_scan.scan((qu, qv, qw, x, px0, adr), n_imgs, tune, K_STEP,
+                             _eff_seg(tune.n_seg, x.shape[-1]), near=False)
+    raise ValueError(f"the row scan runs on cpu or cuda, not {x.device}")
+
+
+def _row_scan_plain(x, px0, adr, qu, qv, qw, n_imgs: int, tune: Tune):
+    """The row scan in plain PyTorch, a row and a column segment at a time:
+    the plain version of K8.  Nothing in the loop waits for the host.
     """
     x, px0, adr, qu, qv, qw = (v.to(torch.int64) for v in (x, px0, adr, qu, qv, qw))
     n_l, th, w = x.shape
@@ -746,9 +761,24 @@ def _near_walk_card(x, n_imgs: int, near: int, n_feat: int, tune: Tune):
 
 
 def _near_code(y, qu, qv, qw, key, n_imgs: int, k_step: int, tune: Tune):
-    """The coding model over the walk's (L, th, W) planes, one
-    :func:`_row_code` a row.  Returns (probs, bins, masks), each (th,
-    n_unary + L_R, L, W), for :func:`_fold_pack`."""
+    """The coding model over the walk's (L, th, W) planes.  Returns (probs,
+    bins, masks), each (th, n_unary + L_R, L, W), for :func:`_fold_pack`.
+
+    A CPU tensor runs the plain row coder (:func:`_near_code_plain`); a CUDA
+    tensor launches kernel K8 in its near mode (``ops/row_scan.py::scan``)
+    or raises; any other device raises.
+    """
+    if y.device.type == "cpu":
+        return _near_code_plain(y, qu, qv, qw, key, n_imgs, k_step, tune)
+    if y.device.type == "cuda":
+        return row_scan.scan((qu, qv, qw, y, key), n_imgs, tune, k_step,
+                             _eff_seg(tune.n_seg, y.shape[-1]), near=True)
+    raise ValueError(f"the row coder runs on cpu or cuda, not {y.device}")
+
+
+def _near_code_plain(y, qu, qv, qw, key, n_imgs: int, k_step: int, tune: Tune):
+    """The row coder in plain PyTorch, one :func:`_row_code` a row: the
+    plain version of K8's near mode."""
     n_l, th, w = y.shape
     dev = y.device
     l_tot = tune.n_unary + L_R

@@ -10,12 +10,16 @@ same slots.
 32-bit state in [2^16, 2^32), one u16 word per renormalization.  The state
 is carried as int64 masked to 32 bits, as in ``ops/rans.py``: CPU tensors
 of ``torch.uint32`` lack shifts, division and comparison.  Streams are
-packed in decode order by ``rans.pack_streams``.
+packed in decode order by ``rans.pack_streams``.  On the card the fold is
+kernel K3 (``csrc/bin_fold.cu``, :func:`fold_card`), the counterpart of
+nblic_tpu's ``lax.scan``; :func:`fold_plain` is its plain version.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .. import kernels
 
 PROB_BITS = 12
 PROB_MAX = 1 << PROB_BITS          # 4096
@@ -28,7 +32,66 @@ BYPASS_P1 = PROB_MAX // 2           # raw-bit probability
 
 
 def fold(p1, bins, mask):
-    """Lockstep reverse fold of S independent bin sequences.
+    """Lockstep reverse fold of S independent bin sequences; see
+    :func:`fold_plain` for the contract.
+
+    A CPU tensor runs the plain version, :func:`fold_plain`; a CUDA tensor
+    launches kernel K3 (``csrc/bin_fold.cu``, :func:`fold_card`) or raises;
+    any other device raises.
+    """
+    if p1.dim() != 2 or p1.shape != bins.shape or p1.shape != mask.shape:
+        raise ValueError(f"p1/bins/mask must be equal (S, n): {tuple(p1.shape)}, "
+                         f"{tuple(bins.shape)}, {tuple(mask.shape)}")
+    if not p1.device == bins.device == mask.device:
+        raise ValueError("p1, bins and mask lie on different devices")
+    if p1.device.type == "cpu":
+        return fold_plain(p1, bins, mask)
+    if p1.device.type == "cuda":
+        return fold_card(p1, bins, mask)
+    raise ValueError(f"the fold runs on cpu or cuda, not {p1.device}")
+
+
+def pack_slots(p1, bins, mask):
+    """The (S, n) slots as K3 reads them (``coder3.cuh``'s ``fold_slot``),
+    4 bytes each: p1's low 16 bits (p1 clipped to int16 first, which K3's
+    clip to [1, 4095] then gives as :func:`fold_plain`'s), bins == 1 at
+    bit 16, the live mask at bit 17."""
+    p = torch.clamp(p1, -(1 << 15), (1 << 15) - 1).to(torch.int32) & 0xFFFF
+    return (p | ((bins == 1).to(torch.int32) << 16)
+            | ((mask != 0).to(torch.int32) << 17)).contiguous()
+
+
+def fold_card(p1, bins, mask):
+    """:func:`fold_plain` on the card: kernel K3, one thread a state.
+    p1/bins/mask: (S, n) integer (mask also bool) CUDA tensors of one
+    device, as :func:`fold` checks them.  Returns what :func:`fold_plain`
+    returns, every word included."""
+    for name, t in (("p1", p1), ("bins", bins), ("mask", mask)):
+        if t.dtype.is_floating_point or t.dtype.is_complex or (t.dtype == torch.bool
+                                                               and name == "p1"):
+            raise ValueError(f"{name} must be an integer tensor, got {t.dtype}")
+    if p1.device.type != "cuda":
+        raise ValueError(f"p1 lies on {p1.device}: K3 runs on one CUDA device")
+    s, n = p1.shape
+    slots = pack_slots(p1, bins, mask)
+    out = torch.empty((n, s), dtype=torch.int32, device=p1.device)
+    state = torch.full((s,), ANS_LOW, dtype=torch.int32, device=p1.device)
+    if s > 0 and n > 0:
+        dev, stream = kernels.stream_of(p1)
+        rc = kernels.library().nbt_bin_fold(slots.data_ptr(), out.data_ptr(),
+                                            state.data_ptr(), s, n, dev, stream)
+        kernels.check(rc, "bin_fold")
+        fold_card.launches += 1
+    fold = out.t()  # rows of `out` are fold steps
+    return fold & ANS_MASK, fold > ANS_MASK, state.to(torch.int64) & U32
+
+
+fold_card.launches = 0
+
+
+def fold_plain(p1, bins, mask):
+    """Lockstep reverse fold of S independent bin sequences: the plain
+    version of kernel K3.
 
     p1/bins/mask: (S, L) in decode order (the fold walks them backwards).
     Masked slots leave the state untouched and emit nothing: they fold as a

@@ -18,7 +18,9 @@ import torch
 
 from nblic_tpu_torch.convert import group_args, tables_from_numpy
 from nblic_tpu_torch.models import strips, tiled
-from nblic_tpu_torch.ops import avp, decode, decode_walk, fold, lsq, near_scan, near_walk, rans
+from nblic_tpu_torch.ops import (
+    avp, decode, decode_walk, fold, lsq, near_scan, near_walk, rans, rans_bin, row_scan,
+)
 from nblic_tpu_torch.utils.synth import edge_images, synth_image
 
 
@@ -755,3 +757,119 @@ def test_warp_chain_matches_plain_solve(cuda_device, kind, n):
     torch.cuda.synchronize()
     for name, u, v in zip(("diag", "num", "ok", "px"), got, (diag, num, ok, px)):
         assert torch.equal(u.cpu(), v), name
+
+
+# ---- K8, the profile-3 coding scan, and K3, its binary fold: each held to
+# its plain version on the same card tensors.  The plain scan makes ~200
+# launches a column segment, so the strips are short.
+
+
+def _k8_lossless(imgs, th, tune):
+    """K8 and the plain row scan on the card planes of ``imgs`` at strip
+    height ``th``; asserts one launch and equal slots."""
+    st, *_ = strips._prepare(imgs, th)
+    b, s, th, w = st.shape
+    x = torch.from_numpy(st).reshape(b * s, th, w).cuda()
+    seg_w = w // strips._eff_seg(tune.n_seg, w) if tune.seg_stats else 0
+    planes = strips._model_planes(x, strips.AVP_N, seg_w, bool(tune.mix_e), bool(tune.w_pred))
+    before = row_scan.scan.launches
+    got = strips._row_scan(*planes, b, tune)
+    torch.cuda.synchronize()
+    assert row_scan.scan.launches == before + 1
+    want = strips._row_scan_plain(*planes, b, tune)
+    for g, w_, name in zip(got, want, ("probs", "bins", "masks")):
+        assert g.dtype == w_.dtype and g.shape == w_.shape and torch.equal(g, w_), name
+
+
+# (images, th): one, 12 and 192 strip lanes an image (portrait images, so
+# no transpose changes the count)
+K8_LANES = {
+    "lanes1": (lambda: [synth_image(np.random.default_rng(1), 32, 16) for _ in range(2)], 32),
+    "lanes12": (lambda: [synth_image(np.random.default_rng(2), 48, 32) for _ in range(2)], 4),
+    "lanes192": (lambda: [synth_image(np.random.default_rng(3), 768, 32) for _ in range(2)], 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tune", ["TUNE_V4", "TUNE_MAX", "TUNE_V4S"])
+@pytest.mark.parametrize("lanes", list(K8_LANES))
+def test_row_scan_kernel_matches_plain(cuda_device, tune, lanes):
+    make, th = K8_LANES[lanes]
+    _k8_lossless(make(), th, getattr(strips, tune))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tune", ["TUNE_V4", "TUNE_MAX", "TUNE_V4S"])
+@pytest.mark.parametrize("near", [1, 2, 3])
+@pytest.mark.parametrize("lanes", list(K8_LANES))
+def test_row_scan_kernel_near_mode_matches_plain(cuda_device, tune, near, lanes):
+    make, th = K8_LANES[lanes]
+    tune_n = strips._near_tune(getattr(strips, tune))
+    st, *_ = strips._prepare(make(), th)
+    b, s, th, w = st.shape
+    x = torch.from_numpy(st).reshape(b * s, th, w).cuda()
+    planes = strips._near_walk(x, b, near, strips.AVP_N, tune_n)
+    k_step = strips._k_step(near)
+    before = row_scan.scan.launches
+    got = strips._near_code(*planes, b, k_step, tune_n)
+    torch.cuda.synchronize()
+    assert row_scan.scan.launches == before + 1
+    want = strips._near_code_plain(*planes, b, k_step, tune_n)
+    for g, w_, name in zip(got, want, ("probs", "bins", "masks")):
+        assert g.dtype == w_.dtype and g.shape == w_.shape and torch.equal(g, w_), name
+
+
+@pytest.mark.cuda
+def test_row_scan_kernel_refuses_out_of_range_planes(cuda_device):
+    t = torch.zeros((2, 2, 16), dtype=torch.int32, device=cuda_device)
+    bad = t.clone()
+    bad[0, 0, 0] = 3072  # a context address past the table
+    before = row_scan.scan.launches
+    with pytest.raises(ValueError, match="outside the range"):
+        row_scan.scan((t, t, t, t, t, bad), 1, strips.TUNE_V4, strips.K_STEP, 16, near=False)
+    assert row_scan.scan.launches == before
+
+
+# (states, slots, live share): S = 16 (one lane), states not a multiple of
+# the CTA's 32, slots not a multiple of the 4-slot copies or of the chunk
+K3_CASES = {
+    "s16": (16, 21 * 16 * 8, 0.4),
+    "s100-n4099": (100, 4099, 0.5),
+    "s33-n1": (33, 1, 1.0),
+    "s4608-n1344": (4608, 1344, 0.3),
+    "s7-n62": (7, 62, 0.9),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_bin_fold_kernel_matches_plain(cuda_device, case):
+    s, n, live = K3_CASES[case]
+    rng = np.random.default_rng(s + n)
+    p1 = rng.integers(1, 4096, (s, n))
+    p1[:, ::5] = rng.choice([-3, 1, 4095, 5000], size=p1[:, ::5].shape)  # the clip
+    bins = (rng.random((s, n)) < np.clip(p1, 1, 4095) / 4096.0).astype(np.int8)
+    mask = rng.random((s, n)) < live
+    mask[0] = False  # an all-masked state
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (p1.astype(np.int16), bins, mask)]
+    before = rans_bin.fold_card.launches
+    got = rans_bin.fold(*args)
+    torch.cuda.synchronize()
+    assert rans_bin.fold_card.launches == before + 1
+    want = rans_bin.fold_plain(*args)
+    for g, w_, name in zip(got, want, ("words", "emits", "state")):
+        assert g.dtype == w_.dtype and g.shape == w_.shape and torch.equal(g, w_), name
+    assert int(got[2][0]) == rans_bin.ANS_LOW and not got[1][0].any()
+
+
+@pytest.mark.cuda
+def test_bin_fold_kernel_on_strided_views(cuda_device):
+    # views of wider planes, as a caller may hand them in
+    rng = np.random.default_rng(8)
+    p1 = torch.from_numpy(rng.integers(1, 4096, (40, 203)).astype(np.int32)).to(cuda_device)
+    bins = (torch.rand((40, 203), device=cuda_device) < 0.5).to(torch.int32)
+    mask = torch.rand((40, 203), device=cuda_device) < 0.6
+    a, b, m = p1[:, 3:], bins[:, 3:], mask[:, 3:]
+    got, want = rans_bin.fold(a, b, m), rans_bin.fold_plain(a, b, m)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
