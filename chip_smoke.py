@@ -313,14 +313,19 @@ K8_EVENT_OPS = (4, 2)
 K8_SWEEP_OPS = 6
 K8_MAP_OPS = (3, 6)
 K8_BIAS_OPS = (4, 8)
-K8_THREADS = 256  # threads a CTA (an image); a thread walks lanes t, t + 256, ...
+K8_THREADS = 512  # threads a CTA (an image): 16 warps, a pixel a warp or a thread
+K8_LANE_THREADS = 256  # the earlier design's CTA, a thread walking lanes t, t + 256, ...
 # K3 (bin_fold.cu) a slot: a live one K3_LIVE_OPS (the word 1, the live
 # test 2, p1's sign extension and clip 4, the bin 2, f and the offset 3, the
 # renormalization test and shift 4, the 32-bit division 19, the remainder
 # and the new state 5, the emit flag 2), a masked one K3_MASKED_OPS (the
-# word, the live test, the store's value).
+# word, the live test, the store's value).  On the chain, which skips the
+# masked slots, a live step's K3_CHAIN_OPS: the renormalization test and
+# shift 2, the multiply-high 1, the 64-bit add and shift 3, the remainder
+# and the new state 3; the rest, and every masked slot, is the producers'.
 K3_LIVE_OPS = 42
 K3_MASKED_OPS = 4
+K3_CHAIN_OPS = 9
 P3_FULL_TH = 768  # the full-depth strip height: one corpus image a lane
 P3_FULL_ROWS = 192  # rows of the th-768 walk over the corpus's 24 lanes (K4)
 NEAR = 2  # the near phase's max error
@@ -1174,8 +1179,12 @@ def _k5_case(what, x, n_imgs, near, tune, card):
 
 def _k8_work(planes, n_imgs: int, tune, k_step: int, near: bool, masks) -> tuple:
     """K8's operations on these planes (L, th, W) at this run's slots
-    (``masks`` of the scan): (the lanes' walks, a lane's chain at the most
-    lanes a thread, the shared tables' adds and sweeps a CTA)."""
+    (``masks`` of the scan): (the lanes' walks; the dependent path of a
+    CTA's walk, a segment after another: a pixel's fixed work, a unary
+    slot and a refinement slot where a segment holds at most a pixel a
+    warp, else the most pixels a thread walks, each its whole work; the
+    earlier design's, a lane's chain at the most lanes a thread; the shared
+    tables' adds and sweeps a CTA)."""
     from nblic_tpu_torch.models import strips
 
     n_l, th, w = planes[0].shape
@@ -1197,8 +1206,34 @@ def _k8_work(planes, n_imgs: int, tune, k_step: int, near: bool, masks) -> tuple
         tables += (th * (n_seg if seg_bias else 1) * n_imgs * 3072 * K8_BIAS_OPS[0]
                    + n_px * K8_BIAS_OPS[1])
     lpi = n_l // n_imgs
-    chain = -(-lpi // K8_THREADS) * walk / n_l
-    return walk, chain, tables / n_imgs
+    tasks = lpi * (w // n_seg)
+    if tasks <= K8_THREADS // 32 and not tune.sym_cnt:
+        path = th * n_seg * (K8_PIXEL_OPS[near] + K8_UNARY_OPS + K8_REFINE_OPS)
+    else:
+        path = th * n_seg * -(-tasks // K8_THREADS) * walk / n_px
+    chain = -(-lpi // K8_LANE_THREADS) * walk / n_l
+    return walk, path, chain, tables / n_imgs
+
+
+def _k8_bound_floor(planes, n_imgs, tune, k_step, near, got) -> tuple:
+    """(bound, floor, the earlier design's floor, text) of K8 on these
+    planes and its slot planes ``got``: the bound over the function's
+    bytes and operations; the floor the walk's dependent path and the
+    tables' work over K8_THREADS threads, one op a cycle; the earlier
+    design's (a thread a lane) a lane's chain and the tables over
+    K8_LANE_THREADS."""
+    walk, path, chain, tables = _k8_work(planes, n_imgs, tune, k_step, near, got[2])
+    n_bytes = sum(p.numel() * p.element_size() for p in planes) + sum(
+        t.numel() * t.element_size() for t in got)
+    bound = _bound(n_bytes, walk + tables * n_imgs)
+    floor = max(bound[0], 1e3 * (path + tables / K8_THREADS) / CLOCK_HZ)
+    old = max(bound[0], 1e3 * (chain + tables / K8_LANE_THREADS) / CLOCK_HZ)
+    th, w = planes[0].shape[1:]
+    text = (f"bound {bound[0]:.4f} ms ({bound[1]}) | floor {floor:.3f} ms (the walk's path "
+            f"{path / (th * w):.0f} ops a pixel column, one a cycle, and the tables' sweeps "
+            f"over {K8_THREADS} threads; a thread a lane {old:.3f} ms, a lane's chain "
+            f"{chain / (th * w):.0f} ops a pixel, the sweeps over {K8_LANE_THREADS})")
+    return bound, floor, old, text
 
 
 def _k8_case(what, args, near: bool, card, reps: int = 3):
@@ -1224,21 +1259,37 @@ def _k8_case(what, args, near: bool, card, reps: int = 3):
     same = all(torch.equal(u, v) for u, v in zip(got, want))
     err = max(int((u.int() - v.int()).abs().max()) for u, v in zip(got, want))
     ms = _cuda_ms(lambda: kern(*args), reps)
-    walk, chain, tables = _k8_work(planes, n_imgs, tune, k_step, near, got[2])
-    n_bytes = sum(p.numel() * p.element_size() for p in planes) + sum(
-        t.numel() * t.element_size() for t in got)
-    bound = _bound(n_bytes, walk + tables * n_imgs)
-    floor = max(bound[0], 1e3 * (chain + tables / K8_THREADS) / CLOCK_HZ)
+    bound, _, _, text = _k8_bound_floor(planes, n_imgs, tune, k_step, near, got)
     n_l, th, w = planes[0].shape
     n_seg = strips._eff_seg(tune.n_seg, w)
     print(f"[K8 p3_row_scan] {what}: {n_imgs} images x {n_l // n_imgs} lanes, {th}x{w}, "
           f"{n_seg} segments a row, {'near coder' if near else 'lossless scan'}, sym_cnt "
           f"{tune.sym_cnt} seg_bias {tune.seg_bias} seg_map {tune.seg_map}: exact on 3 "
           f"slot planes {same} (max error {err}); K8 {ms:.3f} ms (median of {reps}) | plain "
-          f"{pms:.1f} ms ({pms / ms:.0f}x) | bound {bound[0]:.4f} ms ({bound[1]}) | floor "
-          f"{floor:.3f} ms (a lane's chain {chain / (th * w):.0f} ops a pixel, one a cycle, "
-          f"and the tables' sweeps over {K8_THREADS} threads) ({card})", flush=True)
+          f"{pms:.1f} ms ({pms / ms:.0f}x) | {text} ({card})", flush=True)
     return (err if same else None), ms, pms, bound
+
+
+def _k3_bound_floor(args) -> tuple:
+    """(bound, floor, the earlier design's floor, text, live slots, the
+    longest chain's) of K3 on its arguments: the bound over the fold's
+    bytes and operations; the floor the longest chain's live steps on the
+    chain, K3_CHAIN_OPS each, one op a cycle; the earlier design's every
+    slot of it on the chain."""
+    p1, bins, mask = args
+    s, n = p1.shape
+    live = mask.sum(1)
+    n_live, longest = int(live.sum()), int(live.max())
+    ops = n_live * K3_LIVE_OPS + (s * n - n_live) * K3_MASKED_OPS
+    n_bytes = sum(t.numel() * t.element_size() for t in args) + s * n * (4 + 1) + s * 8
+    bound = _bound(n_bytes, ops)
+    floor = max(bound[0], 1e3 * longest * K3_CHAIN_OPS / CLOCK_HZ)
+    old = max(bound[0], 1e3 * (longest * K3_LIVE_OPS + (n - longest) * K3_MASKED_OPS)
+              / CLOCK_HZ)
+    text = (f"bound {bound[0]:.4f} ms ({bound[1]}) | floor {floor:.3f} ms (the longest "
+            f"chain's live steps, {K3_CHAIN_OPS} ops each, one a cycle; with every slot on "
+            f"the chain {old:.3f} ms)")
+    return bound, floor, old, text, n_live, longest
 
 
 def _k3_case(what, args, card, reps: int = 3):
@@ -1258,20 +1309,12 @@ def _k3_case(what, args, card, reps: int = 3):
     err = max(int((u.long() - v.long()).abs().max()) for u, v in zip(got, want))
     ms = _cuda_ms(lambda: rans_bin.fold(*args), reps)
     s, n = p1.shape
-    live = mask.sum(1)
-    n_live = int(live.sum())
-    ops = n_live * K3_LIVE_OPS + (s * n - n_live) * K3_MASKED_OPS
-    n_bytes = sum(t.numel() * t.element_size() for t in args) + s * n * (4 + 1) + s * 8
-    bound = _bound(n_bytes, ops)
-    longest = int(live.max())
-    floor = max(bound[0], 1e3 * (longest * K3_LIVE_OPS + (n - longest) * K3_MASKED_OPS)
-                / CLOCK_HZ)
+    bound, _, _, text, n_live, longest = _k3_bound_floor(args)
     print(f"[K3 bin_fold] {what}: {s} states x {n} slots, {n_live} live ({longest} on the "
           f"longest chain), {int(got[1].sum())} words emitted: exact {same} (max error "
           f"{err}); K3 {ms:.3f} ms (median of {reps}; {1e6 * ms / longest:.1f} ns a live "
-          f"step of the longest chain) | plain {pms:.1f} ms ({pms / ms:.0f}x) | bound "
-          f"{bound[0]:.4f} ms ({bound[1]}) | floor {floor:.3f} ms (the longest chain's "
-          f"ops, one a cycle) ({card})", flush=True)
+          f"step of the longest chain) | plain {pms:.1f} ms ({pms / ms:.0f}x) | {text} "
+          f"({card})", flush=True)
     return (err if same else None), ms, pms, bound
 
 
@@ -1668,19 +1711,23 @@ def _k4_phase(corpus, pair_conts, walk_args, dev, card, full_job):
     return n, (max(errs + [err]), ms, pms, bound)
 
 
-def _p3_full_encode(corpus, dev, card, full_job):
+def _p3_full_encode(corpus, dev, card, full_job, reps: int = 3):
     """One corpus image encoded on the card at th P3_FULL_TH (one lane, the
     default strip height's own depth), stage by stage, its container
     against the CPU's (``full_job``, a future of :func:`_cpu_encode`) byte
-    for byte.  Returns None on a failure, else K8's and K3's launches in
-    that encode."""
+    for byte; then K8 and K3 timed alone (median of ``reps``) on that
+    encode's own arguments beside their bounds and floors (their exactness
+    there is the container's).  Returns None on a failure, else K8's and
+    K3's launches in that encode."""
     import torch
 
     from nblic_tpu_torch.models import strips
+    from nblic_tpu_torch.ops import rans_bin
 
     ((cont,),) = full_job.result()
     torch.cuda.synchronize()
-    with StageClock(p3_stage_targets(strips)) as clock:
+    with Kept(strips, "_row_scan") as scans, Kept(rans_bin, "fold") as folds, \
+            StageClock(p3_stage_targets(strips)) as clock:
         t0 = time.perf_counter()
         mine, n8, n3 = _entry_codes(lambda: strips.encode(corpus[0], th=P3_FULL_TH, device=dev))
         enc_s = time.perf_counter() - t0
@@ -1692,6 +1739,17 @@ def _p3_full_encode(corpus, dev, card, full_job):
           f"bpp, container equal to the cpu's byte for byte {same}; stages ms "
           + ", ".join(f"{k} {v:.1f} ({100 * v / total:.1f}%)" for k, v in stages.items())
           + f"; launches K8 {n8} K3 {n3} ({card})", flush=True)
+    args8, args3 = scans.calls.pop(), folds.calls.pop()
+    *planes, n_imgs, tune = args8
+    got = strips._row_scan(*args8)
+    ms8 = _cuda_ms(lambda: strips._row_scan(*args8), reps)
+    text8 = _k8_bound_floor(planes, n_imgs, tune, strips.K_STEP, False, got)[3]
+    print(f"[K8 p3_row_scan] that encode's scan, one lane {tuple(planes[0].shape[1:])}: K8 "
+          f"{ms8:.3f} ms (median of {reps}) | {text8} ({card})", flush=True)
+    ms3 = _cuda_ms(lambda: rans_bin.fold(*args3), reps)
+    text3 = _k3_bound_floor(args3)[3]
+    print(f"[K3 bin_fold] that encode's fold, {tuple(args3[0].shape)}: K3 {ms3:.3f} ms "
+          f"(median of {reps}) | {text3} ({card})", flush=True)
     return (n8, n3) if same and n8 > 0 and n3 > 0 else None
 
 

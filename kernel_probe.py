@@ -99,6 +99,23 @@ PROBE is one of:
              (4,608 lanes) and on one 768x512 image at th 768 (one lane),
              its first 8 rows, TUNE_V4, the replays between launches
              included.
+  p3-scan-phases  kernels K8 (csrc/p3_row_scan.cu) and K3
+             (csrc/bin_fold.cu) of the package beside this file, split into
+             their parts: K8 built with its block barrier stamping clock64()
+             on each CTA's first thread, so each barrier-to-barrier interval
+             is summed as the walk, the adds or the sweeps of a segment (the
+             interval after the tables' set-up is the first walk's), as
+             the package picks its walk and, where it has the choice,
+             with the walk forced a pixel a thread; K8 at one lane (a
+             768x512 image at strip height 768), at the th-64 corpus (24
+             images, 12 lanes each) and as the near-2 coder of the th-4
+             corpus (192 lanes an image), each launch held exact to the
+             package's kernel; K3 at the same three scans' slots, the
+             package's kernel in turns beside copies with its division cut
+             and with its live step cut (wrong output on purpose): the
+             split of a step into division, slot work and the ring.  A copy
+             of this file beside an older checkout splits that checkout's
+             kernels.
   interop    the interop engines (plain PyTorch, one lane) on the card: the
              Q0.2 encode of a synthetic 768x512 image and of a flat one (every
              pixel one context: the context chain's longest walk) with the
@@ -207,6 +224,68 @@ CUTS_CURRENT = {
         "      const int qd = activity_bin(v, err);\n      const int px0 = v.a;")],
 }
 CUTS_CURRENT["all_five"] = [r for cut in CUTS_CURRENT.values() for r in cut]
+# K8's block barrier, as p3_row_scan.cu defines it, and the stamping one
+# p3-scan-phases builds in its place: its first thread sums the cycles
+# between barriers by phase (walk, adds, sweeps, cyclically after the
+# set-up's barrier) and writes them out when scan_image's copy of it ends
+SCAN_SYNC = ("struct BlockSync {\n"
+             "  __device__ __forceinline__ void operator()() const { __syncthreads(); }\n"
+             "};\n")
+SCAN_STAMPS = """__device__ unsigned long long nbt_probe_acc[4 * 4096];
+struct BlockSync {
+  mutable long long last = 0;
+  mutable unsigned long long walk = 0, adds = 0, sweeps = 0, calls = 0;
+  __device__ __forceinline__ void operator()() const {
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    const long long now = clock64();
+    const unsigned long long k = calls++;
+    if (k > 0) {
+      const unsigned long long dt = now - last;
+      if ((k - 1) % 3 == 0) walk += dt;
+      else if ((k - 1) % 3 == 1) adds += dt;
+      else sweeps += dt;
+    }
+    last = now;
+  }
+  __device__ ~BlockSync() {
+    if (threadIdx.x != 0 || calls == 0 || blockIdx.x >= 4096) return;
+    unsigned long long* a = nbt_probe_acc + 4 * blockIdx.x;
+    a[0] = walk;
+    a[1] = adds;
+    a[2] = sweeps;
+    a[3] = calls;
+  }
+};
+}  // namespace
+extern "C" int nbt_probe_read(void* dst, int n_ctas) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, nbt_probe_acc,
+                                               4 * sizeof(unsigned long long) * n_ctas));
+}
+namespace {
+"""
+# K8's walk forced a pixel a thread (row_scan.cuh's warp_pixels: a pixel a
+# warp where a segment holds at most one pixel a warp), stamped and held
+# exact; a package without the rule (a thread a lane) builds none
+K8_WALKS = {"a pixel a thread": "  return false;\n"}
+K8_WALK_LINE = ("  return !c.sym_cnt && static_cast<long long>(c.lanes_per_image) * c.ws <= "
+                "n_warps;\n")
+# K3 with a part of its step cut, each output wrong on purpose: (file,
+# old, new) alternatives, the first whose old text occurs once in the
+# package's sources is taken (the live chain's reciprocal and step, or
+# before them fold_slot's division and step)
+K3_CUTS = {
+    "no division": [
+        ("coder3.cuh", "  return static_cast<uint32_t>((t + x) >> r.shift);\n",
+         "  return x >> kProbBits;\n"),
+        ("coder3.cuh", "  const uint32_t q = state / f;\n",
+         "  const uint32_t q = state >> kProbBits;\n"),
+    ],
+    "no step": [
+        ("bin_fold.cu", "          state = fold_live(state, q, w + (q.y >> 24));\n", ""),
+        ("coder3.cuh", "  if (!((slot >> 17) & 1u)) return word;\n", "  return word;\n"),
+    ],
+}
 SLOT_LINE = "constexpr int kSlotBits = 12;"
 BLOCK_LINE = "constexpr int kBlock = 128;"
 
@@ -876,6 +955,118 @@ def p3_decode_feat(libs: dict, card: str) -> bool:
     return ok
 
 
+def _scan_cases(dev) -> dict:
+    """K8's arguments at one lane, at the th-64 corpus and as the near-2
+    coder of the th-4 corpus: {name: (planes in K8's order, n_imgs, tune,
+    k_step, n_seg, near)}."""
+    from nblic_tpu_torch.models import strips
+
+    rng = np.random.default_rng(0)
+    corpus = [synth_image(rng, 512, 768) for _ in range(18)]
+    corpus += [synth_image(rng, 768, 512) for _ in range(6)]
+    tune = strips.TUNE
+    cases = {}
+    for name, imgs, th in (("one lane (768x512 at th 768)", corpus[:1], 768),
+                           ("the th-64 corpus (24 x 12 lanes)", corpus, 64)):
+        st, *_ = strips._prepare(imgs, th)
+        b, s, th, w = st.shape
+        x = torch.from_numpy(st).reshape(b * s, th, w).to(dev)
+        n_seg = strips._eff_seg(tune.n_seg, w)
+        seg_w = w // n_seg if tune.seg_stats else 0
+        x, px0, adr, qu, qv, qw = strips._model_planes(x, strips.AVP_N, seg_w,
+                                                       bool(tune.mix_e), bool(tune.w_pred))
+        cases[name] = ((qu, qv, qw, x, px0, adr), b, tune, strips.K_STEP, n_seg, False)
+    tune_n = strips._near_tune(tune)
+    st, *_ = strips._prepare(corpus, 4)
+    b, s, th, w = st.shape
+    x = torch.from_numpy(st).reshape(b * s, th, w).to(dev)
+    y, qu, qv, qw, key = strips._near_walk(x, b, 2, strips.AVP_N, tune_n)
+    cases["the near-2 coder (24 x 192 lanes, th 4)"] = (
+        (qu, qv, qw, y, key), b, tune_n, strips._k_step(2), strips._eff_seg(tune_n.n_seg, w),
+        True)
+    return cases
+
+
+def p3_scan_phases(libs: dict, card: str) -> bool:
+    """K8's phases by its stamping builds (``libs[("k8", walk)]``: the
+    package's, and each forced walk of K8_WALKS) and K3's step by its cut
+    copies (``libs[("k3", cut)]``), on the package beside this file; every
+    K8 launch held exact to the package's kernel."""
+    from nblic_tpu_torch.models import strips
+    from nblic_tpu_torch.ops import rans_bin, row_scan
+
+    dev = torch.device("cuda")
+    base, saved = kernels.library(), kernels.library
+    stamped, k3_entries = {}, {}
+    for (kind, tag), path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        if kind == "k8":
+            lib.nbt_p3_row_scan.argtypes = base.nbt_p3_row_scan.argtypes
+            lib.nbt_p3_row_scan.restype = ctypes.c_int
+            lib.nbt_probe_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            stamped[tag] = lib
+        else:
+            lib.nbt_bin_fold.argtypes = base.nbt_bin_fold.argtypes
+            lib.nbt_bin_fold.restype = ctypes.c_int
+            k3_entries[tag] = _SwappedLib(base, nbt_bin_fold=lib.nbt_bin_fold)
+    ok = True
+    folds = {}
+    try:
+        for name, (planes, n_imgs, tune, k_step, n_seg, near) in _scan_cases(dev).items():
+            def run():
+                return row_scan.scan(planes, n_imgs, tune, k_step, n_seg, near)
+
+            kernels.library = lambda: base
+            want = run()
+            ms = _ms(run, reps=3)
+            for tag, lib in stamped.items():
+                kernels.library = lambda: _SwappedLib(base, nbt_p3_row_scan=lib.nbt_p3_row_scan)
+                got = run()
+                torch.cuda.synchronize()
+                acc = np.zeros((n_imgs, 4), dtype=np.uint64)
+                _checked(lib.nbt_probe_read(acc.ctypes.data, n_imgs), "nbt_probe_read")
+                same = all(torch.equal(u, v) for u, v in zip(got, want))
+                ok &= same
+                ms_stamped = _ms(run, reps=3)
+                th, w = planes[0].shape[1:]
+                segs = th * n_seg
+                mean = acc[:, :3].astype(np.float64).mean(0)
+                worst = acc[:, :3].sum(1).argmax()
+                print(f"[p3-scan-phases] K8 {name}, {tag}: {n_imgs} CTAs, {segs} segments "
+                      f"each, {int(acc[0, 3])} barriers a CTA; exact against the package's "
+                      f"{same}; package {ms:.3f} ms, this build stamped {ms_stamped:.3f}; "
+                      f"cycles a segment, mean over CTAs: walk {mean[0] / segs:.0f} "
+                      f"({100 * mean[0] / mean.sum():.1f}%), adds {mean[1] / segs:.0f} "
+                      f"({100 * mean[1] / mean.sum():.1f}%), sweeps {mean[2] / segs:.0f} "
+                      f"({100 * mean[2] / mean.sum():.1f}%); slowest CTA "
+                      f"{acc[worst, :3].tolist()} cycles ({card})", flush=True)
+            folds[name] = tuple(strips._fold_layout(t) for t in want)
+        for name, args in folds.items():
+            kernels.library = lambda: base
+            want = rans_bin.fold_card(*args)
+            live = args[2].sum(1)
+            runs = {"package": lambda: base, **{cut: (lambda s=s: s)
+                                                for cut, s in k3_entries.items()}}
+            times = {tag: [] for tag in runs}
+            for order in (list(runs), list(runs)[::-1]):
+                for tag in order:
+                    kernels.library = runs[tag]
+                    got = rans_bin.fold_card(*args)
+                    if tag == "package":
+                        ok &= all(torch.equal(u, v) for u, v in zip(got, want))
+                    times[tag].append(_ms(lambda: rans_bin.fold_card(*args), reps=5))
+            longest = int(live.max())
+            print(f"[p3-scan-phases] K3 the slots of {name}: {args[0].shape[0]} states x "
+                  f"{args[0].shape[1]} slots, {int(live.sum())} live ({longest} on the "
+                  f"longest chain); ms by round: "
+                  + "; ".join(f"{tag} {' / '.join(f'{t:.3f}' for t in ts)} "
+                              f"({1e6 * min(ts) / longest:.1f} ns a live step)"
+                              for tag, ts in times.items()) + f" ({card})", flush=True)
+    finally:
+        kernels.library = saved
+    return ok
+
+
 def interop(card: str) -> bool:
     from chip_smoke import StageClock
     from nblic_tpu_torch import runtime
@@ -953,7 +1144,7 @@ def main(argv=None) -> int:
                                                      "build", "near-stages", "p3-stages",
                                                      "p3-corpus", "p3-decode",
                                                      "p3-near", "p3-walk", "p3-walk-bounds",
-                                                     "p3-decode-feat",
+                                                     "p3-decode-feat", "p3-scan-phases",
                                                      "interop"))
     ap.add_argument("--parent", type=Path,
                     help="cut-chain: also cut this group_decode.cu of the parent design")
@@ -1022,6 +1213,34 @@ def main(argv=None) -> int:
             shutil.copy(args.chain_before / header, before_dir / header)
         for kernel, src in WALK_SRCS.items():
             specs[(kernel, "chain before")] = (f"{kernel}_chain_before", src.read_text())
+    if "p3-scan-phases" in args.probes:
+        header = (kernels.CSRC / "row_scan.cuh").read_text()
+        walks = {"package": header}
+        if K8_WALK_LINE in header:
+            walks.update({tag: header.replace(K8_WALK_LINE, line)
+                          for tag, line in K8_WALKS.items()})
+        for tag, text in walks.items():
+            where = PROBE_DIR / ("k8_" + tag.replace(" ", "_"))
+            where.mkdir(parents=True, exist_ok=True)
+            (where / "row_scan.cuh").write_text(text)
+            specs[("scan", ("k8", tag))] = variant(kernels.CSRC / "p3_row_scan.cu",
+                                                   f"k8_stamps_{tag.replace(' ', '_')}",
+                                                   [(SCAN_SYNC, SCAN_STAMPS)])
+            cut_dirs[("scan", ("k8", tag))] = where
+        for cut, alternatives in K3_CUTS.items():
+            cut_dir = PROBE_DIR / ("k3_" + cut.replace(" ", "_"))
+            cut_dir.mkdir(parents=True, exist_ok=True)
+            matching = [a for a in alternatives
+                        if (kernels.CSRC / a[0]).read_text().count(a[1]) == 1]
+            if not matching:
+                raise ValueError(f"K3 cut {cut!r}: no alternative matches the sources")
+            header, old, new = matching[0]
+            for h in ("coder3.cuh", "bin_fold.cu"):
+                text = (kernels.CSRC / h).read_text()
+                (cut_dir / h).write_text(text.replace(old, new) if h == header else text)
+            specs[("scan", ("k3", cut))] = (f"k3_{cut_dir.name}", (cut_dir / "bin_fold.cu")
+                                            .read_text())
+            cut_dirs[("scan", ("k3", cut))] = cut_dir
     libs = {}
     if specs:
         def build(key):
@@ -1062,6 +1281,8 @@ def main(argv=None) -> int:
         ok &= p3_walk(card)
     if "p3-decode-feat" in args.probes:
         ok &= p3_decode_feat(of("k4-feat"), card)
+    if of("scan"):
+        ok &= p3_scan_phases(of("scan"), card)
     walk_libs = {key: lib for key, lib in libs.items() if key[0] in WALK_SRCS}
     if walk_libs:
         ok &= p3_walk_bounds(walk_libs, card)

@@ -15,7 +15,8 @@
 //
 // Everything but the warp-cooperative events of K4 is __host__ __device__,
 // so g++ compiles this header for the CPU tests (tests/test_torch_p3_row_scan.py,
-// tests/test_torch_p3_bin_fold.py) as it does udiv64.cuh.
+// tests/test_torch_p3_bin_fold.py) as it does udiv64.cuh: K3's
+// division-free step is held to the plain fold there.
 
 #pragma once
 
@@ -71,35 +72,84 @@ NBT_HD int dec_bin(uint32_t& st, long long& ptr, int p1, const int32_t* row, int
   return one;
 }
 
-// One step of rans_bin.fold, last slot first.  A slot is 4 bytes
-// (ops/rans_bin.py::pack_slots): p1's low 16 bits as an int16, the bin (a
-// one) at bit 16, the live mask at bit 17.  p1 is clipped to [1, 4095]; a
-// live slot folds the bin with frequency f = p1 (a one) or 4096 - p1 at
-// offset 4096 - p1 (a one) or 0, renormalizing first where state >= f <<
-// 20 (the low 16 bits out, the state shifted down 16); a masked slot keeps
-// the state.  Returns the step's word, the state's low 16 bits before the
-// step, with bit 16 set where it was emitted.
-NBT_HD uint32_t fold_slot(uint32_t& state, uint32_t slot) {
-  const uint32_t word = state & 0xFFFFu;
-  if (!((slot >> 17) & 1u)) return word;
-  const int p1 = c3_clamp(static_cast<int16_t>(slot & 0xFFFFu), 1, kProbMax - 1);
-  const bool one = (slot >> 16) & 1u;
-  const uint32_t f = one ? p1 : kProbMax - p1;
-  const uint32_t acc = one ? kProbMax - p1 : 0u;
-  const bool renorm = state >= (f << (32 - kProbBits));
-  if (renorm) state >>= 16;
-  const uint32_t q = state / f;
-  state = (q << kProbBits) + (state - q * f) + acc;
-  return word | (static_cast<uint32_t>(renorm) << 16);
+// One step of rans_bin.fold, last slot first: a live slot's frequency f
+// and offset acc from its 12-bit probability p1 (clipped to [1, 4095]) and
+// bin, f = p1 at offset 4096 - p1 (a one) or 4096 - p1 at offset 0; the
+// state renormalizes first where it is at or past f << 20 (its low 16 bits
+// out, then shifted down 16) and becomes (x / f) << 12 + x % f + acc.  A
+// masked slot keeps the state.  A step's word is the state's low 16 bits
+// before it, emitted where it renormalized.
+struct FoldSlot {
+  uint32_t f, acc;
+};
+
+NBT_HD FoldSlot fold_operands(int p1, bool one) {
+  const uint32_t p = c3_clamp(p1, 1, kProbMax - 1);
+  return {one ? p : kProbMax - p, one ? kProbMax - p : 0u};
+}
+
+// The live step without its division, for K3's chain: a live slot's
+// frequency f in [1, 4095] carries an exact reciprocal (Granlund and
+// Montgomery's round-up method): with shift = ceil(log2 f) and magic =
+// ceil(2^(32 + shift) / f) - 2^32 (below 2^32), floor(x / f) =
+// (umulhi(x, magic) + x) >> shift for every x < 2^32, the sum taken in 64
+// bits (it may pass 2^32).  f = 1 and the powers of 2 get magic 0.
+struct FoldRecip {
+  uint32_t magic;
+  int shift;
+};
+
+NBT_HD int ceil_log2(uint32_t f) {
+#if defined(__CUDA_ARCH__)
+  return f <= 1 ? 0 : 32 - __clz(f - 1);
+#else
+  return f <= 1 ? 0 : 32 - __builtin_clz(f - 1);
+#endif
+}
+
+NBT_HD FoldRecip fold_recip(uint32_t f) {
+  const int shift = ceil_log2(f);
+  const uint64_t m = ((uint64_t{1} << (32 + shift)) + f - 1) / f;
+  return {static_cast<uint32_t>(m - (uint64_t{1} << 32)), shift};
+}
+
+NBT_HD uint32_t umulhi32(uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  return __umulhi(a, b);
+#else
+  return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);
+#endif
+}
+
+// floor(x / f) by f's reciprocal r.
+NBT_HD uint32_t recip_div(uint32_t x, FoldRecip r) {
+  const uint64_t t = umulhi32(x, r.magic);
+  return static_cast<uint32_t>((t + x) >> r.shift);
+}
+
+// One live step of the fold from f, acc and f's reciprocal r: compare,
+// shift, multiply-high, multiply-subtract, add.  Sets `emit` where the
+// state renormalized.
+NBT_HD uint32_t fold_by_recip(uint32_t state, uint32_t f, uint32_t acc, FoldRecip r,
+                              uint32_t& emit) {
+  emit = state >= (f << (32 - kProbBits));
+  const uint32_t x = emit ? state >> 16 : state;
+  const uint32_t q = recip_div(x, r);
+  return (q << kProbBits) + (x - q * f) + acc;
 }
 
 // ---- the counters and the layer walk
 
 // coder3.prob_table / strips._pair_prob of one counter pair (counts >= 1):
-// floor(4096 c1 / (c0 + c1)) clipped to [1, 4095].
+// floor(4096 c1 / (c0 + c1)) clipped to [1, 4095].  A 32-bit division
+// where c1 < 2^20 and c0 < 2^31 (numerator and sum then fit); a 64-bit one
+// past it (cnt_halve up to 65535, a segment as wide as a row).
 NBT_HD int pair_prob(const int32_t* pair) {
-  const uint64_t c0 = static_cast<uint32_t>(pair[0]), c1 = static_cast<uint32_t>(pair[1]);
-  return c3_clamp(static_cast<int>((c1 << kProbBits) / (c0 + c1)), 1, kProbMax - 1);
+  const uint32_t c0 = static_cast<uint32_t>(pair[0]), c1 = static_cast<uint32_t>(pair[1]);
+  if (c1 < (1u << (32 - kProbBits)) && c0 < (1u << 31))
+    return c3_clamp(static_cast<int>((c1 << kProbBits) / (c0 + c1)), 1, kProbMax - 1);
+  const uint64_t num = static_cast<uint64_t>(c1) << kProbBits;
+  return c3_clamp(static_cast<int>(num / (static_cast<uint64_t>(c0) + c1)), 1, kProbMax - 1);
 }
 
 // coder3.mix_prob: the two probabilities interpolated by qw / 32.
@@ -155,26 +205,6 @@ NBT_HD int refine_count(int row_end, int kk, int k_end, int z) {
   return 2 * ((row_end * kNRefine + kk) * 2 + seen) + ((z >> kk) & 1);
 }
 
-// The segment's events of one symbol z into the counts (ud: unary pairs
-// (row, class) x 2 bins; rd: refine pairs (row, bit position, msb) x 2
-// bins), as coder3.row_updates folds zcodec3.unary_layers / refine_layers
-// of z: every layer the walk reaches, every refinement bit; escape bits
-// are never counted.  One thread; warp_symbol_events spreads the same
-// events over a warp.
-template <class Add>
-NBT_HD void symbol_events(const Layers& ly, int z, int qu, int qv2, int qw, int32_t* ud,
-                          int32_t* rd, Add add) {
-  for (int l = 0; l < ly.n_unary; ++l) {
-    const LayerStep s = layer_step(ly, l, qu, qv2, z);
-    add_layer(ly, l, s, qw, ud, add);
-    if (!s.go) {
-      const int k_end = s.ru / ly.k_step;  // <= 5 = N_REFINE
-      for (int kk = 0; kk < k_end; ++kk) add(&rd[refine_count(s.ru, kk, k_end, z)], 1);
-      return;
-    }
-  }
-}
-
 // coder3.halve_pairs over pairs [t, pairs) in steps of `stride`, after
 // adding the events of `delta` where `add` (zeroing them): both counts of
 // a pair whose sum passes the threshold become (c + 1) >> 1.  Every pair
@@ -199,10 +229,13 @@ NBT_HD void segment_end(int32_t* tab, int32_t* delta, int pairs, int thresh, boo
 }
 
 #if defined(__CUDACC__)
-// symbol_events over a warp (K4): thread l takes unary layer l, which the
-// walk reaches where no layer before it stopped (two layers, or a layer's
-// u and v rows, may share a pair: the adds are atomic), and thread kk
-// refinement bit kk.
+// The segment's events of one symbol z into the counts (ud: unary pairs
+// (row, class) x 2 bins; rd: refine pairs (row, bit position, msb) x 2
+// bins), as coder3.row_updates folds zcodec3.unary_layers / refine_layers
+// of z, over a warp (K4): thread l takes unary layer l, which the walk
+// reaches where no layer before it stopped (two layers, or a layer's u and
+// v rows, may share a pair: the adds are atomic), and thread kk
+// refinement bit kk; escape bits are never counted.
 struct AtomicAdd32 {
   __device__ __forceinline__ void operator()(int32_t* p, int v) const { atomicAdd(p, v); }
 };

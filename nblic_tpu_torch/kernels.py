@@ -127,12 +127,15 @@ def library() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, ptr, i32, i32, ptr,
     ]
     lib.nbt_p3_decode_segment.restype = i32
-    lib.nbt_p3_row_scan.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr, i32, ptr]
+    lib.nbt_p3_row_scan.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr, i32,
+                                    ptr]
     lib.nbt_p3_row_scan.restype = i32
     lib.nbt_p3_row_scan_smem.argtypes = []
     lib.nbt_p3_row_scan_smem.restype = i64
-    lib.nbt_bin_fold.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.nbt_bin_fold.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.nbt_bin_fold.restype = i32
+    lib.nbt_bin_fold_steps.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
+    lib.nbt_bin_fold_steps.restype = i32
     lib.nbt_error_string.argtypes = [i32]
     lib.nbt_error_string.restype = ctypes.c_char_p
     return lib

@@ -51,21 +51,21 @@ def fold(p1, bins, mask):
     raise ValueError(f"the fold runs on cpu or cuda, not {p1.device}")
 
 
-def pack_slots(p1, bins, mask):
-    """The (S, n) slots as K3 reads them (``coder3.cuh``'s ``fold_slot``),
-    4 bytes each: p1's low 16 bits (p1 clipped to int16 first, which K3's
-    clip to [1, 4095] then gives as :func:`fold_plain`'s), bins == 1 at
-    bit 16, the live mask at bit 17."""
-    p = torch.clamp(p1, -(1 << 15), (1 << 15) - 1).to(torch.int32) & 0xFFFF
-    return (p | ((bins == 1).to(torch.int32) << 16)
-            | ((mask != 0).to(torch.int32) << 17)).contiguous()
+def _bytes(t, live: bool):
+    """A byte plane of bins (1 a one) or masks (nonzero live) as K3 reads
+    them: 1-byte dtypes as they are, wider ones compared first."""
+    if t.dtype in (torch.bool, torch.int8, torch.uint8):
+        return t.view(torch.uint8).contiguous()
+    return ((t != 0) if live else (t == 1)).to(torch.uint8).contiguous()
 
 
 def fold_card(p1, bins, mask):
-    """:func:`fold_plain` on the card: kernel K3, one thread a state.
-    p1/bins/mask: (S, n) integer (mask also bool) CUDA tensors of one
-    device, as :func:`fold` checks them.  Returns what :func:`fold_plain`
-    returns, every word included."""
+    """:func:`fold_plain` on the card: kernel K3, one chain a state over
+    its live slots.  p1/bins/mask: (S, n) integer (mask also bool) CUDA
+    tensors of one device, as :func:`fold` checks them; p1 as int16 (wider
+    values clipped to int16 first, which K3's clip to [1, 4095] then gives
+    as :func:`fold_plain`'s), bins and mask a byte each.  Returns what
+    :func:`fold_plain` returns, every word included."""
     for name, t in (("p1", p1), ("bins", bins), ("mask", mask)):
         if t.dtype.is_floating_point or t.dtype.is_complex or (t.dtype == torch.bool
                                                                and name == "p1"):
@@ -73,17 +73,21 @@ def fold_card(p1, bins, mask):
     if p1.device.type != "cuda":
         raise ValueError(f"p1 lies on {p1.device}: K3 runs on one CUDA device")
     s, n = p1.shape
-    slots = pack_slots(p1, bins, mask)
-    out = torch.empty((n, s), dtype=torch.int32, device=p1.device)
+    p16 = (p1 if p1.dtype == torch.int16 else
+           torch.clamp(p1, -(1 << 15), (1 << 15) - 1).to(torch.int16)).contiguous()
+    b8, m8 = _bytes(bins, False), _bytes(mask, True)
+    words = torch.empty((n, s), dtype=torch.int32, device=p1.device)
+    emits = torch.empty((n, s), dtype=torch.bool, device=p1.device)
     state = torch.full((s,), ANS_LOW, dtype=torch.int32, device=p1.device)
     if s > 0 and n > 0:
         dev, stream = kernels.stream_of(p1)
-        rc = kernels.library().nbt_bin_fold(slots.data_ptr(), out.data_ptr(),
+        rc = kernels.library().nbt_bin_fold(p16.data_ptr(), b8.data_ptr(), m8.data_ptr(),
+                                            words.data_ptr(), emits.data_ptr(),
                                             state.data_ptr(), s, n, dev, stream)
         kernels.check(rc, "bin_fold")
         fold_card.launches += 1
-    fold = out.t()  # rows of `out` are fold steps
-    return fold & ANS_MASK, fold > ANS_MASK, state.to(torch.int64) & U32
+    # rows of `words` and `emits` are fold steps
+    return words.t(), emits.t(), state.to(torch.int64) & U32
 
 
 fold_card.launches = 0

@@ -9,8 +9,8 @@ as jitted ``lax.scan``s (no ``pallas_call``).  The plain versions are
 dispatchers ``strips._row_scan`` and ``strips._near_code`` take them for a
 CPU tensor and :func:`scan` for a CUDA tensor.  K8 keeps every table on the
 card for the whole scan: an image's bias moments and mapper history in its
-CTA's shared memory, each lane's counter tables in the scratch tensors made
-here.
+CTA's shared memory, each lane's counter tables and their sweep marks there
+too where they fit, else in the scratch tensors made here.
 """
 
 from __future__ import annotations
@@ -94,6 +94,8 @@ def scan(planes, n_imgs: int, tune, k_step: int, n_seg: int, near: bool):
     masks = torch.empty((th, l_tot, n_l, w), dtype=torch.bool, device=dev)
     utab = torch.empty((n_l, zcodec3.N_ROW * con[7] * 2), dtype=torch.int32, device=dev)
     rtab = torch.empty((n_l, REFINE_CELLS), dtype=torch.int32, device=dev)
+    umark = torch.empty((n_l, -(-(zcodec3.N_ROW * con[7] + REFINE_CELLS // 2) // 32)),
+                        dtype=torch.int32, device=dev)
     keep = torch.empty((n_l, w), dtype=torch.int32, device=dev)
     if probs.numel() == 0:
         return probs, bins, masks
@@ -101,7 +103,8 @@ def scan(planes, n_imgs: int, tune, k_step: int, n_seg: int, near: bool):
     d, stream = kernels.stream_of(stack)
     rc = kernels.library().nbt_p3_row_scan(
         stack.data_ptr(), probs.data_ptr(), bins.data_ptr(), masks.data_ptr(), utab.data_ptr(),
-        rtab.data_ptr(), keep.data_ptr(), n_l, n_imgs, ints.data_ptr(), d, stream)
+        rtab.data_ptr(), umark.data_ptr(), keep.data_ptr(), n_l, n_imgs, ints.data_ptr(), d,
+        stream)
     kernels.check(rc, "p3_row_scan")
     scan.launches += 1
     return probs, bins, masks

@@ -781,17 +781,21 @@ def _k8_lossless(imgs, th, tune):
         assert g.dtype == w_.dtype and g.shape == w_.shape and torch.equal(g, w_), name
 
 
-# (images, th): one, 12 and 192 strip lanes an image (portrait images, so
-# no transpose changes the count)
+# (images, th): one, 12, 192 and 300 strip lanes an image (portrait images,
+# so no transpose changes the count); past 256 a thread of K8's adds takes
+# several lanes' pixels
 K8_LANES = {
     "lanes1": (lambda: [synth_image(np.random.default_rng(1), 32, 16) for _ in range(2)], 32),
     "lanes12": (lambda: [synth_image(np.random.default_rng(2), 48, 32) for _ in range(2)], 4),
     "lanes192": (lambda: [synth_image(np.random.default_rng(3), 768, 32) for _ in range(2)], 4),
+    "lanes300": (lambda: [synth_image(np.random.default_rng(4), 1200, 16) for _ in range(2)],
+                 4),
 }
 
 
+# TUNE_V1: one segment a row (ws = W), 9 unary layers
 @pytest.mark.cuda
-@pytest.mark.parametrize("tune", ["TUNE_V4", "TUNE_MAX", "TUNE_V4S"])
+@pytest.mark.parametrize("tune", ["TUNE_V4", "TUNE_MAX", "TUNE_V4S", "TUNE_V1"])
 @pytest.mark.parametrize("lanes", list(K8_LANES))
 def test_row_scan_kernel_matches_plain(cuda_device, tune, lanes):
     make, th = K8_LANES[lanes]
@@ -799,8 +803,31 @@ def test_row_scan_kernel_matches_plain(cuda_device, tune, lanes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sym", [0, 1])
+@pytest.mark.parametrize("lanes", ["lanes1", "lanes12"])
+def test_row_scan_kernel_at_20_unary_layers(cuda_device, sym, lanes):
+    make, th = K8_LANES[lanes]
+    _k8_lossless(make(), th, strips.TUNE_V4._replace(n_unary=20, sym_cnt=sym))
+
+
+# 16-pixel segments, as the default contract cuts a 512-wide row: at one
+# lane 16 pixel tasks, a pixel a warp on every warp; at 12 lanes 192, a
+# pixel a thread
+@pytest.mark.cuda
+@pytest.mark.parametrize("sym", [0, 1])
+@pytest.mark.parametrize("lanes", ["lanes1", "lanes12"])
+def test_row_scan_kernel_at_16_pixel_segments(cuda_device, sym, lanes):
+    make, th = K8_LANES[lanes]
+    imgs = make()
+    w = min(imgs[0].shape)
+    _k8_lossless(imgs, th, strips.TUNE_V4._replace(n_seg=w // 16, sym_cnt=sym))
+
+
+# near 7: k_step 16, 256 counter classes (34 KB of counters a lane: in the
+# CTA's shared memory at one lane, in device memory at more)
+@pytest.mark.cuda
 @pytest.mark.parametrize("tune", ["TUNE_V4", "TUNE_MAX", "TUNE_V4S"])
-@pytest.mark.parametrize("near", [1, 2, 3])
+@pytest.mark.parametrize("near", [1, 2, 3, 7])
 @pytest.mark.parametrize("lanes", list(K8_LANES))
 def test_row_scan_kernel_near_mode_matches_plain(cuda_device, tune, near, lanes):
     make, th = K8_LANES[lanes]
@@ -831,13 +858,15 @@ def test_row_scan_kernel_refuses_out_of_range_planes(cuda_device):
 
 
 # (states, slots, live share): S = 16 (one lane), states not a multiple of
-# the CTA's 32, slots not a multiple of the 4-slot copies or of the chunk
+# the CTA's 32, slots not a multiple of the 4-slot copies or of the chunk,
+# every slot masked
 K3_CASES = {
     "s16": (16, 21 * 16 * 8, 0.4),
     "s100-n4099": (100, 4099, 0.5),
     "s33-n1": (33, 1, 1.0),
     "s4608-n1344": (4608, 1344, 0.3),
     "s7-n62": (7, 62, 0.9),
+    "s40-n99-masked": (40, 99, 0.0),
 }
 
 
@@ -873,3 +902,29 @@ def test_bin_fold_kernel_on_strided_views(cuda_device):
     a, b, m = p1[:, 3:], bins[:, 3:], mask[:, 3:]
     got, want = rans_bin.fold(a, b, m), rans_bin.fold_plain(a, b, m)
     assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_bin_fold_reciprocal_step_on_the_card(cuda_device):
+    """K3's chain step (the producers' record, f's reciprocal from the
+    magic table, the division-free step) for every f in [1, 4095] at the
+    edge states of tests/test_torch_p3_bin_fold.py, against the plain
+    step's arithmetic."""
+    import sys
+
+    from nblic_tpu_torch import kernels
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_torch_p3_bin_fold import edge_steps
+
+    states, p1, bins, live, want = edge_steps()
+    st, p16, b8, m8 = (torch.from_numpy(a).to(cuda_device)
+                       for a in (states.view(np.int32), p1, bins, live))
+    out = torch.empty((states.size, 3), dtype=torch.int32, device=cuda_device)
+    dev, stream = kernels.stream_of(st)
+    rc = kernels.library().nbt_bin_fold_steps(st.data_ptr(), p16.data_ptr(), b8.data_ptr(),
+                                              m8.data_ptr(), out.data_ptr(), states.size, dev,
+                                              stream)
+    kernels.check(rc, "bin_fold_steps")
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(out.cpu().numpy().view(np.uint32), want)
