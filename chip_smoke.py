@@ -88,16 +88,22 @@ Phases, one line each; any failure exits non-zero:
      (kernel_probe.py p3-walk: K5's SASS and step times by lane count;
      p3-near: the stages against the lane count.)
  14. K4, the profile-3 decode walk (csrc/p3_decode_walk.cu, a launch a
-     row or a column segment): K4 against the plain walk on the card on the
-     same walk inputs, exact and each timed: the pair at th 8 under
-     TUNE_V4, TUNE_MAX and TUNE_V4S, the edge images at near 0 and 3, the
-     pair with 6 AVP features; on the corpus walk's own input of phase 12
-     (th 4), K4 timed (median of 3) beside its bound and floor, its
-     divisions priced by path and its bins counted on a plain walk of the
-     same input, which it must equal; one corpus image encoded on the CPU
-     at th 768 (one lane, 393,216 steps) decoded through strips.decode on
-     K4, exact, with its seconds and us a step, then that container as the
-     corpus's 24 lanes at th 768, the walk cut to its first 192 rows, exact.
+     row or a column segment, each followed by K9): K4 against the plain
+     walk on the card on the same walk inputs, exact and each timed: the
+     pair at th 8 under TUNE_V4, TUNE_MAX and TUNE_V4S, the edge images at
+     near 0 and 3, the pair with 6 AVP features; on the corpus walk's own
+     input of phase 12 (th 4), K4 timed (median of 3) beside its bound and
+     floor, its divisions priced by path and its bins counted on a plain
+     walk of the same input, which it must equal; K9 (the image tables'
+     replay, csrc/p3_table_replay.cu) held to replay_plain on every launch
+     of that walk, each on the tables it found, then its middle launch
+     timed beside the plain replay, its bound and its floor; one corpus
+     image encoded on the CPU at th 768 (one lane, 393,216 steps) decoded
+     through strips.decode on K4 and K9, exact, with its seconds and us a
+     step, K9 held and timed likewise on that walk's first P3_K9_ROWS rows,
+     then that container as the corpus's 24 lanes at th 768, the walk cut
+     to its first 192 rows, exact.  Every profile-3 decode and near encode
+     on an entry point counts K9's launches, which must equal K4's or K5's.
  15. interop (Q0.2, NBLIC0.3): the port's copy of the native runtime built
      with g++; the 24-image corpus through api.compress / decompress(
      backend="native") at effort 0 (1 and 4 threads), 1, 2, 3 and effort 1
@@ -136,7 +142,8 @@ bytes over the memory rate, integer operations over the int32 rate) and
 its floor (the least time at the launch's own parallelism: the issue of
 one SM's schedulers for K2 and K2', of one scheduler's warps for K7, the
 larger of a scheduler's warps' issue and the chain's dependent path for
-K5 and K4 (one warp a lane), the serial chain for K1).  Then one
+K5 and K4 (one warp a lane), the serial chain for K1, the dependent path
+of its CTA for K9).  Then one
 JSON line of the kernels' measured numbers and bounds, the whole command's
 time, and as the last line {"ok": true, "device": {...}}.  Needs no
 network; imports no JAX.
@@ -326,6 +333,30 @@ K8_LANE_THREADS = 256  # the earlier design's CTA, a thread walking lanes t, t +
 K3_LIVE_OPS = 42
 K3_MASKED_OPS = 4
 K3_CHAIN_OPS = 9
+# K9 (image_tables.cuh's replay under p3_table_replay_kernel), the
+# arithmetic the function needs, each value counted once: a mapper event
+# K9_MAP_OPS[1] (the cell and the add), a bias event K9_BIAS_OPS[1] (the
+# index, the two adds, the cap's test); a key halved K9_MAP_OPS[0] (20
+# shifts and maxima), a context halved K9_BIAS_OPS[0]; a changed context's
+# quantization K9_QUANT_OPS (its division at the inline path 19 and the
+# rest 16), a changed key's order K9_RANK_OPS (20 ranks of 20 compares of
+# 64-bit counts, two instructions each).  Its floor, the launch's
+# dependent path on its CTA of K9_THREADS threads, in cycles: the three
+# barriers K9_BARRIER_CYCLES each; a round of adds (a thread's 64-bit
+# atomic in L2 and the dependent mark) K9_ADD_CYCLES; a marked entry's
+# halving on its word's thread (a key's 20 counts or a context's two
+# moments, loaded and stored) K9_ENTRY_CYCLES; a round of the rewrite's
+# (key, y) slots or contexts (a row of loads and the rank or the division)
+# K9_ENTRY_CYCLES too.
+K9_MAP_OPS = (60, 6)
+K9_BIAS_OPS = (4, 8)
+K9_QUANT_OPS = 35
+K9_RANK_OPS = 800
+K9_THREADS = 512
+K9_BARRIER_CYCLES = 50
+K9_ADD_CYCLES = 1200
+K9_ENTRY_CYCLES = 700
+K9_MAIN = {"launches": 0, "last": 0}  # K9's launches on the entry points, and the last call's
 P3_FULL_TH = 768  # the full-depth strip height: one corpus image a lane
 P3_FULL_ROWS = 192  # rows of the th-768 walk over the corpus's 24 lanes (K4)
 NEAR = 2  # the near phase's max error
@@ -408,6 +439,27 @@ def _cuda_ms(fn, reps: int) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _queued_ms(fn, reps: int, runs: int) -> float:
+    """Median device milliseconds of one of ``runs`` calls of ``fn``, by
+    CUDA events, the calls queued behind a ~20 ms sleep kernel so that
+    the host's issue of them hides behind it (for launches shorter than
+    their issue on the host); ``reps`` runs."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(0.02 * CLOCK_HZ))
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / runs)
     return statistics.median(times)
 
 
@@ -808,6 +860,7 @@ P3_PAIR_TH = 8
 P3_DECODE_TH = 4
 P3_NEAR_TH = 4
 P3_TUNES = ("TUNE_V4", "TUNE_MAX", "TUNE_V4S")
+P3_K9_ROWS = 4  # rows of the th-768 walk whose K9 launches are held to replay_plain
 
 
 def _p3_cpu_jobs(corpus):
@@ -1349,23 +1402,37 @@ class Kept:
         setattr(self.module, self.name, self.orig)
 
 
-def _entry_walks(fn):
-    """``fn()`` with K5's count set to 0 just before and read just after:
-    (its result, the launches it made)."""
-    from nblic_tpu_torch.ops import near_walk
+def _k9_count(n: int) -> None:
+    """Add K9's launches of an entry-point run (read just after it) to
+    K9_MAIN; raise unless K9 followed each of the walk kernel's ``n``."""
+    from nblic_tpu_torch.ops import table_replay
 
-    near_walk.launch_row.launches = 0
+    n9 = table_replay.launch.launches
+    if n9 != n:
+        raise RuntimeError(f"K9 launched {n9} times beside the walk kernel's {n}")
+    K9_MAIN["launches"] += n9
+    K9_MAIN["last"] = n9
+
+
+def _entry_walks(fn):
+    """``fn()`` with K5's and K9's counts set to 0 just before and read
+    just after: (its result, K5's launches); K9's go to K9_MAIN."""
+    from nblic_tpu_torch.ops import near_walk, table_replay
+
+    near_walk.launch_row.launches = table_replay.launch.launches = 0
     out = fn()
+    _k9_count(near_walk.launch_row.launches)
     return out, near_walk.launch_row.launches
 
 
 def _entry_decodes(fn):
-    """``fn()`` with K4's count set to 0 just before and read just after:
-    (its result, the launches it made)."""
-    from nblic_tpu_torch.ops import decode_walk
+    """``fn()`` with K4's and K9's counts set to 0 just before and read
+    just after: (its result, K4's launches); K9's go to K9_MAIN."""
+    from nblic_tpu_torch.ops import decode_walk, table_replay
 
-    decode_walk.launch_segment.launches = 0
+    decode_walk.launch_segment.launches = table_replay.launch.launches = 0
     out = fn()
+    _k9_count(decode_walk.launch_segment.launches)
     return out, decode_walk.launch_segment.launches
 
 
@@ -1580,6 +1647,123 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
     return launches, (max(errs), ms, pms, bound), k4, (n8, n3), k8
 
 
+def _k9_work(kept) -> tuple:
+    """(bytes, operations, floor ms) of one K9 launch on ``kept`` (the
+    tables it found, its planes, contract and columns), counted from this
+    launch's data: each plane value of its columns read once, each entry
+    it changes written once (a touched or halved context's moments and its
+    int16 value, a touched key's counts and a changed key's order row)."""
+    import torch
+
+    from nblic_tpu_torch.ops import coder3
+
+    tb, (idx, dx, key, y), con, map_cols, bias_cols = kept
+    lanes = idx.shape[1]
+    n_imgs = lanes // con.lanes_per_image
+
+    def bits(words):
+        return int(sum(bin(v & 0xFFFFFFFF).count("1") for v in words.reshape(-1).tolist()))
+
+    n_bytes = n_ops = 0
+    per_image = rounds = 0
+    if bias_cols is not None:
+        cols = slice(*bias_cols)
+        px = idx[cols].numel()
+        halved = (torch.tensor([(v >> b) & 1 for v in tb.bmark.reshape(-1).tolist()
+                                for b in range(32)], device=idx.device).bool())
+        changed = halved.clone()
+        changed[idx[cols].reshape(-1)] = True
+        n_ctx, n_halved = int(changed.sum()), int(halved.sum())
+        n_bytes += 16 * px + 18 * n_ctx
+        n_ops += K9_BIAS_OPS[1] * px + K9_BIAS_OPS[0] * n_halved + K9_QUANT_OPS * n_ctx
+        per_image = max(per_image, px // n_imgs)
+        rounds += -(-n_ctx // (n_imgs * K9_THREADS))
+    if map_cols is not None:
+        cols = slice(*map_cols)
+        px = key[cols].numel()
+        img = torch.arange(lanes, device=key.device) // con.lanes_per_image
+        small = y[cols] < coder3.N_MAP
+        cell = ((img * coder3.MAP_KEYS + key[cols]) * coder3.N_MAP + y[cols])[small]
+        touched = torch.zeros(n_imgs * coder3.MAP_KEYS, dtype=torch.bool, device=key.device)
+        touched[cell // coder3.N_MAP] = True
+        n_halved = bits(tb.mmark)
+        n_keys = int(touched.sum()) + n_halved  # at most: a key both touched and halved
+        n_bytes += 16 * px + 8 * int(cell.unique().numel()) + 160 * (n_keys + n_halved)
+        n_ops += K9_MAP_OPS[1] * int(small.sum()) + K9_MAP_OPS[0] * n_halved \
+            + K9_RANK_OPS * n_keys
+        per_image = max(per_image, px // n_imgs)
+        rounds += -(-n_keys * coder3.N_MAP // (n_imgs * K9_THREADS))
+    bound = _bound(n_bytes, n_ops)
+    cycles = (3 * K9_BARRIER_CYCLES + -(-per_image // K9_THREADS) * K9_ADD_CYCLES
+              + K9_ENTRY_CYCLES * (1 + rounds))
+    return bound, max(bound[0], 1e3 * cycles / CLOCK_HZ)
+
+
+def _k9_case(what, args, card, runs: int = 50, reps: int = 5):
+    """K9 against replay_plain on every launch of the decode walk of
+    ``args`` on the card (each on a copy of the tables it found, every
+    table exact), then the walk's middle launch's inputs timed: K9 alone
+    (``runs`` successive launches on a copy of its tables, median of
+    ``reps``, a launch's share: on the device, queued behind a sleep, and
+    as the host issues them back to back) beside replay_plain's time on
+    the same, its bound and its floor.  The launches made here are comparisons, not
+    the main path's.  Returns (max error or None on a mismatch, K9 ms,
+    plain ms, bound)."""
+    import torch
+
+    from nblic_tpu_torch.models import strips
+    from nblic_tpu_torch.ops import table_replay
+
+    words, bias, th, w, s, n_imgs, n_feat, near, tune = args
+    n_seg = strips._eff_seg(tune.n_seg, w)
+    per_row = n_seg if n_seg > 1 and ((tune.seg_bias and bias is None) or tune.seg_map) else 1
+    middle = th * per_row // 2
+    launch, kept, errs = table_replay.launch, [], []
+
+    def checked(walk, map_cols=None, bias_cols=None):
+        want = table_replay.Tables(*(t.clone() for t in walk.tables))
+        if len(errs) == middle:
+            kept.append((table_replay.Tables(*(t.clone() for t in walk.tables)),
+                         tuple(None if p is None else p.clone() for p in walk.planes),
+                         walk.con, map_cols, bias_cols))
+        table_replay.replay_plain(want, walk.planes, walk.con, map_cols, bias_cols)
+        launch(walk, map_cols, bias_cols)
+        errs.append(max(int((g.long() - v.long()).abs().max()) for g, v in
+                        zip(walk.tables, want)))
+
+    t0 = time.perf_counter()
+    checked.launches = 0  # the wrapped launch counts on the name it is called by
+    table_replay.launch = checked
+    try:
+        strips._decode_walk(*args)
+        torch.cuda.synchronize()
+    finally:
+        table_replay.launch = launch
+    check_s = time.perf_counter() - t0
+    tb0, planes, con, map_cols, bias_cols = kept[0]
+    work = table_replay.prepare(table_replay.Tables(*(t.clone() for t in tb0)), planes, con)
+    ms = _queued_ms(lambda: launch(work, map_cols, bias_cols), reps, runs)
+    issued = _cuda_ms(lambda: [launch(work, map_cols, bias_cols) for _ in range(runs)],
+                      reps) / runs
+    plain = table_replay.Tables(*(t.clone() for t in tb0))
+    pms = _queued_ms(lambda: table_replay.replay_plain(plain, planes, con, map_cols, bias_cols),
+                     reps, 5)
+    bound, floor = _k9_work(kept[0])
+    err = max(errs)
+    lanes = planes[0].shape[1]
+    print(f"[K9 p3_table_replay] {what}: {len(errs)} launches each held to replay_plain on the "
+          f"tables it found, exact {err == 0} (max error {err}; {check_s:.1f} s with the "
+          f"checks); its middle launch ({n_imgs} images x {lanes // n_imgs} lanes, mapper "
+          f"columns {map_cols}, bias columns {bias_cols}): K9 {1e3 * ms:.2f} us on the device "
+          f"(median of {reps} runs of {runs} launches queued behind a sleep; "
+          f"{1e3 * issued:.2f} us a launch issued back to back from the host) | plain "
+          f"{1e3 * pms:.1f} us ({pms / ms:.0f}x; 5 calls a run, queued alike) | "
+          f"bound {1e3 * bound[0]:.3f} us ({bound[1]}) | floor {1e3 * floor:.2f} us (the "
+          f"launch's dependent path on its {K9_THREADS}-thread CTAs) | library none "
+          f"({card})", flush=True)
+    return (err if err == 0 else None), ms, pms, bound
+
+
 def _k4_case(what, args, card):
     """K4 (``strips._decode_walk`` on card tensors) against the plain walk
     on the same card tensors (the walk's arguments ``args``), exact; each
@@ -1659,7 +1843,7 @@ def _k4_phase(corpus, pair_conts, walk_args, dev, card, full_job):
     bound = _bound(words.numel() * 4 + n_px * (1 + 4 * 8), n_px * ops)
     floor = _walk_floor(lanes, th * w, issue, path)
     print(f"[K4 p3_decode_walk] the corpus's walk ({lanes} lanes x {th}x{w}, {th * w} steps): "
-          f"K4 {ms:.3f} ms (median of 3; {1e3 * ms / (th * w):.3f} us a step, the torch "
+          f"K4 {ms:.3f} ms (median of 3; {1e3 * ms / (th * w):.3f} us a step, K9's "
           f"replays between launches included) | plain {pms:.1f} ms ({pms / ms:.0f}x) | bound "
           f"{bound[0]:.4f} ms ({bound[1]}) | {_floor_text(floor, issue, path)} ({ops:.1f} ops "
           f"a pixel; a pixel's divisions by path and active bins, counted on a plain walk of "
@@ -1667,6 +1851,9 @@ def _k4_phase(corpus, pair_conts, walk_args, dev, card, full_job):
           + ", ".join(f"{key} {v:.3f}" for key, v in paths.items()) + f") ({card})",
           flush=True)
     if err is None:
+        return None
+    k9 = _k9_case(f"the corpus's walk at th {th}", walk_args, card)
+    if k9[0] is None:
         return None
 
     # one corpus image at full depth: one lane of 768 x 512 steps
@@ -1684,8 +1871,14 @@ def _k4_phase(corpus, pair_conts, walk_args, dev, card, full_job):
           f"{wait_s:.1f} s for it): strips.decode on K4 exact {ok} in {dec_s:.2f} s "
           f"({1e6 * dec_s / steps:.2f} us a step; "
           f"{_floor_text(_walk_floor(1, steps, issue, path), issue, path)} at the th-{th} "
-          f"walk's ops a pixel), K4 launches {n} ({card})", flush=True)
+          f"walk's ops a pixel), K4 launches {n}, K9 launches {K9_MAIN['last']} ({card})",
+          flush=True)
     if not (ok and n > 0):
+        return None
+    args768 = strips._walk_args([strips._parse(cont)], dev)[0]
+    args768 = (args768[0], args768[1], P3_K9_ROWS, *args768[3:])
+    if _k9_case(f"that image's walk at th {P3_FULL_TH}, its first {P3_K9_ROWS} rows", args768,
+                card)[0] is None:
         return None
     # that container as the corpus's 24 lanes (one an image, the default
     # strip height's parallelism), the walk cut to its first P3_FULL_ROWS
@@ -1708,7 +1901,7 @@ def _k4_phase(corpus, pair_conts, walk_args, dev, card, full_job):
           flush=True)
     if not ok24:
         return None
-    return n, (max(errs + [err]), ms, pms, bound)
+    return n, (max(errs + [err]), ms, pms, bound), k9
 
 
 def _p3_full_encode(corpus, dev, card, full_job, reps: int = 3):
@@ -2511,7 +2704,7 @@ def main() -> int:
                   "not come back exact or never launched K4")
             return 1
         k4_launches += k4[0]
-        k4_stats = k4[1]
+        k4_stats, k9_stats = k4[1], k4[2]
         print(f"[K4] the phase took {time.perf_counter() - t0:.1f} s; K4 launches on the "
               f"entry points {k4_launches}", flush=True)
         full = _p3_full_encode(corpus, dev, card, full_job)
@@ -2549,6 +2742,9 @@ def main() -> int:
                 "bound_by": bound_by, "library_ms": None, **extra}
 
     k2_src = "nblic_tpu_torch/csrc/group_decode.cu"
+    if K9_MAIN["launches"] <= 0:
+        print("[K9] failed: K9 never launched on the entry points")
+        return 1
     print(f"[time] the whole command {time.perf_counter() - T_START:.1f} s ({card})",
           flush=True)
     print(json.dumps({"kernels": [
@@ -2575,6 +2771,9 @@ def main() -> int:
         row("p3_row_scan", "nblic_tpu_torch/csrc/p3_row_scan.cu",
             "nblic_tpu/models/strips.py:649", k8_launches, k8_stats,
             note="an XLA scan (lax.scan), no pallas_call"),
+        row("p3_table_replay", "nblic_tpu_torch/csrc/p3_table_replay.cu",
+            "nblic_tpu/models/strips.py:1914", K9_MAIN["launches"], k9_stats,
+            note="the tables' replay inside an XLA scan (lax.scan), no pallas_call"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -45,17 +45,18 @@
 // version's values.  (c) the sweeps: every marked counter pair, and every
 // marked mapper key and bias context where they updated, halves, and
 // keeps its mark only if still past its threshold: the plain version's
-// sweep of every entry.
+// sweep of every entry.  The image tables' atomics, adds and sweeps and
+// the bias quantizer are image_tables.cuh's, with which kernel K9 replays
+// the decoder's tables.
 
 #pragma once
 
-#include "coder3.cuh"
+#include "image_tables.cuh"
 
 namespace {
 
-constexpr int kScanCtx = 3072;    // constants.Q_N_CONTEXT
-constexpr int kScanFrac = 4;      // context.BIAS_FRAC_BITS
-constexpr int kBiasMax = 1 << 11;  // quantize_bias's clip: [-2048, 2047]
+constexpr int kScanCtx = kContexts;
+constexpr int kScanFrac = kBiasFrac;
 constexpr int kWarp = 32;  // a pixel's n_unary + 8 <= 28 slots fit a warp
 
 // The scan's constants (ops/row_scan.py::contract).  seg_bias and seg_map
@@ -182,87 +183,9 @@ NBT_HD ScanLayout scan_layout(const ScanContract& c, int placement) {
   return s;
 }
 
-// Table updates of one executor: the plain ones of a host thread (the
-// wrapping int64 sums by uint64) and the atomics of the card's.  add64
-// returns the value before the add, add_pair a counter pair's sum after
-// adding v to its count `which`.
-struct HostAtomics {
-  NBT_HD int64_t add64(int64_t* p, int64_t v) const {
-    const int64_t old = *p;
-    *p = static_cast<int64_t>(static_cast<uint64_t>(old) + static_cast<uint64_t>(v));
-    return old;
-  }
-  NBT_HD long long add_pair(int32_t* pair, int which, int v) const {
-    pair[which] += v;
-    return static_cast<long long>(pair[0]) + pair[1];
-  }
-  NBT_HD void set(uint32_t* w, uint32_t bits) const { *w |= bits; }
-};
-
 struct PlainAdd32 {
   NBT_HD void operator()(int32_t* p, int v) const { *p += v; }
 };
-
-#if defined(__CUDACC__)
-struct DeviceAtomics {
-  __device__ __forceinline__ int64_t add64(int64_t* p, int64_t v) const {
-    return static_cast<int64_t>(atomicAdd(reinterpret_cast<unsigned long long*>(p),
-                                          static_cast<unsigned long long>(v)));
-  }
-  // the pair's two int32 counts as one little-endian 64-bit word (8-byte
-  // aligned), so the add returns both
-  __device__ __forceinline__ long long add_pair(int32_t* pair, int which, int v) const {
-    const unsigned long long old =
-        atomicAdd(reinterpret_cast<unsigned long long*>(pair),
-                  static_cast<unsigned long long>(static_cast<uint32_t>(v)) << (32 * which));
-    return static_cast<long long>(static_cast<uint32_t>(old)) +
-           static_cast<uint32_t>(old >> 32) + v;
-  }
-  __device__ __forceinline__ void set(uint32_t* w, uint32_t bits) const {
-    if ((*w & bits) != bits) atomicOr(w, bits);
-  }
-};
-#endif
-
-// context.quantize_bias of one context: the rounded mean error in 1/16 px,
-// half away from zero on magnitudes, the numerator wrapped to int32 as
-// nblic_tpu's int32 arithmetic wraps it (|sum| past 2^26), clipped to
-// [-2048, 2047].  The floor division runs in 32 bits where the divisor
-// fits them: the wrapped numerator, or d2 - 1 - it, lies below 2^32.
-NBT_HD int quantize_bias(int64_t sum, int64_t cnt, int shrink) {
-  const int64_t dn = cnt + shrink;
-  const int64_t denom = dn < 1 ? 1 : dn;
-  const uint64_t mag_sum =
-      sum < 0 ? 0ull - static_cast<uint64_t>(sum) : static_cast<uint64_t>(sum);
-  const uint64_t num = (mag_sum << (kScanFrac + 1)) + static_cast<uint64_t>(denom);
-  const int64_t wrapped = static_cast<int32_t>(static_cast<uint32_t>(num));
-  const int64_t d2 = 2 * denom;
-  int64_t mag;
-  if (d2 < (int64_t{1} << 31)) {
-    const uint32_t n = static_cast<uint32_t>(wrapped >= 0 ? wrapped : d2 - 1 - wrapped);
-    const int64_t q = n / static_cast<uint32_t>(d2);
-    mag = wrapped >= 0 ? q : -q;
-  } else {
-    mag = wrapped >= 0 ? wrapped / d2 : -((d2 - 1 - wrapped) / d2);  // floor
-  }
-  if (cnt <= 0 || sum == 0) return 0;
-  const int64_t bias = sum > 0 ? mag : -mag;
-  return bias < -kBiasMax ? -kBiasMax
-                          : (bias > kBiasMax - 1 ? kBiasMax - 1 : static_cast<int>(bias));
-}
-
-// Thread t's vote in the AutoMapper's rank of y < 20 among its key's 20
-// counts h (coder3.mapper_ranks: the stable descending order): count t
-// ranks before y.  The rank is the number of votes: a ballot on the card.
-NBT_HD bool rank_vote(const int64_t* h, int y, int t) {
-  return t < kNMap && (h[t] > h[y] || (t < y && h[t] == h[y]));
-}
-
-NBT_HD int mapper_rank(const int64_t* h, int y) {
-  int z = 0;
-  for (int t = 0; t < kNMap; ++t) z += rank_vote(h, y, t);
-  return z;
-}
 
 // context.residual_fold at near 0: |x - px| sign-interleaved around px in
 // [0, 255], the bias's half bit as the preferred sign.
@@ -657,20 +580,16 @@ NBT_HD void table_adds(const ScanContract& c, const ScanData& d, const ImageTabl
     for (int task = t, wm = j1 - m0; task < lpi * wm; task += n) {
       const int li = task / wm, j = m0 + task % wm;
       const int kept = d.keep[static_cast<size_t>(lane0 + li) * c.w + j];
-      const int y = (kept >> 8) & 0xFF, key = kept >> 16;
-      if (y < kNMap && at.add64(&tb.mhist[key * kNMap + y], c.map_bump) + c.map_bump >
-                           c.map_halve)
-        at.set(tb.mmark + key / 32, 1u << (key % 32));
+      mapper_add(at, tb.mhist, tb.mmark, kept >> 16, (kept >> 8) & 0xFF, c.map_bump,
+                 c.map_halve);
     }
   }
   if (bias) {
     for (int task = t, wb = j1 - b0; task < lpi * wb; task += n) {
       const int li = task / wb, j = b0 + task % wb;
       const size_t px = (static_cast<size_t>(lane0 + li) * c.th + r) * c.w + j;
-      const int adr = d.planes[5 * plane + px];
-      at.add64(&tb.bsum[adr], d.planes[3 * plane + px] - d.planes[4 * plane + px]);
-      if (at.add64(&tb.bcnt[adr], 1) + 1 > c.bias_cap)
-        at.set(tb.bmark + adr / 32, 1u << (adr % 32));
+      bias_add(at, tb.bsum, tb.bcnt, tb.bmark, d.planes[5 * plane + px],
+               d.planes[3 * plane + px] - d.planes[4 * plane + px], c.bias_cap);
     }
   }
 }
@@ -700,34 +619,8 @@ NBT_HD void segment_sweeps(const ScanContract& c, const ImageTables& tb, const L
     }
     lt.mark[g] = keep;
   }
-  if (map) {
-    for (int g = t; g < kMapKeys / 32; g += n) {
-      uint32_t keep = 0;
-      for (uint32_t bits = tb.mmark[g]; bits; bits &= bits - 1) {
-        const int b = stop_layer(bits, 32);
-        int64_t* h = tb.mhist + (32 * g + b) * kNMap;
-        int64_t mx = 0;
-        for (int j = 0; j < kNMap; ++j) {
-          h[j] >>= 1;
-          mx = h[j] > mx ? h[j] : mx;
-        }
-        if (mx > c.map_halve) keep |= 1u << b;
-      }
-      tb.mmark[g] = keep;
-    }
-  }
-  if (bias) {
-    for (int g = t; g < kScanCtx / 32; g += n) {
-      uint32_t keep = 0;
-      for (uint32_t bits = tb.bmark[g]; bits; bits &= bits - 1) {
-        const int b = stop_layer(bits, 32), k = 32 * g + b;
-        tb.bsum[k] >>= 1;
-        tb.bcnt[k] >>= 1;
-        if (tb.bcnt[k] > c.bias_cap) keep |= 1u << b;
-      }
-      tb.bmark[g] = keep;
-    }
-  }
+  if (map) sweep_mapper(tb.mhist, tb.mmark, c.map_halve, nullptr, t, n);
+  if (bias) sweep_bias(tb.bsum, tb.bcnt, tb.bmark, c.bias_cap, nullptr, t, n);
 }
 
 // The layer constants and tables from the contract, thread t of `n`.

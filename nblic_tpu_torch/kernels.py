@@ -136,6 +136,8 @@ def library() -> ctypes.CDLL:
     lib.nbt_bin_fold.restype = i32
     lib.nbt_bin_fold_steps.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
     lib.nbt_bin_fold_steps.restype = i32
+    lib.nbt_p3_table_replay.argtypes = [ptr] * 11 + [i32] * 13 + [ptr]
+    lib.nbt_p3_table_replay.restype = i32
     lib.nbt_error_string.argtypes = [i32]
     lib.nbt_error_string.restype = ctypes.c_char_p
     return lib

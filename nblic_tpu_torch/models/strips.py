@@ -59,7 +59,9 @@ import torch
 
 from ..constants import MAX_VAL, Q_N_CONTEXT
 from ..convert import resolve_device
-from ..ops import coder3, decode_walk, near_walk, pavp, rans, rans_bin, row_scan, zcodec3
+from ..ops import (
+    coder3, decode_walk, near_walk, pavp, rans, rans_bin, row_scan, table_replay, zcodec3,
+)
 from ..ops.avp import BETA, FB1, FIT_BASE
 from ..ops.context import BIAS_FRAC_BITS, quantize_bias, residual_fold, residual_unfold
 from ..ops.neighbors import Neighbors, sample
@@ -67,6 +69,7 @@ from ..ops.predict import (
     activity, context_address, n_quantize_activity, quantize_activity, shift_err,
     simple_predict,
 )
+from ..ops.table_replay import bias_update as _bias_update
 from ..ops.window import row_start_window, slide_window
 from ..utils.container import NbtcHeader, check_size, inflate
 
@@ -329,16 +332,6 @@ def _row_code(utab, rtab, mhist, img_of_lane, lane, y, qu, qv, qw, key, k_step: 
 # ---------------------------------------------------------------------------
 # the row scan, the fold and the container
 # ---------------------------------------------------------------------------
-
-
-def _bias_update(bsums, bcnts, idx, err, cap: int):
-    """Fold coded pixels into the bias moments, halving both moments of a
-    context past ``cap`` events.  bsums/bcnts: (B * C,) per image's
-    contexts; idx: flat (image * C + adr) indexes; err: raw errors."""
-    bsums = bsums.index_add(0, idx.reshape(-1), err.reshape(-1))
-    bcnts = bcnts.index_add(0, idx.reshape(-1), torch.ones_like(idx).reshape(-1))
-    over = bcnts > cap
-    return torch.where(over, bsums >> 1, bsums), torch.where(over, bcnts >> 1, bcnts)
 
 
 def _row_scan(x, px0, adr, qu, qv, qw, n_imgs: int, tune: Tune):
@@ -724,12 +717,14 @@ def _near_walk_plain(x, n_imgs: int, near: int, n_feat: int, tune: Tune):
 
 
 def _near_walk_card(x, n_imgs: int, near: int, n_feat: int, tune: Tune):
-    """The feedback walk on the card: per row, the image's bias table from
-    its moments, kernel K5 over every lane (``ops/near_walk.py``), then the
-    moments take the row.  The state stays on the card in the kernel's
-    layout (B and F (L, W, m), a lane's channels contiguous; the rows lanes
-    fastest); the planes are laid out for :func:`_near_code` once, at the
-    end.  Returns what :func:`_near_walk_plain` returns."""
+    """The feedback walk on the card: per row, kernel K5 over every lane
+    (``ops/near_walk.py``), then kernel K9 (``ops/table_replay.py``) folds
+    the row into the images' bias moments and rewrites their int16 table,
+    which K5 reads for the next row.  The state stays on the card in the
+    kernels' layout (B and F (L, W, m), a lane's channels contiguous; the
+    rows lanes fastest; the tables a ``table_replay.Tables``); the planes
+    are laid out for :func:`_near_code` once, at the end.  Returns what
+    :func:`_near_walk_plain` returns."""
     dev = x.device
     lanes, th, w = x.shape
     m = pavp.get_m(n_feat)
@@ -743,18 +738,17 @@ def _near_walk_card(x, n_imgs: int, near: int, n_feat: int, tune: Tune):
     if tune.mix_e:
         b_mix = torch.zeros((lanes, w, 2), **i64)
         f_mix = torch.empty_like(b_mix)
-    bsums = torch.zeros(n_imgs * Q_N_CONTEXT, **i64)
-    bcnts = torch.zeros_like(bsums)
-    btab = torch.empty(n_imgs * Q_N_CONTEXT, dtype=torch.int16, device=dev)
     planes = torch.empty((near_walk.N_PLANES, th, w, lanes), dtype=torch.int32, device=dev)
     idx = torch.empty((w, lanes), **i64)
     dx = torch.empty_like(idx)
+    con = table_replay.contract(tune, lanes // n_imgs, w)
+    tb = table_replay.new_tables(n_imgs, con, dev)
+    replay = table_replay.prepare(tb, (idx, dx, None, None), con) if x.numel() else None
     for i in range(th):
-        # quantize_bias clamps to [-2048, 2047]: the int16 copy is exact
-        btab.copy_(quantize_bias(bsums, bcnts, tune.bias_shrink))
-        near_walk.launch_row(xs[i], btab, prev1, prev2, b_row, f_row, b_mix, f_mix, planes,
+        near_walk.launch_row(xs[i], tb.btab, prev1, prev2, b_row, f_row, b_mix, f_mix, planes,
                              idx, dx, i, near, n_feat)
-        bsums, bcnts = _bias_update(bsums, bcnts, idx, dx, tune.bias_cap)
+        if replay is not None:
+            table_replay.launch(replay, bias_cols=(0, w))
         prev1, prev2 = prev2, prev1  # row i was written into prev2
     return planes.permute(0, 3, 1, 2).to(torch.int64,
                                          memory_format=torch.contiguous_format).unbind(0)
@@ -1083,12 +1077,16 @@ def _decode_walk_card(words, bias_tab, th: int, w: int, s: int, n_imgs: int, n_f
                       near: int, tune: Tune):
     """The decode walk on the card: kernel K4 (``ops/decode_walk.py``) a
     column segment at a time where the contract replays the bias or the
-    mapper a segment (seg_bias, seg_map), else a row at a time.  Between
-    launches torch keeps what an image's lanes share: the bias moments and
-    their int16 table, the mapper history and its order, each updated from
-    the pixels K4 wrote, as :func:`_decode_walk_plain` updates them.  The
-    lanes' own state stays on the card in K4's layout
-    (``decode_walk.State``).
+    mapper a segment (seg_bias, seg_map), else a row at a time, each launch
+    followed by kernel K9 (``ops/table_replay.py``), which folds the
+    pixels K4 wrote into what an image's lanes share (the bias moments and
+    their int16 table, the mapper history and its order), as
+    :func:`_decode_walk_plain` updates them: the mapper's a segment under
+    seg_map, else at the row's end over its W columns; the bias's likewise
+    under seg_bias, and never with a static table.  Nothing runs between
+    the launches but the forming of their arguments, and nothing is read
+    back; K4's arguments are checked once a walk.  The lanes' own state
+    stays on the card in K4's layout (``decode_walk.State``).
     Returns what :func:`_decode_walk_plain` returns."""
     dev = words.device
     lanes = n_imgs * s
@@ -1100,35 +1098,25 @@ def _decode_walk_card(words, bias_tab, th: int, w: int, s: int, n_imgs: int, n_f
     span = ws if seg_bias or seg_map else w  # columns a launch
     con = decode_walk.contract(near, n_feat, tune, ws, s)
     st = decode_walk.new_state(words, th, w, con, tune.cnt_init)
-    img = torch.arange(n_imgs, device=dev).repeat_interleave(s)
-    mhist = coder3.init_mapper(n_imgs, dev)
-    bsums = torch.zeros(n_imgs * Q_N_CONTEXT, dtype=torch.int64, device=dev)
-    bcnts = torch.zeros_like(bsums)
-    # the static tables, or the moments' quantized means: both lie in int16
-    btab = torch.empty(n_imgs * Q_N_CONTEXT, dtype=torch.int16, device=dev)
-    if not adaptive:
-        btab.copy_(bias_tab)
+    tcon = table_replay.contract(tune, s, w)
+    tb = table_replay.new_tables(n_imgs, tcon, dev, bias_tab)
     prev1 = torch.zeros((w, lanes), dtype=torch.uint8, device=dev)
     prev2 = torch.zeros_like(prev1)
-    idx, dx, key, y = st.replay.unbind(0)  # (W, L) each
+    if not (th and w):
+        return st.out.permute(2, 0, 1).contiguous()
+    decode_walk._check(st, tb.btab, tb.order, prev1, prev2, 0, 0, span, con)
+    replay = table_replay.prepare(tb, tuple(st.replay.unbind(0)), tcon)  # (W, L) each
     for i in range(th):
         for c0 in range(0, w, span):
-            cols = slice(c0, c0 + span)
-            if adaptive and (c0 == 0 or seg_bias):
-                btab.copy_(quantize_bias(bsums, bcnts, tune.bias_shrink))
-            if c0 == 0 or seg_map:
-                order = coder3.mapper_order(mhist)
-            decode_walk.launch_segment(st, btab, order, prev1, prev2, i, c0, c0 + span, con)
-            if seg_map:
-                mhist = coder3.mapper_updates(mhist, img, key[cols].t(), y[cols].t(),
-                                              tune.map_bump, tune.map_halve)
-            if seg_bias:
-                bsums, bcnts = _bias_update(bsums, bcnts, idx[cols], dx[cols], tune.bias_cap)
-        if not seg_map:
-            mhist = coder3.mapper_updates(mhist, img, key.t(), y.t(), tune.map_bump,
-                                          tune.map_halve)
-        if adaptive and not seg_bias:
-            bsums, bcnts = _bias_update(bsums, bcnts, idx, dx, tune.bias_cap)
+            c1 = c0 + span
+            decode_walk.launch_segment(st, tb.btab, tb.order, prev1, prev2, i, c0, c1, con,
+                                       checked=True)
+            row_end = c1 == w
+            map_cols = (c0, c1) if seg_map else ((0, w) if row_end else None)
+            bias_cols = None
+            if adaptive:
+                bias_cols = (c0, c1) if seg_bias else ((0, w) if row_end else None)
+            table_replay.launch(replay, map_cols, bias_cols)
         prev1, prev2 = prev2, prev1  # row i was written into prev2
     return st.out.permute(2, 0, 1).contiguous()
 

@@ -10,12 +10,15 @@ What a lane owns lives in a :class:`State` on the card in K4's layout: K4
 runs one warp a lane, so a lane's channels and counters are contiguous (B,
 F (L, W, m), the counter tables (L, cells)), the rows and the replay
 planes lanes fastest; what an image's lanes share (the bias table and the
-mapper's order) is handed to each launch.
+mapper's order) is handed to each launch, and kernel K9
+(``ops/table_replay.py``) updates it from the replay planes between
+launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -156,8 +159,15 @@ def _check(st: State, bias, order, prev1, prev2, i: int, c0: int, c1: int, con: 
     kernels.check_int16(bias)  # the kernel reads the table as int16
 
 
+@functools.lru_cache(maxsize=16)
+def _c_ints(con: Contract):
+    """The contract's ints as the C entry takes them, made once a contract."""
+    ints = con.ints()
+    return (ctypes.c_int * len(ints))(*ints)
+
+
 def launch_segment(st: State, bias, order, prev1, prev2, i: int, c0: int, c1: int,
-                   con: Contract) -> None:
+                   con: Contract, checked: bool = False) -> None:
     """Row ``i``, columns [c0, c1) of the decode walk for every lane
     (kernel K4): whole segments of ``con.ws``; the row's first launch (c0 =
     0) also computes F, and a launch that stops short of the row's end
@@ -171,14 +181,17 @@ def launch_segment(st: State, bias, order, prev1, prev2, i: int, c0: int, c1: in
     ``st.out`` and the columns' ``st.replay``, and updates the lanes' state
     in place.  Everything lies on one CUDA device, contiguous; anything
     else raises.  Launches on the current stream and counts the launch.
+    ``checked``: the caller has run :func:`_check` on this walk's tensors
+    (``strips._decode_walk_card`` does, once a walk); the launch then
+    checks nothing itself.
     """
-    _check(st, bias, order, prev1, prev2, i, c0, c1, con)
+    if not checked:
+        _check(st, bias, order, prev1, prev2, i, c0, c1, con)
     lanes, w = st.words.shape[1], st.out.shape[1]
     if not lanes:
         return
     lib = kernels.library()
     mix = st.b_mix is not None
-    ints = con.ints()
     bias16 = bias.to(torch.int16)
     rc = lib.nbt_p3_decode_segment(
         st.words.data_ptr(), st.words.shape[2], st.rans.data_ptr(), st.utab.data_ptr(),
@@ -186,7 +199,7 @@ def launch_segment(st: State, bias, order, prev1, prev2, i: int, c0: int, c1: in
         st.f_mix.data_ptr() if mix else None, st.carry.data_ptr(), st.e.data_ptr(),
         st.e_mix.data_ptr(), prev1.data_ptr(), prev2.data_ptr(),
         bias16.data_ptr(), order.data_ptr(), st.out[i].data_ptr(), st.replay.data_ptr(),
-        lanes, w, i, c0, c1, (ctypes.c_int * len(ints))(*ints), CTA_WARPS,
+        lanes, w, i, c0, c1, _c_ints(con), CTA_WARPS,
         *kernels.stream_of(st.words))
     kernels.check(rc, "nbt_p3_decode_segment")
     launch_segment.launches += 1

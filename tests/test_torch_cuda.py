@@ -20,6 +20,7 @@ from nblic_tpu_torch.convert import group_args, tables_from_numpy
 from nblic_tpu_torch.models import strips, tiled
 from nblic_tpu_torch.ops import (
     avp, decode, decode_walk, fold, lsq, near_scan, near_walk, rans, rans_bin, row_scan,
+    table_replay,
 )
 from nblic_tpu_torch.utils.synth import edge_images, synth_image
 
@@ -710,6 +711,126 @@ def test_decode_walk_kernel_refuses_what_it_cannot_run(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         decode_walk.launch_segment(st._replace(b=st.b.transpose(0, 2).contiguous().transpose(
             0, 2)), bias, order, *rows, 1, 0, 4, con)
+
+
+# K9, the image-table replay (ops/table_replay.py, csrc/p3_table_replay.cu),
+# against its plain version on the card: every launch of a walk held to
+# replay_plain on a copy of the tables it found, on the walks' own planes
+# (the decode walk under every tune, a static bias table, the near walk at
+# near 2), then on seeded planes of 192 lanes an image with low caps.
+@pytest.fixture
+def k9_checked(monkeypatch):
+    """table_replay.launch wrapped: each K9 launch also runs replay_plain
+    on a copy of the tables before it, and the two must agree on every
+    table; returns the list of launches checked."""
+    launch, seen = table_replay.launch, []
+
+    def checked(walk, map_cols=None, bias_cols=None):
+        want = table_replay.Tables(*(t.clone() for t in walk.tables))
+        table_replay.replay_plain(want, walk.planes, walk.con, map_cols, bias_cols)
+        launch(walk, map_cols, bias_cols)
+        for name, got, ref in zip(table_replay.Tables._fields, walk.tables, want):
+            assert torch.equal(got, ref), f"{name} after launch {len(seen)}"
+        seen.append((map_cols, bias_cols))
+
+    checked.launches = 0  # the wrapped launch counts on the name it is called by
+    monkeypatch.setattr(table_replay, "launch", checked)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tune", K4_TUNES)
+def test_table_replay_kernel_under_every_tune(cuda_device, monkeypatch, k9_checked, tune):
+    monkeypatch.setattr(strips, "TUNE", getattr(strips, tune))
+    imgs = [synth_image(np.random.default_rng(40 + K4_TUNES.index(tune)), 24, 16),
+            synth_image(np.random.default_rng(50), 24, 16)]
+    conts = strips.encode_batch(imgs, th=4, device="cpu")
+    before = decode_walk.launch_segment.launches
+    for got, im in zip(strips.decode_batch(conts, device=cuda_device), imgs):
+        assert np.array_equal(got, im)
+    assert len(k9_checked) == decode_walk.launch_segment.launches - before > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["static", "legacy", "near2"])
+def test_table_replay_kernel_on_fixtures(cuda_device, k9_checked, name):
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_torch_p3")
+    with open(os.path.join(data, name + ".nbtc"), "rb") as f:
+        stream = f.read()
+    args, _ = strips._walk_args([strips._parse(stream)], torch.device("cuda"))
+    args = (args[0], args[1], min(4, args[2]), *args[3:])
+    strips._decode_walk(*args)
+    torch.cuda.synchronize()
+    assert k9_checked
+    if name == "static":  # the mapper alone: a static table is never replayed
+        assert all(b is None and m is not None for m, b in k9_checked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tune", ["TUNE_V4", "TUNE_V4S"])
+def test_table_replay_kernel_in_the_near_walk(cuda_device, k9_checked, tune):
+    x = torch.from_numpy(np.stack([synth_image(np.random.default_rng(60 + k), 8, 24)
+                                   for k in range(6)])).to(cuda_device)
+    t = strips._near_tune(getattr(strips, tune))
+    k = strips._near_walk(x, 2, 2, strips.AVP_N, t)
+    ref = strips._near_walk_plain(x, 2, 2, strips.AVP_N, t)
+    assert all(torch.equal(u, v) for u, v in zip(k, ref))
+    assert k9_checked == [(None, (0, 24))] * 8  # the bias alone, a row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["segments", "rows", "near"])
+def test_table_replay_kernel_at_192_lanes_an_image(cuda_device, kind):
+    """K9 against replay_plain on seeded planes of 2 images x 192 lanes
+    (the th-4 corpus's lanes an image), 16 columns a launch, 40 contexts an
+    image against a cap of 24, so that halvings leave contexts past it,
+    errors of both signs."""
+    rng = np.random.default_rng(("segments", "rows", "near").index(kind))
+    n_imgs, lpi, w, ws = 2, 192, 64, 16
+    lanes = n_imgs * lpi
+    con = table_replay.Contract(lpi, w, 24, 3, 4, 60)
+    tb = table_replay.new_tables(n_imgs, con, cuda_device)
+    want = table_replay.Tables(*(t.clone() for t in tb))
+    img = torch.arange(lanes) // lpi
+    for row in range(3):
+        idx = img * 3072 + torch.from_numpy(rng.integers(0, 40, (w, lanes))) * 73
+        dx = torch.from_numpy(rng.integers(-255, 256, (w, lanes)))
+        key = torch.from_numpy(rng.integers(0, 512, (w, lanes)))
+        y = torch.from_numpy(np.where(rng.random((w, lanes)) < 0.7,
+                                      rng.integers(0, 5, (w, lanes)),
+                                      rng.integers(0, 60, (w, lanes))))
+        planes = tuple(p.to(cuda_device) for p in (idx, dx, key, y))
+        if kind == "near":
+            planes = (*planes[:2], None, None)
+        walk = table_replay.prepare(tb, planes, con)
+        spans = {"segments": [((c, c + ws), (c, c + ws)) for c in range(0, w, ws)],
+                 "rows": [((0, w), (0, w))], "near": [(None, (0, w))]}[kind]
+        for map_cols, bias_cols in spans:
+            before = table_replay.launch.launches
+            table_replay.launch(walk, map_cols, bias_cols)
+            assert table_replay.launch.launches == before + 1
+            table_replay.replay_plain(want, planes, con, map_cols, bias_cols)
+            for name, got, ref in zip(table_replay.Tables._fields, tb, want):
+                assert torch.equal(got, ref), f"{name}, row {row}, columns {map_cols}"
+    assert int(tb.bmark.count_nonzero()) > 0  # entries stayed past the cap
+
+
+@pytest.mark.cuda
+def test_table_replay_kernel_refuses_what_it_cannot_run(cuda_device):
+    con = table_replay.Contract(2, 8, 4, 0, 4, 9)
+    tb = table_replay.new_tables(1, con, cuda_device)
+    planes = [torch.zeros((8, 2), dtype=torch.int64, device=cuda_device) for _ in range(4)]
+    walk = table_replay.prepare(tb, planes, con)
+    for map_cols, bias_cols in (((0, 9), None), (None, (4, 4)), ((-1, 8), (2, 8))):
+        with pytest.raises(RuntimeError, match="nbt_p3_table_replay"):
+            table_replay.launch(walk, map_cols, bias_cols)
+    with pytest.raises(RuntimeError, match="nbt_p3_table_replay"):  # neither replay
+        table_replay.launch(walk)
+    with pytest.raises(ValueError, match="CUDA"):
+        table_replay.prepare(tb, [p.cpu() for p in planes], con)
+    with pytest.raises(ValueError, match="contiguous"):
+        table_replay.prepare(tb._replace(mhist=tb.mhist.transpose(1, 2).contiguous().transpose(
+            1, 2)), planes, con)
 
 
 # K5's warp chain alone (ops/near_walk.py::solve_systems) against

@@ -6,9 +6,11 @@ plain walk against nblic_tpu on images at the chains' extremes.
 kernel itself runs only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).  Here the card path's loop (``_decode_walk_card``: its
 launches, K4's layout, the bias and mapper replays between launches) runs
-on the CPU with each launch emulated by the plain walk's per-pixel
-functions, on containers of the port's encoder under every contract the
-parser accepts, and is held equal to the plain walk.  Tolerance 0.
+on the CPU with each K4 launch emulated by the plain walk's per-pixel
+functions and each K9 launch (the replay, ``ops/table_replay.py``) by its
+plain version, the wrappers' checks of shapes and dtypes run for real,
+on containers of the port's encoder under every contract the parser
+accepts, and is held equal to the plain walk.  Tolerance 0.
 """
 
 import numpy as np
@@ -18,11 +20,13 @@ import torch
 from nblic_tpu.models import strips as j_strips
 from nblic_tpu_torch.constants import MAX_VAL, Q_N_CONTEXT
 from nblic_tpu_torch.models import strips
-from nblic_tpu_torch.ops import coder3, decode_walk, pavp, rans_bin, zcodec3
+from nblic_tpu_torch import kernels
+from nblic_tpu_torch.ops import coder3, decode_walk, pavp, rans_bin, table_replay, zcodec3
 from nblic_tpu_torch.ops.context import residual_unfold
 from nblic_tpu_torch.ops.window import row_start_window, slide_window
 from nblic_tpu_torch.utils.synth import edge_images, synth_image
 from test_torch_p3_fixtures import load_fixture
+from test_torch_p3_table_replay import cpu_check_tensors, emulated_launch
 
 torch.set_num_threads(1)
 
@@ -34,7 +38,7 @@ def _oracle_untuned():
     assert j_strips.TUNE == j_strips.TUNE_V4 and j_strips.AVP_N == 10
 
 
-def _emulated_launch_segment(st, bias, order, prev1, prev2, i, c0, c1, con):
+def _emulated_launch_segment(st, bias, order, prev1, prev2, i, c0, c1, con, checked=False):
     """What one K4 launch computes, on CPU tensors in the kernel's layout
     (B and F (L, W, m), the mix chains (L, W, 2), E (L, m), the counters
     (L, cells)), from the plain walk's per-pixel functions, which take
@@ -202,16 +206,24 @@ def _launches_per_row(w, tune, adaptive):
 
 def _card_loop_equals_plain(monkeypatch, conts, rows=None):
     """The card path's loop, launches emulated, against the plain walk on
-    the walk's arguments of ``conts`` (``rows`` cuts the walk's rows)."""
+    the walk's arguments of ``conts`` (``rows`` cuts the walk's rows); K9
+    follows every K4 launch, and K4's check runs once a walk."""
     args, _ = strips._walk_args([strips._parse(c) for c in conts], torch.device("cpu"))
     if rows is not None:
         args = (args[0], args[1], min(rows, args[2]), *args[3:])
     words, bias, th, w, s, n_imgs, n_feat, near, tune = args
+    checks = []
+    check = decode_walk._check
+    monkeypatch.setattr(kernels, "check_tensors", cpu_check_tensors)
+    monkeypatch.setattr(decode_walk, "_check", lambda *a: checks.append(a[5:8]) or check(*a))
     monkeypatch.setattr(decode_walk, "launch_segment", _emulated_launch_segment)
-    before = _emulated_launch_segment.launches
+    monkeypatch.setattr(table_replay, "launch", emulated_launch)
+    before, before9 = _emulated_launch_segment.launches, emulated_launch.launches
     got = strips._decode_walk_card(*args)
-    assert _emulated_launch_segment.launches - before \
-        == th * _launches_per_row(w, tune, bias is None)
+    n_launches = th * _launches_per_row(w, tune, bias is None)
+    assert _emulated_launch_segment.launches - before == n_launches
+    assert emulated_launch.launches - before9 == n_launches
+    assert len(checks) == 1
     want = strips._decode_walk_plain(words.to(torch.int64), *args[1:])
     assert got.dtype == torch.uint8 and got.shape == (n_imgs * s, th, w)
     assert torch.equal(got, want)

@@ -5,9 +5,11 @@ path's row loop, and the plain walk on images at the chains' extremes.
 (``ops/near_walk.py``, ``csrc/p3_near_walk.cu``) for a CUDA tensor; the
 kernel itself runs only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).  Here the card path's row loop, layout and bias
-moments run on the CPU with each launch emulated by the plain per-pixel
-functions, and the plain walk is held to nblic_tpu on a checkerboard, a
-saturated ramp, a constant image and 1-pixel stripes.  Tolerance 0.
+moments run on the CPU with each K5 launch emulated by the plain per-pixel
+functions and each K9 launch (the bias's replay, ``ops/table_replay.py``)
+by its plain version, and the plain walk is held to nblic_tpu on a
+checkerboard, a saturated ramp, a constant image and 1-pixel stripes.
+Tolerance 0.
 """
 
 import numpy as np
@@ -17,10 +19,12 @@ import torch
 from nblic_tpu.models import strips as j_strips
 from nblic_tpu_torch.constants import MAX_VAL, Q_N_CONTEXT
 from nblic_tpu_torch.models import strips
-from nblic_tpu_torch.ops import near_walk, pavp
+from nblic_tpu_torch import kernels
+from nblic_tpu_torch.ops import near_walk, pavp, table_replay
 from nblic_tpu_torch.ops.context import residual_fold, residual_unfold
 from nblic_tpu_torch.ops.window import row_start_window, slide_window
 from nblic_tpu_torch.utils.synth import edge_images, synth_image
+from test_torch_p3_table_replay import cpu_check_tensors, emulated_launch
 
 torch.set_num_threads(1)
 
@@ -131,10 +135,13 @@ CARD_LOOP_CASES = {
 def test_card_row_loop_matches_the_plain_walk(monkeypatch, case, tune):
     lanes, n_imgs, th, w, near = CARD_LOOP_CASES[case]
     x = _strips(sum(CARD_LOOP_CASES[case]), lanes, th, w)
+    monkeypatch.setattr(kernels, "check_tensors", cpu_check_tensors)
     monkeypatch.setattr(near_walk, "launch_row", _emulated_launch_row)
-    before = _emulated_launch_row.launches
+    monkeypatch.setattr(table_replay, "launch", emulated_launch)
+    before, before9 = _emulated_launch_row.launches, emulated_launch.launches
     got = strips._near_walk_card(x, n_imgs, near, strips.AVP_N, TUNES[tune])
     assert _emulated_launch_row.launches == before + th  # one launch a row
+    assert emulated_launch.launches == before9 + th  # and the bias's replay after each
     want = strips._near_walk_plain(x, n_imgs, near, strips.AVP_N, TUNES[tune])
     for name, u, v in zip(("y", "qu", "qv", "qw", "key"), got, want):
         assert u.dtype == torch.int64 and u.is_contiguous() and torch.equal(u, v), name

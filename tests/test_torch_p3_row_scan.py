@@ -36,7 +36,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "nblic_tpu_torch" / "csrc"
-HEADERS = ("coder3.cuh", "row_scan.cuh")
+HEADERS = ("coder3.cuh", "image_tables.cuh", "row_scan.cuh")
 
 SHIM = r"""
 #include "row_scan.cuh"
