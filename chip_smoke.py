@@ -192,9 +192,23 @@ K2_NEAR_OPS = 3
 # pixel ring, the loop and the stores are the implementation's (the stores'
 # bytes are the bound's other term).  The statistics (<profile, true>) add
 # the subtraction x - px0.
-K7_OPS_PER_PIXEL = {1: 288, 2: 320}
+K7_OPS_PER_PIXEL = {1: 276, 2: 308}
 K7_STATS_OPS = 1
 K7_LANES = 32  # lanes a CTA: one warp
+# (The fold and the unfold are one function, near_fold: ty once, the
+# quotients by a multiply-high, ~24 ops where a fold of ~14 and an unfold
+# of ~22 stood: 12 fewer a pixel.)  K7's times in its earlier design (a
+# wrapper copying to and from a (th, tw, B, T) layout, three divisions a
+# pixel), as PERF.md §6 records them (NVIDIA H100 80GB HBM3, 700.00 W), by
+# (lanes, tile side, profile): the wrapper with the statistics; its launch
+# alone.
+K7_EARLIER = {
+    (1728, 64, 1): "wrapper 2.175-2.355 ms, launch alone 1.811-1.821 ms",
+    (1728, 64, 2): "wrapper 2.214-2.323 ms, launch alone 1.770-1.776 ms",
+    (96, 64, 1): "wrapper 1.867-2.061 ms, launch alone 1.815-1.829 ms",
+    (27648, 16, 1): "wrapper 0.560-0.619 ms, launch alone 0.170-0.182 ms",
+    (27648, 16, 2): "wrapper 0.546-0.726 ms, launch alone 0.182-0.206 ms",
+}
 # K5 per pixel of a lane of p3_near_row_kernel<10, mix>: arithmetic only,
 # as K7's tally (loads, stores, address and loop arithmetic, the swap of
 # pivot rows are the implementation's), a 64-bit add, shift or compare as
@@ -348,6 +362,18 @@ K3_CHAIN_OPS = 9
 # moments, loaded and stored) K9_ENTRY_CYCLES; a round of the rewrite's
 # (key, y) slots or contexts (a row of loads and the rank or the division)
 # K9_ENTRY_CYCLES too.
+# The adds are reductions whose result no one reads: a round of adds is
+# a thread's plane loads and its reduction's issue, K9_RED_CYCLES; the
+# lists a round of mark words' loads, K9_ENTRY_CYCLES; each listed entry's
+# sweep and rewrite a round of K9_ENTRY_CYCLES on its thread.  The earlier
+# design's floor (returned atomics, K9_ADD_CYCLES; the rewrite's rounds
+# over every (key, y) and context) is printed beside.  K9's times in that
+# design, as PERF.md §6 records them (NVIDIA H100 80GB HBM3, 700.00 W; on
+# the device, queued behind a sleep; two runs issued back to back), by
+# lanes an image.
+K9_RED_CYCLES = 600
+K9_EARLIER = {192: "37.60 us on the device, 38.38 / 37.19 us issued back to back",
+              1: "8.89 us on the device, 14.22 / 10.97 us issued back to back"}
 K9_MAP_OPS = (60, 6)
 K9_BIAS_OPS = (4, 8)
 K9_QUANT_OPS = 35
@@ -601,16 +627,25 @@ def _k7_case(what, x, bias, wcols, profile, card, plain=None):
     same_ys = len(k_ys) == 2 and all(torch.equal(u, v) for u, v in zip(k_ys, plain))
     err = max(int((u - v).abs().max()) for u, v in zip([*k, *k_ys], [*plain, *plain]))
     ms = _cuda_ms(lambda: near_scan.encode_scan(*args), 5)
-    xs = x.permute(2, 3, 0, 1).contiguous()
+    xs = x.to(torch.int32).contiguous()  # what the wrapper hands the kernel: x itself
     outs = [torch.empty_like(xs) for _ in range(5)]
     launch_ms = _cuda_ms(lambda: near_scan.launch(xs, bias, wcols, NEAR, profile, outs), 5)
+    # on the device alone, queued behind a sleep: the wrapper's device work
+    # against the launch's, without the host's issue of either
+    dev_ms = _queued_ms(lambda: near_scan.encode_scan(*args), 5, 5)
+    dev_launch_ms = _queued_ms(lambda: near_scan.launch(xs, bias, wcols, NEAR, profile, outs),
+                               5, 5)
     bound, floor = _scan_bound(x, bias, wcols, profile, stats), _scan_floor(x, profile, stats)
     beside = f"plain {pms:.3f} ms" if pms is not None else "plain: the batch's run"
+    earlier = K7_EARLIER.get((x.shape[0] * x.shape[1], t, profile), "not recorded")
     print(f"[K7 near_scan p{profile}] {what}: {x.shape[0] * x.shape[1]} lanes, "
           f"{x.shape[2] * t} steps, near {NEAR}, exact on 5 planes with the statistics "
           f"{same}, on 2 without {same_ys} (max error {err}); kernel {ms:.3f} ms, its "
-          f"launch alone {launch_ms:.3f} ms | {beside} | bound {bound[0]:.4f} ms "
-          f"({bound[1]}) | floor {floor:.4f} ms ({card})", flush=True)
+          f"launch alone {launch_ms:.3f} ms (the wrapper {ms / launch_ms - 1:+.1%} over it; "
+          f"on the device, queued behind a sleep: the wrapper {dev_ms:.3f} ms, the launch "
+          f"{dev_launch_ms:.3f} ms, {dev_ms / dev_launch_ms - 1:+.1%}) | "
+          f"earlier (the copying wrapper's design, PERF.md §6): {earlier} | {beside} | bound "
+          f"{bound[0]:.4f} ms ({bound[1]}) | floor {floor:.4f} ms ({card})", flush=True)
     return (err, ms, pms, bound) if same and same_ys else None, plain
 
 
@@ -1648,11 +1683,13 @@ def _p3_near_phase(tiled, corpus, dev, card, cpu_job):
 
 
 def _k9_work(kept) -> tuple:
-    """(bytes, operations, floor ms) of one K9 launch on ``kept`` (the
-    tables it found, its planes, contract and columns), counted from this
-    launch's data: each plane value of its columns read once, each entry
-    it changes written once (a touched or halved context's moments and its
-    int16 value, a touched key's counts and a changed key's order row)."""
+    """((bytes, operations) bound, floor ms, the earlier design's floor ms) of one K9
+    launch on ``kept`` (the tables it found, its planes, contract and
+    columns), counted from this launch's data: each plane value of its
+    columns read once, each entry it changes written once (a touched or
+    halved context's moments and its int16 value, a touched key's counts
+    and a changed key's order row); the floors the launch's dependent path
+    on this design's CTAs of K9_THREADS threads and on the earlier one's."""
     import torch
 
     from nblic_tpu_torch.ops import coder3
@@ -1666,6 +1703,7 @@ def _k9_work(kept) -> tuple:
 
     n_bytes = n_ops = 0
     per_image = rounds = 0
+    entries = 0  # rounds of the entries the sweep visits
     if bias_cols is not None:
         cols = slice(*bias_cols)
         px = idx[cols].numel()
@@ -1678,6 +1716,7 @@ def _k9_work(kept) -> tuple:
         n_ops += K9_BIAS_OPS[1] * px + K9_BIAS_OPS[0] * n_halved + K9_QUANT_OPS * n_ctx
         per_image = max(per_image, px // n_imgs)
         rounds += -(-n_ctx // (n_imgs * K9_THREADS))
+        entries += -(-n_ctx // (n_imgs * K9_THREADS))
     if map_cols is not None:
         cols = slice(*map_cols)
         px = key[cols].numel()
@@ -1693,10 +1732,13 @@ def _k9_work(kept) -> tuple:
             + K9_RANK_OPS * n_keys
         per_image = max(per_image, px // n_imgs)
         rounds += -(-n_keys * coder3.N_MAP // (n_imgs * K9_THREADS))
+        entries += -(-n_keys // (n_imgs * K9_THREADS))
     bound = _bound(n_bytes, n_ops)
-    cycles = (3 * K9_BARRIER_CYCLES + -(-per_image // K9_THREADS) * K9_ADD_CYCLES
+    cycles = (3 * K9_BARRIER_CYCLES + -(-per_image // K9_THREADS) * K9_RED_CYCLES
+              + K9_ENTRY_CYCLES * (1 + entries))
+    before = (3 * K9_BARRIER_CYCLES + -(-per_image // K9_THREADS) * K9_ADD_CYCLES
               + K9_ENTRY_CYCLES * (1 + rounds))
-    return bound, max(bound[0], 1e3 * cycles / CLOCK_HZ)
+    return bound, max(bound[0], 1e3 * cycles / CLOCK_HZ), max(bound[0], 1e3 * before / CLOCK_HZ)
 
 
 def _k9_case(what, args, card, runs: int = 50, reps: int = 5):
@@ -1748,7 +1790,7 @@ def _k9_case(what, args, card, runs: int = 50, reps: int = 5):
     plain = table_replay.Tables(*(t.clone() for t in tb0))
     pms = _queued_ms(lambda: table_replay.replay_plain(plain, planes, con, map_cols, bias_cols),
                      reps, 5)
-    bound, floor = _k9_work(kept[0])
+    bound, floor, floor18 = _k9_work(kept[0])
     err = max(errs)
     lanes = planes[0].shape[1]
     print(f"[K9 p3_table_replay] {what}: {len(errs)} launches each held to replay_plain on the "
@@ -1756,11 +1798,13 @@ def _k9_case(what, args, card, runs: int = 50, reps: int = 5):
           f"checks); its middle launch ({n_imgs} images x {lanes // n_imgs} lanes, mapper "
           f"columns {map_cols}, bias columns {bias_cols}): K9 {1e3 * ms:.2f} us on the device "
           f"(median of {reps} runs of {runs} launches queued behind a sleep; "
-          f"{1e3 * issued:.2f} us a launch issued back to back from the host) | plain "
+          f"{1e3 * issued:.2f} us a launch issued back to back from the host) | earlier "
+          f"(the returned-atomics design, PERF.md §6): "
+          f"{K9_EARLIER.get(lanes // n_imgs, 'not recorded')} | plain "
           f"{1e3 * pms:.1f} us ({pms / ms:.0f}x; 5 calls a run, queued alike) | "
           f"bound {1e3 * bound[0]:.3f} us ({bound[1]}) | floor {1e3 * floor:.2f} us (the "
-          f"launch's dependent path on its {K9_THREADS}-thread CTAs) | library none "
-          f"({card})", flush=True)
+          f"launch's dependent path on its {K9_THREADS}-thread CTAs; the earlier design "
+          f"{1e3 * floor18:.2f} us) | library none ({card})", flush=True)
     return (err if err == 0 else None), ms, pms, bound
 
 
@@ -2492,7 +2536,7 @@ def main() -> int:
           f"{lib.nbt_group_decode_ring_words(128)} words at g=128, shared memory "
           f"{lib.nbt_group_decode_smem(64, 128)} B a CTA at 64x64 tiles, "
           f"{lib.nbt_group_decode_smem(16, 128)} B at 16x16 (K2' the same) | K7: "
-          f"{lib.nbt_near_scan_smem(64)} B a CTA of {K7_LANES} lanes at 64x64 | K1: "
+          f"{lib.nbt_near_scan_smem(64, 8)} B a CTA of {K7_LANES} lanes at 64x64 | K1: "
           f"{lib.nbt_rans_fold_smem()} B a block | K8: {lib.nbt_p3_row_scan_smem()} B a CTA "
           f"(an image's bias moments and mapper)", flush=True)
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Probes of kernels K1, K2, K5 and K7, and of near-lossless encode, on one NVIDIA GPU.
+"""Probes of the port's kernels (K1-K9) and of its encodes, on one NVIDIA GPU.
 
     python3 kernel_probe.py [--parent PATH] PROBE [PROBE ...]
 
@@ -116,6 +116,30 @@ PROBE is one of:
              split of a step into division, slot work and the ring.  A copy
              of this file beside an older checkout splits that checkout's
              kernels.
+  near-scan-phases  kernel K7 (csrc/near_scan.cu) of the package beside
+             this file at chip_smoke.py's shapes (the 18 landscape images
+             of a synthetic corpus at near 2, their effort-1 containers'
+             bias tables; 1,728 lanes of 64x64 and 27,648 of 16x16, profiles
+             1 and 2 with the statistics): its wrapper and its launch alone
+             (two rounds in opposite orders), then a build whose chain reads
+             clock64() on every thread once each part's value is ready,
+             summed by part on each CTA's first lane (the ring wait; the
+             activity, prediction and context address; the bias read; the
+             fold and unfold; the stores and the slide), in cycles a pixel
+             step, held exact to the package's kernel.
+  replay-phases  kernel K9 (csrc/p3_table_replay.cu) of the package beside
+             this file on the middle launch of two decode walks, as
+             chip_smoke.py times them (a synthetic corpus at strip height 4,
+             24 images x 192 lanes, and its first image at 768, one lane,
+             4 rows): the package's kernel in turns beside copies with one
+             phase cut (wrong output on purpose: the zeroing, the adds, the
+             sweeps or the lists, the rewrite or the listed entries' sweep
+             and rewrite) and copies at 32 and 128 threads a CTA (held
+             exact), each on the device behind a sleep; then builds whose
+             barriers read clock64() on each CTA's first thread, the cycles
+             of each phase at each team, held exact to the package's.  A
+             copy of this file beside an older checkout (`git archive` into
+             build/) measures that checkout's K7 and K9.
   interop    the interop engines (plain PyTorch, one lane) on the card: the
              Q0.2 encode of a synthetic 768x512 image and of a flat one (every
              pixel one context: the context chain's longest walk) with the
@@ -141,6 +165,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import inspect
 import io
 import re
 import shutil
@@ -160,6 +185,7 @@ from nblic_tpu_torch.ops import decode, fold, near_scan, rans
 from nblic_tpu_torch.utils.synth import synth_image
 
 PROBE_DIR = kernels.BUILD_DIR.parent / "probe"
+CLOCK_HZ = 1.98e9  # the boost clock (Hopper white paper): cycles to time
 K2_SRC = kernels.CSRC / "group_decode.cu"
 K1_SRC = kernels.CSRC / "rans_fold.cu"
 WALK_SRCS = {"k5": kernels.CSRC / "p3_near_walk.cu", "k4": kernels.CSRC / "p3_decode_walk.cu"}
@@ -286,6 +312,163 @@ K3_CUTS = {
         ("coder3.cuh", "  if (!((slot >> 17) & 1u)) return word;\n", "  return word;\n"),
     ],
 }
+# K7 (near_scan.cu) with its chain stamped: clock64() read on every thread
+# once the value a part ends with is ready (a predicate on it guards the
+# read, so the read waits for it), the cycles summed by part, and each
+# CTA's first thread writing its sums out.  Parts: 0 the ring wait (the
+# pixel's copy and the next request), 1 the activity, prediction and
+# context address, 2 the bias read, 3 the fold and the unfold, 4 the
+# stores and the slide.  Each stamp is (old, new) alternatives; the first
+# whose old text occurs once in the source is taken.
+SCAN_STAMP_PRELUDE = r"""
+__device__ unsigned long long nbt_probe_scan[6 * 65536];
+__device__ __forceinline__ long long nbt_stamp(int v) {
+  long long t;
+  asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.s32 p, %1, -2147483647;\n\t"
+               "@p mov.u64 %0, %%clock64;\n\t@!p mov.u64 %0, 0;\n\t}"
+               : "=l"(t) : "r"(v) : "memory");
+  return t;
+}
+#define NBT_STAMP(k, v)                     \
+  {                                         \
+    const long long now_ = nbt_stamp(v);    \
+    nbt_acc[k] += now_ - nbt_last;          \
+    nbt_last = now_;                        \
+  }
+extern "C" int nbt_probe_read(void* dst, int n_ctas) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, nbt_probe_scan,
+                                               6 * sizeof(unsigned long long) * n_ctas));
+}
+"""
+SCAN_STAMP_INIT = ("  unsigned long long nbt_acc[5] = {0, 0, 0, 0, 0};\n"
+                   "  long long nbt_last = nbt_stamp(0);\n")
+SCAN_STAMP_WRITE = ("  if (threadIdx.x == 0 && blockIdx.x < 65536) {\n"
+                    "    for (int k = 0; k < 5; ++k)\n"
+                    "      nbt_probe_scan[6 * blockIdx.x + k] = nbt_acc[k];\n"
+                    "    nbt_probe_scan[6 * blockIdx.x + 5] = n_px;\n  }\n")
+SCAN_STAMPS_AT = [
+    [('#include "pixel_chain.cuh"\n', '#include "pixel_chain.cuh"\n' + SCAN_STAMP_PRELUDE)],
+    [("  long long p = 0;  // pixel index, raster order\n",
+      SCAN_STAMP_INIT + "  long long p = 0;  // pixel index, raster order\n")],
+    [("      const int adr = context_adr(v, px0, qd);\n",
+      "      const int adr = context_adr(v, px0, qd);\n      NBT_STAMP(1, adr)\n"),
+     ("  const int adr = context_adr(v, px0, qd);\n",
+      "  const int adr = context_adr(v, px0, qd);\n  NBT_STAMP(1, adr)\n")],
+    [("      const int px = clampi(px0 + (bval >> 4) + sign, 0, 255);\n",
+      "      const int px = clampi(px0 + (bval >> 4) + sign, 0, 255);\n      NBT_STAMP(2, px)\n"),
+     ("  const int px = clampi(px0 + (bval >> 4) + sign, 0, 255);\n",
+      "  const int px = clampi(px0 + (bval >> 4) + sign, 0, 255);\n  NBT_STAMP(2, px)\n")],
+    [("      const int y = fold(x, px, sign, near);\n",
+      "      NBT_STAMP(0, x)\n      const int y = fold(x, px, sign, near);\n"),
+     ("        const int xv[kG] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};\n",
+      "        const int xv[kG] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};\n"
+      "        NBT_STAMP(0, xv[0] ^ xv[7])\n"),
+     ("        const int x = ring[p % C::kRingChunks];\n",
+      "        const int x = ring[p % C::kRingChunks];\n        NBT_STAMP(0, x)\n")],
+    # where the chain is a function of its own (near_pixel), the sums ride
+    # in by reference
+    [("", ""),
+     ("__device__ __forceinline__ PixelOut near_pixel(Window& v, int& err,",
+      "__device__ __forceinline__ PixelOut near_pixel(unsigned long long (&nbt_acc)[5], "
+      "long long& nbt_last, Window& v, int& err,")],
+    [("", ""),
+     ("near_pixel<kProfile>(v, err,", "near_pixel<kProfile>(nbt_acc, nbt_last, v, err,", "all")],
+    [("      err = x_rec - px0;\n", "      err = x_rec - px0;\n      NBT_STAMP(3, err)\n"),
+     ("  err = f.x_rec - px0;\n", "  err = f.x_rec - px0;\n  NBT_STAMP(3, err)\n")],
+    [("      slide(v, x_rec, i, j, tw, up1, up2);\n",
+      "      slide(v, x_rec, i, j, tw, up1, up2);\n      NBT_STAMP(4, v.d ^ v.r)\n"),
+     ("  slide(v, f.x_rec, i, j, tw, up1, up2);\n",
+      "  slide(v, f.x_rec, i, j, tw, up1, up2);\n  NBT_STAMP(4, v.d ^ v.r)\n")],
+    [("  cp_async_wait<0>();\n}\n", "  cp_async_wait<0>();\n" + SCAN_STAMP_WRITE + "}\n")],
+]
+SCAN_PARTS = ("ring wait", "activity, prediction, address", "bias read", "fold and unfold",
+              "stores and slide")
+# K9 (p3_table_replay.cu over image_tables.cuh) with one phase cut (wrong
+# output on purpose): (file, old, new) alternatives, the first whose old
+# text occurs once in its source taken; a cut none of whose alternatives
+# matches the sources (a phase of the other design) is not built.  "no
+# zeroing" leaves the touched bits as the shared memory holds them, so
+# the rest visits what they say (the design with marked sweeps: the adds,
+# the sweeps, the rewrite; the design with lists: the adds, the lists,
+# each listed entry's sweep and rewrite).  And K9 stamped: its CTA's
+# barriers read clock64() on the first thread, the cycles from the
+# kernel's start to each barrier and to its end kept by phase.
+REPLAY_STAMP = ("  mutable long long last = 0;\n  mutable int calls = 0;\n"
+                "  __device__ __forceinline__ void stamp() const {\n"
+                "    if (threadIdx.x != 0) return;\n    const long long now = clock64();\n"
+                "    if (calls > 0 && calls <= 4 && blockIdx.x < 4096)\n"
+                "      nbt_probe_replay[4 * blockIdx.x + calls - 1] = now - last;\n"
+                "    last = now;\n    ++calls;\n  }\n")
+REPLAY_STAMP_READ = ("__device__ long long nbt_probe_replay[4 * 4096];\n"
+                     "extern \"C\" int nbt_probe_read(void* dst, int n_ctas) {\n"
+                     "  return static_cast<int>(cudaMemcpyFromSymbol(dst, nbt_probe_replay,\n"
+                     "      4 * sizeof(long long) * n_ctas));\n"
+                     "}\n")
+REPLAY_CUTS = {
+    "no zeroing": [
+        ("image_tables.cuh",
+         "  team.threads([&](int t, int n) {\n"
+         "    for (int g = t; g < kBiasWords; g += n) tb.btouch[g] = 0;\n"
+         "    for (int g = t; g < kMapWords; g += n) tb.mtouch[g] = 0;\n  });\n  team.sync();\n",
+         ""),
+        ("image_tables.cuh",
+         "  for (int g = t; g < kBiasWords; g += n) sh.btouch[g] = 0;\n"
+         "  for (int g = t; g < kMapWords; g += n) sh.mtouch[g] = 0;\n", ""),
+    ],
+    "no adds": [
+        ("image_tables.cuh",
+         "  team.threads([&](int t, int n) { replay_adds(c, p, tb, img, s, t, n, team.at); });\n",
+         ""),
+        ("image_tables.cuh",
+         "  team.threads([&](int t, int n) { "
+         "replay_reds(c, p, tb, sh, img, s, t, n, team.at); });\n",
+         ""),
+    ],
+    "no lists": [
+        ("image_tables.cuh",
+         "  team.threads([&](int t, int n) { replay_lists(sh, s, t, n, team.at); });\n", ""),
+    ],
+    "no sweeps": [
+        ("image_tables.cuh",
+         "  team.threads([&](int t, int n) { replay_sweeps(c, tb, s, t, n); });\n", ""),
+    ],
+    "no rewrite": [
+        ("image_tables.cuh",
+         "  team.threads([&](int t, int n) { replay_rewrite(c, tb, s, t, n); });\n", ""),
+        ("image_tables.cuh",
+         "  team.threads([&](int t, int n) { replay_entries(c, tb, sh, s, t, n, team.at); });\n",
+         ""),
+    ],
+}
+REPLAY_STAMPS = [
+    [("  __device__ __forceinline__ void sync() const { __syncthreads(); }\n",
+      REPLAY_STAMP + "  __device__ __forceinline__ void sync() const {\n    __syncthreads();\n"
+      "    stamp();\n  }\n"),
+     ("  __device__ __forceinline__ void sync() const {\n    if constexpr (kThreads == 32)\n"
+      "      __syncwarp();\n    else\n      __syncthreads();\n  }\n",
+      REPLAY_STAMP + "  __device__ __forceinline__ void sync() const {\n"
+      "    if constexpr (kThreads == 32)\n      __syncwarp();\n    else\n"
+      "      __syncthreads();\n    stamp();\n  }\n")],
+    [("  replay_image(c, p, tb, img, s, BlockTeam{});\n",
+      "  const BlockTeam team{};\n  team.stamp();\n  replay_image(c, p, tb, img, s, team);\n"
+      "  __syncthreads();\n  team.stamp();\n"),
+     ("  replay_launch(c, p, tb, sh, img, s, BlockTeam{});\n",
+      "  const BlockTeam team{};\n  team.stamp();\n  replay_launch(c, p, tb, sh, img, s, team);\n"
+      "  __syncthreads();\n  team.stamp();\n"),
+     ("  replay_launch(c, p, tb, sh, img, s, BlockTeam<kThreads>{});\n",
+      "  const BlockTeam<kThreads> team{};\n  team.stamp();\n"
+      "  replay_launch(c, p, tb, sh, img, s, team);\n  team.sync();\n")],
+    [("namespace {\n\nconstexpr int kThreads",
+      REPLAY_STAMP_READ + "namespace {\n\nconstexpr int kThreads"),
+     ("namespace {\n\n// The CTA as replay_launch's team",
+      REPLAY_STAMP_READ + "namespace {\n\n// The CTA as replay_launch's team")],
+]
+# K9 with another team a CTA (each exact): its threads-a-CTA line
+REPLAY_TEAM_LINE = "constexpr int kThreads = 512;  // threads a CTA (an image)"
+REPLAY_TEAMS = (32, 128)
+# the phases between the stamps, by design (its phase function's name)
+REPLAY_PHASES = {"replay_image": ("zeroing", "adds", "sweeps", "rewrite"),
+                 "replay_launch": ("clearing", "adds", "lists", "sweep and rewrite")}
 SLOT_LINE = "constexpr int kSlotBits = 12;"
 BLOCK_LINE = "constexpr int kBlock = 128;"
 
@@ -1067,6 +1250,241 @@ def p3_scan_phases(libs: dict, card: str) -> bool:
     return ok
 
 
+def _stamped(source: Path, name: str, stamps) -> tuple[str, str]:
+    """(name, text): ``source`` with each stamp of ``stamps`` (a list of
+    (old, new) alternatives each, the first whose old text occurs once
+    taken) applied."""
+    text = source.read_text()
+    for alternatives in stamps:
+        # ("", "") matches nothing and changes nothing: a stamp only one
+        # design needs; a third element "all" replaces every occurrence
+        matching = [a for a in alternatives
+                    if a[0] and (text.count(a[0]) == 1 or (a[2:] == ("all",) and a[0] in text))]
+        if matching:
+            text = text.replace(*matching[0][:2])
+        elif ("", "") not in alternatives:
+            raise ValueError(f"{name}: none of {[a[0] for a in alternatives]!r} occurs once "
+                             f"in {source}")
+    return name, text
+
+
+def _scan_layout(x):
+    """x as the package's K7 launch takes it: the tiles' own (B, T, th, tw)
+    layout, or (th, tw, B, T) where its wrapper permutes (the earlier one)."""
+    if "permute" in inspect.getsource(near_scan.encode_scan):
+        return x.permute(2, 3, 0, 1).contiguous()
+    return x
+
+
+def _k7_cases(dev) -> dict:
+    """K7's inputs as chip_smoke.py times them: the 18 landscape images of
+    a synthetic corpus at near 2 with the bias tables of their effort-1
+    containers, at 64x64 and 16x16 tiles, at profile 1 and at profile 2
+    (each tile's fitted weights, flags cycling 0/1/2)."""
+    from nblic_tpu_torch.ops import lsq
+
+    rng = np.random.default_rng(0)
+    imgs = [synth_image(rng, 512, 768) for _ in range(18)]
+    conts = tiled.encode_batch(imgs, near=2, device=dev)
+    bias = torch.from_numpy(np.stack([tiled._Parsed(c).bias for c in conts])).to(dev)
+    bias = bias.to(torch.int32)
+    stack = torch.from_numpy(np.stack(imgs)).to(dev)
+    cases = {}
+    for t in (64, 16):
+        x = tiled.to_tiles(stack, t, t).to(torch.int32).contiguous()
+        b, n = x.shape[:2]
+        w_q, _ = lsq.fit_tile_weights(x.reshape(b * n, t, t))
+        flags = torch.arange(b * n, dtype=torch.int32, device=dev).view(b, n) % 3
+        wcols = tiled._lane_wcols(w_q.view(b, n, lsq.N_FEAT), flags)
+        for profile in (1, 2):
+            cases[f"{b * n} lanes of {t}x{t}, p{profile}"] = (
+                x, bias, wcols if profile == 2 else None, profile)
+    return cases
+
+
+def near_scan_phases(libs: dict, card: str) -> bool:
+    """K7 of the package beside this file: its wrapper (with the
+    statistics), its launch alone, and its stamped build (``libs["k7"]``),
+    whose chain parts' cycles a pixel step the CTAs' first threads sum;
+    every stamped launch held exact to the package's."""
+    dev = torch.device("cuda")
+    base, saved = kernels.library(), kernels.library
+    lib = ctypes.CDLL(str(libs["k7"]))
+    lib.nbt_near_scan.argtypes = base.nbt_near_scan.argtypes
+    lib.nbt_near_scan.restype = ctypes.c_int
+    lib.nbt_probe_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    stamped = _SwappedLib(base, nbt_near_scan=lib.nbt_near_scan)
+    ok = True
+    try:
+        for name, (x, bias, wcols, profile) in _k7_cases(dev).items():
+            t = x.shape[-1]
+            args = (x, bias, wcols, t, t, 2, profile, True)
+            xs = _scan_layout(x)
+            outs = [torch.empty_like(xs) for _ in range(5)]
+            runs = {"wrapper": lambda: near_scan.encode_scan(*args),
+                    "launch": lambda: near_scan.launch(xs, bias, wcols, 2, profile, outs)}
+            kernels.library = lambda: base
+            want = runs["wrapper"]()
+            times = _rounds(runs)
+            kernels.library = lambda: stamped
+            got = runs["wrapper"]()
+            stamped_ms = _ms(runs["launch"], reps=5)
+            torch.cuda.synchronize()
+            acc = np.zeros((65536, 6), dtype=np.uint64)
+            _checked(lib.nbt_probe_read(acc.ctypes.data, 65536), "nbt_probe_read")
+            same = all(torch.equal(u, v) for u, v in zip(got, want))
+            ok &= same
+            rows = acc[acc[:, 5] > 0].astype(np.float64)
+            per = rows[:, :5].sum(0) / rows[:, 5].sum()
+            print(f"[near-scan-phases] K7 {name}, near 2, {t * t} steps, {len(rows)} CTAs: "
+                  f"wrapper {' / '.join(f'{v:.3f}' for v in times['wrapper'])} ms, launch "
+                  f"alone {' / '.join(f'{v:.3f}' for v in times['launch'])} ms (two rounds), "
+                  f"stamped launch {stamped_ms:.3f} ms, exact against the package's {same}; "
+                  f"cycles a pixel step on a CTA's first lane, stamped: "
+                  + ", ".join(f"{part} {v:.1f} ({100 * v / per.sum():.1f}%)"
+                              for part, v in zip(SCAN_PARTS, per))
+                  + f"; total {per.sum():.1f} (the launch alone "
+                  f"{1e-3 * min(times['launch']) * CLOCK_HZ / (t * t):.1f} a step at "
+                  f"{CLOCK_HZ / 1e9:.2f} GHz) ({card})", flush=True)
+    finally:
+        kernels.library = saved
+    return ok
+
+
+def _k9_inputs(dev) -> dict:
+    """K9's middle launch of two decode walks as chip_smoke.py times them,
+    captured on the package's own walk: {name: (tables it found, planes,
+    contract, map_cols, bias_cols)}: a synthetic corpus (18 512x768 and 6
+    768x512 images) at strip height 4 (24 images x 192 lanes, 16-column
+    segments) and its first image at strip height 768 (one lane), that
+    walk cut to its first 4 rows."""
+    from nblic_tpu_torch.models import strips
+    from nblic_tpu_torch.ops import table_replay
+
+    rng = np.random.default_rng(0)
+    corpus = [synth_image(rng, 512, 768) for _ in range(18)]
+    corpus += [synth_image(rng, 768, 512) for _ in range(6)]
+    out = {}
+    for name, imgs, th, rows in (("the th-4 corpus", corpus, 4, None),
+                                 ("one image at th 768, 4 rows", corpus[:1], 768, 4)):
+        conts = strips.encode_batch(imgs, th=th, device=dev)
+        args = strips._walk_args([strips._parse(c) for c in conts], dev)[0]
+        if rows is not None:
+            args = (args[0], args[1], rows, *args[3:])
+        launch, seen = table_replay.launch, []
+
+        def capture(walk, map_cols=None, bias_cols=None):
+            seen.append((table_replay.Tables(*(t.clone() for t in walk.tables)),
+                         tuple(None if v is None else v.clone() for v in walk.planes),
+                         walk.con, map_cols, bias_cols))
+            launch(walk, map_cols, bias_cols)
+
+        capture.launches = 0
+        table_replay.launch = capture
+        try:
+            strips._decode_walk(*args)
+            torch.cuda.synchronize()
+        finally:
+            table_replay.launch = launch
+        out[name] = seen[len(seen) // 2]
+    return out
+
+
+def _queued_ms(fn, reps: int = 5, runs: int = 50) -> float:
+    """Median device milliseconds of one of ``runs`` calls of ``fn``, the
+    calls queued behind a ~20 ms sleep kernel so that their issue on the
+    host hides behind it; ``reps`` runs."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(0.02 * CLOCK_HZ))
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / runs)
+    return float(np.median(times))
+
+
+def replay_phases(libs: dict, card: str) -> bool:
+    """K9 of the package beside this file on the middle launch of two
+    walks: the package's kernel and its copies with one phase cut
+    (``libs[cut]``, wrong output on purpose), each timed on the device
+    queued behind a sleep (50 successive launches on a copy of the tables
+    the launch found, median of 5 runs, two rounds in opposite orders),
+    and its copies at another team a CTA (``libs["team n"]``, exact against
+    the package's); then the stamped builds (``libs["stamped..."]``, at
+    each team), exact against the package's, their phases' cycles on each
+    CTA's first thread."""
+    from nblic_tpu_torch.ops import table_replay
+
+    dev = torch.device("cuda")
+    base, saved = kernels.library(), kernels.library
+    text = (kernels.CSRC / "image_tables.cuh").read_text()
+    phases = next(v for k, v in REPLAY_PHASES.items() if f"NBT_HD void {k}(" in text)
+    entries = {}
+    for tag, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        lib.nbt_p3_table_replay.argtypes = base.nbt_p3_table_replay.argtypes
+        lib.nbt_p3_table_replay.restype = ctypes.c_int
+        if tag.startswith("stamped"):
+            lib.nbt_probe_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        entries[tag] = (lib, _SwappedLib(base, nbt_p3_table_replay=lib.nbt_p3_table_replay))
+    ok = True
+    try:
+        for name, (tb0, planes, con, map_cols, bias_cols) in _k9_inputs(dev).items():
+            def fresh():
+                return table_replay.prepare(table_replay.Tables(*(t.clone() for t in tb0)),
+                                            planes, con)
+
+            kernels.library = lambda: base
+            want = fresh()
+            table_replay.launch(want, map_cols, bias_cols)
+            runs = {"package": base, **{tag: sw for tag, (_, sw) in entries.items()
+                                        if not tag.startswith("stamped")}}
+            times = {tag: [] for tag in runs}
+            for order in (list(runs), list(runs)[::-1]):
+                for tag in order:
+                    kernels.library = lambda lib=runs[tag]: lib
+                    work = fresh()
+                    times[tag].append(_queued_ms(
+                        lambda: table_replay.launch(work, map_cols, bias_cols)))
+            for tag in runs:  # another team computes what the package's does
+                if tag.startswith("team"):
+                    kernels.library = lambda lib=runs[tag]: lib
+                    check = fresh()
+                    table_replay.launch(check, map_cols, bias_cols)
+                    ok &= all(torch.equal(u, v) for u, v in zip(check.tables, want.tables))
+            n_imgs = planes[0].shape[1] // con.lanes_per_image
+            print(f"[replay-phases] K9 {name}'s middle launch ({n_imgs} images x "
+                  f"{con.lanes_per_image} lanes, mapper columns {map_cols}, bias columns "
+                  f"{bias_cols}): us on the device by round, "
+                  + "; ".join(f"{tag} {' / '.join(f'{1e3 * v:.2f}' for v in ts)}"
+                              for tag, ts in times.items()) + f" ({card})", flush=True)
+            for tag, (lib, sw) in entries.items():
+                if not tag.startswith("stamped"):
+                    continue
+                kernels.library = lambda sw=sw: sw
+                got = fresh()
+                table_replay.launch(got, map_cols, bias_cols)
+                torch.cuda.synchronize()
+                same = all(torch.equal(u, v) for u, v in zip(got.tables, want.tables))
+                ok &= same
+                acc = np.zeros((n_imgs, 4), dtype=np.int64)
+                _checked(lib.nbt_probe_read(acc.ctypes.data, n_imgs), "nbt_probe_read")
+                mean = acc.mean(0)
+                print(f"[replay-phases] K9 {name}, {tag} build: exact {same}, cycles on a "
+                      f"CTA's first thread, mean over CTAs: "
+                      + ", ".join(f"{ph} {v:.0f}" for ph, v in zip(phases, mean))
+                      + f" (total {mean.sum():.0f}, {1e6 * mean.sum() / CLOCK_HZ:.2f} us at "
+                      f"{CLOCK_HZ / 1e9:.2f} GHz) ({card})", flush=True)
+    finally:
+        kernels.library = saved
+    return ok
+
+
 def interop(card: str) -> bool:
     from chip_smoke import StageClock
     from nblic_tpu_torch import runtime
@@ -1145,6 +1563,7 @@ def main(argv=None) -> int:
                                                      "p3-corpus", "p3-decode",
                                                      "p3-near", "p3-walk", "p3-walk-bounds",
                                                      "p3-decode-feat", "p3-scan-phases",
+                                                     "near-scan-phases", "replay-phases",
                                                      "interop"))
     ap.add_argument("--parent", type=Path,
                     help="cut-chain: also cut this group_decode.cu of the parent design")
@@ -1241,6 +1660,32 @@ def main(argv=None) -> int:
             specs[("scan", ("k3", cut))] = (f"k3_{cut_dir.name}", (cut_dir / "bin_fold.cu")
                                             .read_text())
             cut_dirs[("scan", ("k3", cut))] = cut_dir
+    if "near-scan-phases" in args.probes:
+        specs[("k7-phases", "k7")] = _stamped(kernels.CSRC / "near_scan.cu", "k7_stamped",
+                                              SCAN_STAMPS_AT)
+    if "replay-phases" in args.probes:
+        k9_src = kernels.CSRC / "p3_table_replay.cu"
+        specs[("k9-phases", "stamped")] = _stamped(k9_src, "k9_stamped", REPLAY_STAMPS)
+        if REPLAY_TEAM_LINE in k9_src.read_text():
+            for n in REPLAY_TEAMS:
+                team = [[(REPLAY_TEAM_LINE, REPLAY_TEAM_LINE.replace("512", str(n)))]]
+                specs[("k9-phases", f"team {n}")] = _stamped(k9_src, f"k9_team_{n}", team)
+                specs[("k9-phases", f"stamped team {n}")] = _stamped(
+                    k9_src, f"k9_stamped_team_{n}", team + REPLAY_STAMPS)
+        for cut, alternatives in REPLAY_CUTS.items():
+            cut_dir = PROBE_DIR / ("k9_" + cut.replace(" ", "_"))
+            cut_dir.mkdir(parents=True, exist_ok=True)
+            matching = [a for a in alternatives
+                        if (kernels.CSRC / a[0]).read_text().count(a[1]) == 1]
+            if not matching:  # a phase of the other design
+                continue
+            header, old, new = matching[0]
+            for h in ("image_tables.cuh", "p3_table_replay.cu"):
+                text = (kernels.CSRC / h).read_text()
+                (cut_dir / h).write_text(text.replace(old, new) if h == header else text)
+            specs[("k9-phases", cut)] = (f"k9_{cut_dir.name}",
+                                         (cut_dir / "p3_table_replay.cu").read_text())
+            cut_dirs[("k9-phases", cut)] = cut_dir
     libs = {}
     if specs:
         def build(key):
@@ -1283,6 +1728,10 @@ def main(argv=None) -> int:
         ok &= p3_decode_feat(of("k4-feat"), card)
     if of("scan"):
         ok &= p3_scan_phases(of("scan"), card)
+    if of("k7-phases"):
+        ok &= near_scan_phases(of("k7-phases"), card)
+    if of("k9-phases"):
+        ok &= replay_phases(of("k9-phases"), card)
     walk_libs = {key: lib for key, lib in libs.items() if key[0] in WALK_SRCS}
     if walk_libs:
         ok &= p3_walk_bounds(walk_libs, card)

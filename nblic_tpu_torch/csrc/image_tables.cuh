@@ -11,10 +11,11 @@
 // (strips._bias_update), and the AutoMapper's history, 512 keys x 20 int64
 // counts (coder3.mapper_updates).  Each carries a bit an entry (its
 // marks), set on an entry past its threshold (a context's count past
-// bias_cap, a key's largest count past map_halve): by the add that takes
-// it past, or by the last sweep that left it past.  Counts only grow
-// between sweeps, so the marks are every entry a sweep halves: the plain
-// versions' halving of every entry visits only those.
+// bias_cap, a key's largest count past map_halve) by the last sweep that
+// left it past, and in K8 by the add that takes it past.  Counts only grow
+// between sweeps, so every entry a sweep halves is marked (K8) or marked
+// or touched by the adds since (K9, whose adds are reductions that return
+// nothing): the plain versions' halving of every entry visits only those.
 //
 // K9 also keeps what the decoder reads of them: the int16 table of the
 // quantized bias (context.quantize_bias) and the mapper's order z -> y
@@ -49,6 +50,20 @@ struct HostAtomics {
     return static_cast<long long>(pair[0]) + pair[1];
   }
   NBT_HD void set(uint32_t* w, uint32_t bits) const { *w |= bits; }
+  // K9's: a reduction whose result no one reads, a shared bit set, a mark
+  // bit written, a count taken from, and a load of what the reductions
+  // left
+  NBT_HD void red64(int64_t* p, int64_t v) const {
+    *p = static_cast<int64_t>(static_cast<uint64_t>(*p) + static_cast<uint64_t>(v));
+  }
+  NBT_HD void or_bits(uint32_t* w, uint32_t bits) const { *w |= bits; }
+  NBT_HD void put_bit(uint32_t* w, uint32_t bit, bool on) const { *w = on ? *w | bit : *w & ~bit; }
+  NBT_HD int take(int* count, int k) const {
+    const int old = *count;
+    *count += k;
+    return old;
+  }
+  NBT_HD int64_t load(const int64_t* p) const { return *p; }
 };
 
 #if defined(__CUDACC__)
@@ -68,6 +83,23 @@ struct DeviceAtomics {
   }
   __device__ __forceinline__ void set(uint32_t* w, uint32_t bits) const {
     if ((*w & bits) != bits) atomicOr(w, bits);
+  }
+  // an atomicAdd whose result is unused compiles to a reduction (RED): no
+  // round trip to L2 on the thread's path
+  __device__ __forceinline__ void red64(int64_t* p, int64_t v) const {
+    atomicAdd(reinterpret_cast<unsigned long long*>(p), static_cast<unsigned long long>(v));
+  }
+  __device__ __forceinline__ void or_bits(uint32_t* w, uint32_t bits) const { atomicOr(w, bits); }
+  __device__ __forceinline__ void put_bit(uint32_t* w, uint32_t bit, bool on) const {
+    if (on)
+      atomicOr(w, bit);
+    else
+      atomicAnd(w, ~bit);
+  }
+  __device__ __forceinline__ int take(int* count, int k) const { return atomicAdd(count, k); }
+  // through L2: the reductions land there, past this SM's L1
+  __device__ __forceinline__ int64_t load(const int64_t* p) const {
+    return static_cast<int64_t>(__ldcg(reinterpret_cast<const long long*>(p)));
   }
 };
 #endif
@@ -147,6 +179,14 @@ NBT_HD int low_bit(uint32_t bits) {
 #endif
 }
 
+NBT_HD int bit_count(uint32_t bits) {
+#if defined(__CUDA_ARCH__)
+  return __popc(bits);
+#else
+  return __builtin_popcount(bits);
+#endif
+}
+
 // The mapper's halving, thread t of `n` (coder3.mapper_updates: every
 // count of a key whose largest passes map_halve, >> 1), over one image's
 // marked keys; a mark stays where the key is still past.  A thread takes a
@@ -217,9 +257,7 @@ struct ReplayPlanes {
   int lanes;
 };
 
-// One image's tables (its own rows of the walk's tensors), and the bits of
-// the contexts and keys a launch touched or halved (the CTA's shared
-// memory).
+// One image's tables: its own rows of the walk's tensors.
 struct ReplayTables {
   int64_t* bsum;
   int64_t* bcnt;
@@ -228,68 +266,172 @@ struct ReplayTables {
   int64_t* mhist;
   uint32_t* mmark;
   int64_t* order;
-  uint32_t* btouch;
-  uint32_t* mtouch;
 };
 
-// Phase (a), thread t of `n`: the columns' events, a thread a pixel (the
-// lanes of a column next to each other, as the planes lie), each entry
-// added to marked past its threshold and noted as touched.  A context or
-// key outside the image's tables is dropped (the walks write none).
+// What a launch keeps in its CTA's shared memory (8 KB): a bit a context
+// and a key its adds touched, the marks as the launch found them, and the
+// lists of the entries its sweep visits (touched or marked), as indices.
+struct ReplayShared {
+  uint32_t btouch[kBiasWords];
+  uint32_t mtouch[kMapWords];
+  uint32_t marks[kBiasWords + kMapWords];  // the launch's first view of bmark | mmark
+  uint16_t ctx[kContexts];
+  uint16_t key[kMapKeys];
+  int n_ctx, n_key;
+};
+
+// Phase (a), thread t of `n`: the touched bits and the lists emptied, the
+// marks copied.
+NBT_HD void replay_clear(const ReplayTables& tb, ReplayShared& sh, int t, int n) {
+  for (int g = t; g < kBiasWords; g += n) sh.btouch[g] = 0;
+  for (int g = t; g < kMapWords; g += n) sh.mtouch[g] = 0;
+  if (t == 0) sh.n_ctx = sh.n_key = 0;
+  for (int g = t; g < kBiasWords + kMapWords; g += n)
+    sh.marks[g] = g < kBiasWords ? tb.bmark[g] : tb.mmark[g - kBiasWords];
+}
+
+// Phase (b): the columns' events, a thread a pixel (the lanes of a column
+// next to each other, as the planes lie; a pixel's mapper and bias planes
+// loaded together), each added by a reduction whose result no one reads,
+// and noted as touched.  A context or key outside the image's tables is
+// dropped (the walks write none).  No mark is set here: phase (d) decides
+// them.
 #if defined(__CUDACC__)
 #pragma nv_exec_check_disable
 #endif
 template <class At>
-NBT_HD void replay_adds(const ReplayContract& c, const ReplayPlanes& p, const ReplayTables& tb,
-                        int img, const ReplaySpan& s, int t, int n, const At& at) {
+NBT_HD void replay_reds(const ReplayContract& c, const ReplayPlanes& p, const ReplayTables& tb,
+                        ReplayShared& sh, int img, const ReplaySpan& s, int t, int n,
+                        const At& at) {
   const int lpi = c.lanes_per_image;
   const size_t lane0 = static_cast<size_t>(img) * lpi;
-  if (s.map) {
-    for (int task = t; task < lpi * (s.j1 - s.m0); task += n) {
-      const size_t o = static_cast<size_t>(s.m0 + task / lpi) * p.lanes + lane0 + task % lpi;
-      const int64_t key = p.key[o], y = p.y[o];
-      if (key < 0 || key >= kMapKeys || y < 0 || y >= kNMap) continue;  // y >= 20 counts nothing
+  const int n_map = s.map ? lpi * (s.j1 - s.m0) : 0;
+  const int n_bias = s.bias ? lpi * (s.j1 - s.b0) : 0;
+  for (int task = t; task < (n_map > n_bias ? n_map : n_bias); task += n) {
+    const size_t lane = lane0 + task % lpi;
+    int64_t key = -1, y = -1, adr = -1, err = 0;
+    if (task < n_map) {
+      const size_t o = static_cast<size_t>(s.m0 + task / lpi) * p.lanes + lane;
+      key = p.key[o];
+      y = p.y[o];
+    }
+    if (task < n_bias) {
+      const size_t o = static_cast<size_t>(s.b0 + task / lpi) * p.lanes + lane;
+      adr = p.idx[o] - static_cast<int64_t>(img) * kContexts;
+      err = p.dx[o];
+    }
+    if (key >= 0 && key < kMapKeys && y >= 0 && y < kNMap) {  // y >= 20 counts nothing
       const int k = static_cast<int>(key);
-      mapper_add(at, tb.mhist, tb.mmark, k, static_cast<int>(y), c.map_bump, c.map_halve);
-      at.set(tb.mtouch + k / 32, 1u << (k % 32));
+      at.red64(tb.mhist + k * kNMap + y, c.map_bump);
+      at.or_bits(sh.mtouch + k / 32, 1u << (k % 32));
     }
-  }
-  if (s.bias) {
-    for (int task = t; task < lpi * (s.j1 - s.b0); task += n) {
-      const size_t o = static_cast<size_t>(s.b0 + task / lpi) * p.lanes + lane0 + task % lpi;
-      const int64_t adr = p.idx[o] - static_cast<int64_t>(img) * kContexts;
-      if (adr < 0 || adr >= kContexts) continue;
+    if (adr >= 0 && adr < kContexts) {
       const int k = static_cast<int>(adr);
-      bias_add(at, tb.bsum, tb.bcnt, tb.bmark, k, p.dx[o], c.bias_cap);
-      at.set(tb.btouch + k / 32, 1u << (k % 32));
+      at.red64(tb.bsum + k, err);
+      at.red64(tb.bcnt + k, 1);
+      at.or_bits(sh.btouch + k / 32, 1u << (k % 32));
     }
   }
 }
 
-// Phase (b): the sweeps of the tables this launch updates, the halved
-// entries noted as touched.
-NBT_HD void replay_sweeps(const ReplayContract& c, const ReplayTables& tb, const ReplaySpan& s,
-                          int t, int n) {
-  if (s.map) sweep_mapper(tb.mhist, tb.mmark, c.map_halve, tb.mtouch, t, n);
-  if (s.bias) sweep_bias(tb.bsum, tb.bcnt, tb.bmark, c.bias_cap, tb.btouch, t, n);
+// Phase (c), thread t of `n`: the entries the sweep visits listed, a word
+// of touched | marked bits a thread (the marks of the tables this launch
+// replays).  Counts only grow between sweeps and every unmarked entry is
+// at or below its threshold, so an entry past it now is one of these.
+#if defined(__CUDACC__)
+#pragma nv_exec_check_disable
+#endif
+template <class At>
+NBT_HD void replay_lists(ReplayShared& sh, const ReplaySpan& s, int t, int n, const At& at) {
+  for (int g = t; g < kBiasWords + kMapWords; g += n) {
+    const bool is_bias = g < kBiasWords;
+    if (is_bias ? !s.bias : !s.map) continue;
+    const int w = is_bias ? g : g - kBiasWords;
+    uint32_t bits = (is_bias ? sh.btouch[w] : sh.mtouch[w]) | sh.marks[g];
+    if (!bits) continue;
+    uint16_t* list = is_bias ? sh.ctx : sh.key;
+    int slot = at.take(is_bias ? &sh.n_ctx : &sh.n_key, bit_count(bits));
+    for (; bits; bits &= bits - 1) list[slot++] = static_cast<uint16_t>(32 * w + low_bit(bits));
+  }
 }
 
-// Phase (c), thread t of `n`: every touched context's quantized bias into
-// the int16 table, and every touched key's order row z -> y, a thread a
-// (key, y) slot placing y at its rank among the key's counts.
-NBT_HD void replay_rewrite(const ReplayContract& c, const ReplayTables& tb, const ReplaySpan& s,
-                           int t, int n) {
-  if (s.bias) {
-    for (int k = t; k < kContexts; k += n)
-      if (tb.btouch[k / 32] >> (k % 32) & 1)
-        tb.btab[k] = static_cast<int16_t>(quantize_bias(tb.bsum[k], tb.bcnt[k], c.bias_shrink));
+// A listed key's sweep and rewrite (coder3.mapper_updates' halving of a
+// key whose largest count passes map_halve, then coder3.mapper_order):
+// its 20 counts, halved where past, its mark where still past, and its
+// order row, each y at its rank among them.
+#if defined(__CUDACC__)
+#pragma nv_exec_check_disable
+#endif
+template <class At>
+NBT_HD void replay_key(const ReplayContract& c, const ReplayTables& tb, int key, const At& at) {
+  int64_t* row = tb.mhist + key * kNMap;
+  int64_t h[kNMap];
+  int64_t mx = 0;
+#pragma unroll
+  for (int j = 0; j < kNMap; ++j) {
+    h[j] = at.load(row + j);
+    mx = h[j] > mx ? h[j] : mx;
   }
-  if (s.map) {
-    for (int e = t; e < kMapKeys * kNMap; e += n) {
-      const int key = e / kNMap, y = e - key * kNMap;
-      if (tb.mtouch[key / 32] >> (key % 32) & 1)
-        tb.order[key * kNMap + mapper_rank(tb.mhist + key * kNMap, y)] = y;
+  if (mx > c.map_halve) {
+    mx = 0;
+#pragma unroll
+    for (int j = 0; j < kNMap; ++j) {
+      h[j] >>= 1;
+      row[j] = h[j];
+      mx = h[j] > mx ? h[j] : mx;
     }
+  }
+  at.put_bit(tb.mmark + key / 32, 1u << (key % 32), mx > c.map_halve);
+  int64_t* ord = tb.order + key * kNMap;
+  bool small = mx < (int64_t{1} << 26);
+#pragma unroll
+  for (int j = 0; j < kNMap; ++j) small = small && h[j] >= 0;
+  if (small) {
+    // each count and its y as one 32-bit key, count high, the lower y the
+    // larger (31 - y): the stable descending order is the keys' order
+    uint32_t kk[kNMap];
+#pragma unroll
+    for (int j = 0; j < kNMap; ++j) kk[j] = static_cast<uint32_t>(h[j] << 5) | (31 - j);
+#pragma unroll
+    for (int y = 0; y < kNMap; ++y) {
+      int z = 0;
+#pragma unroll
+      for (int j = 0; j < kNMap; ++j) z += kk[j] > kk[y];
+      ord[z] = y;
+    }
+  } else {
+#pragma unroll
+    for (int y = 0; y < kNMap; ++y) ord[mapper_rank(h, y)] = y;
+  }
+}
+
+// Phase (d), thread t of `n`: each listed entry swept and rewritten by one
+// thread: a context's moments halved where its count passes bias_cap
+// (strips._bias_update), its mark where it still does, its int16 value
+// (context.quantize_bias); a key by replay_key.  Every entry the sweep
+// halves is rewritten, touched or not (a halving reorders ties).
+#if defined(__CUDACC__)
+#pragma nv_exec_check_disable
+#endif
+template <class At>
+NBT_HD void replay_entries(const ReplayContract& c, const ReplayTables& tb,
+                           const ReplayShared& sh, const ReplaySpan& s, int t, int n,
+                           const At& at) {
+  // the keys from the first thread up, the contexts from the last down:
+  // where they are fewer than the threads, no warp runs both branches
+  const int n_key = s.map ? sh.n_key : 0, n_ctx = s.bias ? sh.n_ctx : 0;
+  for (int i = t; i < n_key; i += n) replay_key(c, tb, sh.key[i], at);
+  for (int i = n - 1 - t; i < n_ctx; i += n) {
+    const int k = sh.ctx[i];
+    int64_t cnt = at.load(tb.bcnt + k), sum = at.load(tb.bsum + k);
+    if (cnt > c.bias_cap) {
+      cnt >>= 1;
+      sum >>= 1;
+      tb.bcnt[k] = cnt;
+      tb.bsum[k] = sum;
+    }
+    at.put_bit(tb.bmark + k / 32, 1u << (k % 32), cnt > c.bias_cap);
+    tb.btab[k] = static_cast<int16_t>(quantize_bias(sum, cnt, c.bias_shrink));
   }
 }
 
@@ -301,18 +443,15 @@ NBT_HD void replay_rewrite(const ReplayContract& c, const ReplayTables& tb, cons
 #pragma nv_exec_check_disable
 #endif
 template <class Team>
-NBT_HD void replay_image(const ReplayContract& c, const ReplayPlanes& p, const ReplayTables& tb,
-                         int img, const ReplaySpan& s, const Team& team) {
-  team.threads([&](int t, int n) {
-    for (int g = t; g < kBiasWords; g += n) tb.btouch[g] = 0;
-    for (int g = t; g < kMapWords; g += n) tb.mtouch[g] = 0;
-  });
+NBT_HD void replay_launch(const ReplayContract& c, const ReplayPlanes& p, const ReplayTables& tb,
+                          ReplayShared& sh, int img, const ReplaySpan& s, const Team& team) {
+  team.threads([&](int t, int n) { replay_clear(tb, sh, t, n); });
   team.sync();
-  team.threads([&](int t, int n) { replay_adds(c, p, tb, img, s, t, n, team.at); });
+  team.threads([&](int t, int n) { replay_reds(c, p, tb, sh, img, s, t, n, team.at); });
   team.sync();
-  team.threads([&](int t, int n) { replay_sweeps(c, tb, s, t, n); });
+  team.threads([&](int t, int n) { replay_lists(sh, s, t, n, team.at); });
   team.sync();
-  team.threads([&](int t, int n) { replay_rewrite(c, tb, s, t, n); });
+  team.threads([&](int t, int n) { replay_entries(c, tb, sh, s, t, n, team.at); });
 }
 
 }  // namespace

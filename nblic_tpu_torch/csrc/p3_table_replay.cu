@@ -14,26 +14,37 @@
 // the walks ran between launches before (strips._bias_update,
 // context.quantize_bias, coder3.mapper_updates, coder3.mapper_order).
 //
-// Mapping: one CTA an image, kThreads threads.  The stream order is the
+// Mapping: one CTA of kThreads threads an image.  The stream order is the
 // barrier across an image's lanes, which span several K4 or K5 CTAs, so
 // the replay cannot run in their epilogues.  The tables stay in device
 // memory for the whole walk (an image's 3072 x 2 + 10240 int64 and the
 // two tables the walk kernels read, 6 KB and 80 KB, all L2-resident);
-// what a launch touched is a bit a context and a bit a key in the CTA's
-// shared memory.  What it computes, and the order of its phases (the
-// adds, the marked sweeps, the rewrite of what they touched), is
-// image_tables.cuh's replay_image, which the CPU tests run with virtual
-// threads.
+// what a launch touched and the entries its sweep visits are bits and
+// lists in the CTA's shared memory.  What it computes, and the order of
+// its phases (the adds, the lists, each listed entry's sweep and
+// rewrite), is image_tables.cuh's replay_launch, which the CPU tests run
+// with virtual threads.
 //
 // What bounds K9 on Hopper.  At th 768 a launch replays 16 pixels of one
-// image, so its time is a launch's latency: three barriers and a chain of
-// dependent loads and atomics, a few microseconds, against ~1 KB moved.
-// At th 4 (192 lanes an image, 16 columns) each CTA adds 3,072 pixels'
-// events with 64-bit atomics that contend on few contexts; the rewrite
-// then quantizes up to 3,072 contexts and ranks up to 512 keys' 20 counts,
-// a thread a (key, y), each rank 20 loads of one L1-resident row.  Marks
-// keep the sweeps to the entries past their thresholds, and the touched
-// bits keep the rewrite to what changed.
+// image: its time is a launch's latency, a chain of dependent loads,
+// reductions and barriers, against ~1 KB moved.  At th 4 (192 lanes an
+// image, 16 columns) each CTA adds 3,072 pixels' events that contend on
+// few contexts, then sweeps and rewrites up to 3,072 contexts and 512
+// keys.  The design keeps that chain short:
+// - The adds are reductions whose results no one reads (RED, not an
+//   atomic's round trip), and no mark is set on the way.  (Summing a
+//   warp's equal addresses first, by __match_any_sync and
+//   __reduce_add_sync, made the adds 7-11x slower: the groups' masks
+//   diverge.)
+// - The marks are decided where the sweep visits an entry: over the
+//   entries touched or marked, listed in shared memory (a word a thread),
+//   each swept and rewritten by one thread, so every thread's work is a
+//   few entries whatever the launch, and nothing walks the untouched ones.
+// - A key's order is ranked from its 20 counts held in registers, as
+//   32-bit keys (count, 31 - y) where the counts allow.
+// - One team for every launch: 512 threads.  Teams of 32 and 128 were no
+//   faster at a th-768 launch's 16 pixels an image and slower at a th-4
+//   corpus's 3,072 (kernel_probe.py replay-phases builds and times them).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,12 +55,12 @@ namespace {
 
 constexpr int kThreads = 512;  // threads a CTA (an image)
 
-// The CTA as replay_image's team.
+// The CTA as replay_launch's team.
 struct BlockTeam {
   DeviceAtomics at;
   template <class F>
   __device__ __forceinline__ void threads(F f) const {
-    f(static_cast<int>(threadIdx.x), static_cast<int>(blockDim.x));
+    f(static_cast<int>(threadIdx.x), kThreads);
   }
   __device__ __forceinline__ void sync() const { __syncthreads(); }
 };
@@ -69,7 +80,7 @@ struct WalkTables {
 
 __global__ void __launch_bounds__(kThreads)
     p3_table_replay_kernel(ReplayContract c, ReplayPlanes p, WalkTables w, ReplaySpan s) {
-  __shared__ uint32_t touched[kBiasWords + kMapWords];
+  __shared__ ReplayShared sh;
   const int img = blockIdx.x;
   const size_t ctx = static_cast<size_t>(img) * kContexts;
   const size_t map = static_cast<size_t>(img) * kMapKeys * kNMap;
@@ -79,10 +90,8 @@ __global__ void __launch_bounds__(kThreads)
                         w.btab + ctx,
                         w.mhist + map,
                         w.mmark + static_cast<size_t>(img) * kMapWords,
-                        w.order + map,
-                        touched,
-                        touched + kBiasWords};
-  replay_image(c, p, tb, img, s, BlockTeam{});
+                        w.order + map};
+  replay_launch(c, p, tb, sh, img, s, BlockTeam{});
 }
 
 }  // namespace
@@ -92,8 +101,8 @@ __global__ void __launch_bounds__(kThreads)
 // where `bias`.  idx, dx, key, y: the walk's (W, L) int64 planes (key and
 // y may be null without `map`); the tables as WalkTables, each on
 // `device`, contiguous; w the walk's width and bias_cap .. map_halve the replay
-// contract's (strips.Tune).  Launches one CTA an image on `stream`; returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// contract's (strips.Tune).  Launches one CTA an image on `stream`;
+// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
 // contract or columns out of range, or a table it needs missing).
 extern "C" int nbt_p3_table_replay(const int64_t* idx, const int64_t* dx, const int64_t* key,
                                    const int64_t* y, int64_t* bsum, int64_t* bcnt,

@@ -6,13 +6,27 @@
 // Each function is the device counterpart of one function of the plain
 // versions (nblic_tpu_torch/ops/window.py, predict.py, context.py), held
 // exact against them on the card by chip_smoke.py and
-// tests/test_torch_cuda.py.
+// tests/test_torch_cuda.py.  K7's division-free fold (near_fold, at the
+// end) is __host__ __device__: g++ compiles it for the CPU tests
+// (tests/test_torch_near_fold.py), the rest is the card's alone.
 
 #pragma once
 
 #include <cstdint>
-#include <cuda_runtime.h>
 
+#if defined(__CUDACC__)
+#include <cuda_runtime.h>
+#endif
+
+#ifndef NBT_HD
+#if defined(__CUDACC__)
+#define NBT_HD __host__ __device__ __forceinline__
+#else
+#define NBT_HD inline
+#endif
+#endif
+
+#if defined(__CUDACC__)
 namespace {
 
 constexpr int kQd = 12;          // activity bins
@@ -204,6 +218,52 @@ __device__ __forceinline__ int fold(int x, int px, int sign, int near) {
   const int y = (iabs(x - px) + near) / qstep;
   const int sy = x >= px;
   return y <= 0 ? 0 : (y <= ty ? 2 * y - (sy ^ sign) : y + ty);
+}
+
+}  // namespace
+#endif  // __CUDACC__
+
+namespace {
+
+// K7's fold and unfold in one, without a division.  The near quantizer's
+// step qstep = 2 near + 1 (3..511) divides only n in [0, 510] (|x - px| +
+// near and min(px, 255 - px) + near, x and px pixels): near_recip's m =
+// ceil(2^32 / qstep) once a launch, then n / qstep = (n m) >> 32, exact
+// since n (m qstep - 2^32) <= 510 x 510 < 2^32 (the CPU tests check every
+// near and n).
+NBT_HD uint32_t near_recip(int near) {
+  const uint64_t q = 2 * static_cast<uint64_t>(near) + 1;
+  return static_cast<uint32_t>(((uint64_t{1} << 32) + q - 1) / q);
+}
+
+NBT_HD int near_quot(int n, uint32_t m) {
+#if defined(__CUDA_ARCH__)
+  return static_cast<int>(__umulhi(static_cast<uint32_t>(n), m));
+#else
+  return static_cast<int>((static_cast<uint64_t>(static_cast<uint32_t>(n)) * m) >> 32);
+#endif
+}
+
+// The symbol y and the reconstruction x_rec of pixel x around the biased
+// prediction px in [0, 255], near >= 1, m = near_recip(near): what fold
+// and then unfold<false> give (ops/context.py::residual_fold,
+// residual_unfold), with ty and the quotient q computed once.  A folded
+// q <= ty keeps x's side of px; past ty, y = q + ty unfolds to the side
+// with room, px < 128.
+struct NearFold {
+  int y, x_rec;
+};
+
+NBT_HD NearFold near_fold(int x, int px, int sign, int near, uint32_t m) {
+  const int qstep = 2 * near + 1;
+  const int d = x - px;
+  const int ty = near_quot((px < 255 - px ? px : 255 - px) + near, m);
+  const int q = near_quot((d < 0 ? -d : d) + near, m);
+  const int sy = x >= px;
+  if (q <= 0) return {0, px};
+  const bool up = q <= ty ? sy != 0 : px < 128;
+  const int rec = px + (up ? q * qstep : -q * qstep);
+  return {q <= ty ? 2 * q - (sy ^ sign) : q + ty, rec < 0 ? 0 : (rec > 255 ? 255 : rec)};
 }
 
 }  // namespace

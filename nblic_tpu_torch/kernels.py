@@ -113,7 +113,7 @@ def library() -> ctypes.CDLL:
         ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, ptr,
     ]
     lib.nbt_near_scan.restype = i32
-    lib.nbt_near_scan_smem.argtypes = [i32]
+    lib.nbt_near_scan_smem.argtypes = [i32, i32]
     lib.nbt_near_scan_smem.restype = i64
     lib.nbt_p3_near_row.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i64, ptr, ptr,

@@ -10,6 +10,8 @@ tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import kernels
@@ -87,7 +89,10 @@ def _check(x, bias, wcols, th, tw, near, profile):
         raise ValueError(f"inputs lie on several devices: {devices}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"encode_scan runs on cpu or cuda, not {x.device}")
-    kernels.check_int16(bias)  # the kernel holds the tables as int16, as the container does
+    if x.device.type == "cpu":
+        # the container's int16 tables; on the card the check would read the
+        # table back, and K7 holds it as int32, exact for any values
+        kernels.check_int16(bias)
 
 
 def encode_scan(x, bias, wcols, th: int, tw: int, near: int, profile: int,
@@ -96,39 +101,48 @@ def encode_scan(x, bias, wcols, th: int, tw: int, near: int, profile: int,
 
     ``near`` in 1..255 (the scan serves near-lossless modes only); bias is
     int32 with values in int16, as the container stores them (every table
-    the encoder builds lies in [-2048, 2047]); anything else raises.  On the
-    card the kernel reads x as a (th x tw, B x T) plane, so each pixel
-    step's load coalesces across lanes, and writes its planes in that
-    layout; the wrapper permutes both.
+    the encoder builds lies in [-2048, 2047]); anything else raises, but
+    values outside int16, which the card takes as they are (checking them
+    there would read the table back).  On the card the kernel reads x in
+    its own (B, T, th, tw) layout, each lane its tile's contiguous pixels,
+    and writes its planes in that layout: an int32 contiguous x is not
+    copied, and nothing is read back.
     """
     _check(x, bias, wcols, th, tw, near, profile)
     if x.device.type == "cpu":
         return encode_scan_plain(x, bias, wcols, th, tw, near, profile, stats)
-    xs = x.permute(2, 3, 0, 1).to(torch.int32).contiguous()  # (th, tw, B, T)
-    outs = [torch.empty_like(xs) for _ in range(5 if stats else 2)]
-    if xs.numel():
-        launch(xs, bias, wcols, near, profile, outs)
+    x = x.to(torch.int32).contiguous()
+    outs = [torch.empty_like(x) for _ in range(5 if stats else 2)]
+    if x.numel():
+        launch(x, bias, wcols, near, profile, outs)
         encode_scan.launches += 1
-    return tuple(o.permute(2, 3, 0, 1).contiguous() for o in outs)
+    return tuple(outs)
 
 
 encode_scan.launches = 0
 
 
-def launch(xs, bias, wcols, near: int, profile: int, outs) -> None:
-    """K7 alone, without the wrapper's checks and layout copies: the scan of
-    the (th, tw, B, T) int32 CUDA plane ``xs`` into ``outs``, two (y, qd) or
-    five (with the statistics) planes of its shape.  :func:`encode_scan`
-    calls it; it counts no launch."""
-    th, tw, b, t = xs.shape
+@functools.cache
+def _smem(tw: int) -> int:
+    """Shared memory of a K7 CTA at tile width ``tw``, either chunking."""
     lib = kernels.library()
-    smem = lib.nbt_near_scan_smem(tw)
+    return max(lib.nbt_near_scan_smem(tw, 8), lib.nbt_near_scan_smem(tw, 1))
+
+
+def launch(x, bias, wcols, near: int, profile: int, outs) -> None:
+    """K7 alone, without the wrapper's checks: the scan of the (B, T, th,
+    tw) int32 contiguous CUDA tiles ``x`` into ``outs``, two (y, qd) or five
+    (with the statistics) planes of its shape.  :func:`encode_scan` calls
+    it; it counts no launch."""
+    b, t, th, tw = x.shape
+    lib = kernels.library()
+    smem = _smem(tw)
     if smem > kernels.SMEM_LIMIT:
         raise ValueError(f"tile width {tw} needs {smem} B of shared memory a CTA")
     bias_a = _aligned(bias)
     wcols_a = _aligned(wcols) if profile == 2 else None
     ptrs = [o.data_ptr() for o in outs] + [None] * (5 - len(outs))
     rc = lib.nbt_near_scan(
-        xs.data_ptr(), bias_a.data_ptr(), wcols_a.data_ptr() if wcols_a is not None else None,
-        b, t, th, tw, near, profile, *ptrs, *kernels.stream_of(xs))
+        x.data_ptr(), bias_a.data_ptr(), wcols_a.data_ptr() if wcols_a is not None else None,
+        b, t, th, tw, near, profile, *ptrs, *kernels.stream_of(x))
     kernels.check(rc, "nbt_near_scan")

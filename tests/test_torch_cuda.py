@@ -26,7 +26,8 @@ from nblic_tpu_torch.utils.synth import edge_images, synth_image
 
 
 def scan_inputs(seed, b, n_tiles, t, profile):
-    """(x, bias, wcols) of ``b`` images of ``n_tiles`` t x t tiles each.
+    """(x, bias, wcols) of ``b`` images of ``n_tiles`` t x t tiles each
+    (``t`` an int, or (th, tw)).
 
     Tiles cycle through a noisy ramp, uniform noise and a saturated plateau
     (0 or 255 with a few outliers), so the fold takes both of its branches
@@ -36,25 +37,26 @@ def scan_inputs(seed, b, n_tiles, t, profile):
     the flags cycle 0, 1, 2.
     """
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:t, 0:t]
-    x = np.empty((b, n_tiles, t, t), dtype=np.int32)
+    th, tw = (t, t) if isinstance(t, int) else t
+    yy, xx = np.mgrid[0:th, 0:tw]
+    x = np.empty((b, n_tiles, th, tw), dtype=np.int32)
     for k in range(b * n_tiles):
         kind = k % 3
         if kind == 0:
             tile = (yy * rng.integers(1, 9) + xx * rng.integers(-4, 5)
-                    + rng.integers(0, 256) + rng.normal(0, 4, (t, t)))
+                    + rng.integers(0, 256) + rng.normal(0, 4, (th, tw)))
         elif kind == 1:
-            tile = rng.integers(0, 256, (t, t))
+            tile = rng.integers(0, 256, (th, tw))
         else:
-            tile = np.where(rng.random((t, t)) < 0.1, rng.integers(0, 256, (t, t)),
+            tile = np.where(rng.random((th, tw)) < 0.1, rng.integers(0, 256, (th, tw)),
                             255 * (k % 2))
-        x.flat[k * t * t:(k + 1) * t * t] = np.clip(tile, 0, 255).astype(np.int32).ravel()
+        x.flat[k * th * tw:(k + 1) * th * tw] = np.clip(tile, 0, 255).astype(np.int32).ravel()
     bias = rng.integers(-2048, 2048, size=(b, 3072)).astype(np.int32)
     ends = rng.random((b, 3072)) < 0.05
     bias[ends] = rng.choice([-32768, 32767], size=int(ends.sum()))
     wcols = None
     if profile == 2:
-        w_q, _ = lsq.fit_tile_weights(torch.from_numpy(x).view(b * n_tiles, t, t))
+        w_q, _ = lsq.fit_tile_weights(torch.from_numpy(x).view(b * n_tiles, th, tw))
         w_q = w_q.view(b, n_tiles, lsq.N_FEAT)
         wild = torch.from_numpy(rng.integers(-32768, 32768, size=w_q.shape).astype(np.int32))
         w_q = torch.where((torch.arange(n_tiles) % 4 == 3)[None, :, None], wild, w_q)
@@ -435,9 +437,12 @@ def test_interop_engines_on_card_match_cpu(cuda_device, near, effort):
 
 
 # K7 against its plain version: the CPU cases of test_torch_near_scan.py
-# (three images, (tile side, tiles an image, profile, near)), then lane
-# counts that are not a multiple of the CTA's 32 lanes (1, 31, 33, a
-# mesh-like 48) and the corpus's 1,728 at 8x8 tiles
+# (three images, (tile side or (th, tw), tiles an image, profile, near)),
+# then lane counts that are not a multiple of the CTA's 32 lanes (1, 31,
+# 33, a mesh-like 48) and the corpus's 1,728 at 8x8 tiles; then the main
+# path's 64x64 and 16x16 tiles at profiles 1 and 2 and near 1, 2, 9 and
+# 255, and widths not divisible by 4: 6x6 (36 pixels a tile: the 16-byte
+# chunks straddle rows) and 5x7 (35: a pixel a copy and a store)
 K7_CASES = {
     "t8-p1-near1": (3, 15, 8, 1, 1),
     "t8-p1-near255": (3, 15, 8, 1, 255),
@@ -454,21 +459,46 @@ K7_CASES = {
     "lanes48-p2": (2, 24, 16, 2, 1),
     "lanes1728": (18, 96, 8, 1, 2),
     "lanes1728-p2": (18, 96, 8, 2, 2),
+    "t64-p1-near1": (2, 3, 64, 1, 1),
+    "t64-p2-near2": (2, 3, 64, 2, 2),
+    "t64-p2-near9": (2, 3, 64, 2, 9),
+    "t64-p1-near255": (2, 3, 64, 1, 255),
+    "t16-p1-near1-lanes96": (2, 48, 16, 1, 1),
+    "t16-p2-near2-lanes96": (2, 48, 16, 2, 2),
+    "t6x6-p1-near2": (3, 40, (6, 6), 1, 2),
+    "t6x6-p2-near9": (3, 40, (6, 6), 2, 9),
+    "t5x7-p1-near1": (2, 35, (5, 7), 1, 1),
+    "t5x7-p2-near255": (2, 35, (5, 7), 2, 255),
+    "t16x6-p2-near2": (2, 33, (16, 6), 2, 2),
 }
+
+
+def _tile_shape(t):
+    return (t, t) if isinstance(t, int) else t
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(K7_CASES))
-def test_near_scan_kernel_matches_plain(cuda_device, case):
+def test_near_scan_kernel_matches_plain(cuda_device, monkeypatch, case):
     b, n_tiles, t, profile, near = K7_CASES[case]
+    th, tw = _tile_shape(t)
     x, bias, wcols = (v.to(cuda_device) if v is not None else None
-                      for v in scan_inputs(sum(K7_CASES[case]), b, n_tiles, t, profile))
+                      for v in scan_inputs(b + n_tiles + (t if isinstance(t, int) else th * tw)
+                                           + profile + near, b, n_tiles, t, profile))
+    launch, handed = near_scan.launch, []
+
+    def seen(xs, *args):
+        handed.append(xs.data_ptr())
+        launch(xs, *args)
+
+    monkeypatch.setattr(near_scan, "launch", seen)
     launches = near_scan.encode_scan.launches
-    k = near_scan.encode_scan(x, bias, wcols, t, t, near, profile, stats=True)
-    k_ys = near_scan.encode_scan(x, bias, wcols, t, t, near, profile)
+    k = near_scan.encode_scan(x, bias, wcols, th, tw, near, profile, stats=True)
+    k_ys = near_scan.encode_scan(x, bias, wcols, th, tw, near, profile)
     torch.cuda.synchronize()
     assert near_scan.encode_scan.launches == launches + 2
-    ref = near_scan.encode_scan_plain(x, bias, wcols, t, t, near, profile, stats=True)
+    assert handed == [x.data_ptr()] * 2  # the tiles' own layout: no copy
+    ref = near_scan.encode_scan_plain(x, bias, wcols, th, tw, near, profile, stats=True)
     for name, u, v in zip(("y", "qd", "adr", "err", "rec"), k, ref):
         assert u.shape == x.shape and torch.equal(u, v), name
     assert len(k_ys) == 2 and torch.equal(k_ys[0], ref[0]) and torch.equal(k_ys[1], ref[1])
@@ -813,6 +843,48 @@ def test_table_replay_kernel_at_192_lanes_an_image(cuda_device, kind):
             for name, got, ref in zip(table_replay.Tables._fields, tb, want):
                 assert torch.equal(got, ref), f"{name}, row {row}, columns {map_cols}"
     assert int(tb.bmark.count_nonzero()) > 0  # entries stayed past the cap
+
+
+# (images, lanes an image, W, columns a launch, bias_cap, map_halve)
+K9_SHAPES = {"th768": (2, 1, 64, 16, 5, 14), "th4": (2, 192, 32, 16, 24, 60),
+             "equal-addresses": (2, 64, 32, 16, 40, 90)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(K9_SHAPES))
+def test_table_replay_kernel_launch_shapes(cuda_device, shape):
+    """K9 against replay_plain, launch by launch: a th-768 walk's launches
+    (one lane an image, 16 columns), a th-4 corpus's (192 lanes an image),
+    and ones whose warps' lanes mostly share one context and one (key, y)
+    (the reductions' contention), with caps low enough that entries halve,
+    and halve again untouched."""
+    rng = np.random.default_rng(list(K9_SHAPES).index(shape))
+    n_imgs, lpi, w, ws, cap, halve = K9_SHAPES[shape]
+    lanes = n_imgs * lpi
+    con = table_replay.Contract(lpi, w, cap, 2, 4, halve)
+    tb = table_replay.new_tables(n_imgs, con, cuda_device)
+    want = table_replay.Tables(*(t.clone() for t in tb))
+    img = torch.arange(lanes) // lpi
+    halved = False
+    for row in range(4):
+        ctx = rng.integers(0, 12, (w, lanes)) * 131
+        key = rng.integers(0, 8, (w, lanes)) * 61
+        y = rng.integers(0, 24, (w, lanes))
+        if shape == "equal-addresses":
+            same = rng.random((w, lanes)) < 0.8
+            ctx, key, y = np.where(same, 77, ctx), np.where(same, 5, key), np.where(same, 3, y)
+        planes = tuple(torch.from_numpy(np.ascontiguousarray(v)).to(cuda_device) for v in (
+            img.numpy() * 3072 + ctx, rng.integers(-255, 256, (w, lanes)), key, y))
+        walk = table_replay.prepare(tb, planes, con)
+        for c0 in range(0, w, ws):
+            cols = (c0, c0 + ws)
+            before = table_replay.Tables(*(t.clone() for t in want))
+            table_replay.launch(walk, cols, cols)
+            table_replay.replay_plain(want, planes, con, cols, cols)
+            for name, got, ref in zip(table_replay.Tables._fields, tb, want):
+                assert torch.equal(got, ref), f"{name}, row {row}, columns {cols}"
+            halved |= bool((want.bcnt < before.bcnt).any() or (want.mhist < before.mhist).any())
+    assert halved  # the launches' sweeps halved entries
 
 
 @pytest.mark.cuda

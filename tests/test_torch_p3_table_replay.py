@@ -76,13 +76,12 @@ void replay_host(const int64_t* idx, const int64_t* dx, const int64_t* key, cons
   const ReplayPlanes p{idx, dx, key, y, lanes};
   const ReplaySpan s{map, m0, bias, b0, j1};
   for (int img = 0; img < n_imgs; ++img) {
-    uint32_t touched[kBiasWords + kMapWords];
+    ReplayShared sh;
     const size_t ctx = static_cast<size_t>(img) * kContexts;
     const size_t hist = static_cast<size_t>(img) * kMapKeys * kNMap;
     const ReplayTables tb{bsum + ctx, bcnt + ctx, bmark + img * kBiasWords, btab + ctx,
-                          mhist + hist, mmark + img * kMapWords, order + hist, touched,
-                          touched + kBiasWords};
-    replay_image(c, p, tb, img, s, HostTeam{n_threads, HostAtomics{}});
+                          mhist + hist, mmark + img * kMapWords, order + hist};
+    replay_launch(c, p, tb, sh, img, s, HostTeam{n_threads, HostAtomics{}});
   }
 }
 }
@@ -210,7 +209,7 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("n_threads", [512, 64])
+@pytest.mark.parametrize("n_threads", [512, 64, 32])
 @pytest.mark.parametrize("case", list(CASES))
 def test_host_replay_matches_plain(lib, case, n_threads):
     kind, n_imgs, lpi, w, ws, cap, shrink, bump, halve, big = CASES[case]
@@ -248,6 +247,71 @@ def test_host_replay_matches_plain(lib, case, n_threads):
         assert torch.equal(host.btab, bias_tab.to(torch.int16))
     if big:
         assert int(plain.bsum.abs().max()) >= 1 << 26  # quantize_bias's numerator wraps
+
+
+def _edge_launches(kind):
+    """(contract, [planes of each launch]) of one image whose launches each
+    take one path of the sweep: ``halved-untouched``, a launch whose only
+    halvings are of entries an earlier one left marked and it does not
+    touch; ``passes``, launches that take a context and a key past their
+    thresholds (one halved back below, one left past); ``equal``, every
+    pixel of a launch on one context and one (key, y), errors of one sign
+    past 2^23 (a warp's equal addresses, whose sum passes 2^32); ``big``,
+    bumps of 2^25 that take a key's counts past 2^26 unhalved (its order
+    ranked by int64 compares, not 32-bit keys)."""
+    lpi, w = (64, 4) if kind == "equal" else (4, 8)
+    n = lpi * w
+    pix = np.arange(n).reshape(w, lpi)
+    bump, halve = (1 << 25, (1 << 31) - 1) if kind == "big" else (4, 60)
+    con = table_replay.Contract(lpi, w, {"halved-untouched": 2, "passes": 5, "equal": 24,
+                                         "big": 24}[kind], 1, bump, halve)
+    if kind == "halved-untouched":
+        rows = [(np.full((w, lpi), 5), np.full((w, lpi), 7), np.zeros((w, lpi))),
+                (100 + pix // 2, 200 + pix // 2, pix % 2)]
+    elif kind == "passes":
+        rows = [(np.where(pix < 4, 3, 50 + pix), np.where(pix < 4, 9, 300 + pix),
+                 np.where(pix < 4, 2, 1)),
+                (np.where(pix < 4, 3, np.where(pix < 24, 4, 60 + pix)),
+                 np.where(pix < 4, 9, 300 + pix), np.where(pix < 4, 2, 1))]
+    elif kind == "big":
+        rows = [(pix % 7, np.full((w, lpi), 7), pix % 5)] * 3
+    else:
+        rows = [(np.full((w, lpi), 11), np.full((w, lpi), 13), np.full((w, lpi), 5))] * 3
+    rng = np.random.default_rng(len(kind))
+    launches = []
+    for ctx, key, y in rows:
+        if kind == "equal":
+            dx = rng.integers(1 << 23, 1 << 25, (w, lpi))
+        else:
+            dx = rng.integers(-255, 256, (w, lpi))
+        launches.append(tuple(torch.from_numpy(np.asarray(v, dtype=np.int64))
+                              for v in (ctx, dx, key, y)))
+    return con, launches
+
+
+@pytest.mark.parametrize("n_threads", [32, 128, 512])
+@pytest.mark.parametrize("kind", ["halved-untouched", "passes", "equal", "big"])
+def test_host_replay_edge_launches(lib, kind, n_threads):
+    con, launches = _edge_launches(kind)
+    plain = table_replay.new_tables(1, con, "cpu")
+    host = _clone(plain)
+    for k, planes in enumerate(launches):
+        before = _clone(plain)
+        cols = (0, con.w)
+        table_replay.replay_plain(plain, planes, con, cols, cols)
+        host_launch(lib, table_replay.Walk(host, planes, con), cols, cols, n_threads)
+        _assert_tables(host, plain, f"{kind} launch {k}")
+        if kind == "halved-untouched" and k == 1:  # halved, untouched, rewritten
+            assert plain.bcnt[5] == before.bcnt[5] >> 1 and plain.bmark[0, 0] >> 5 & 1
+            assert torch.equal(plain.mhist[0, 7], before.mhist[0, 7] >> 1)
+            assert before.mmark[0, 0] >> 7 & 1 and not plain.mmark[0, 0] >> 7 & 1
+        if kind == "passes" and k == 1:  # context 3 and key 9 passed and were halved back
+            assert plain.bcnt[3] == 4 and not plain.bmark[0, 0] >> 3 & 1
+            assert plain.bmark[0, 0] >> 4 & 1 and int(plain.mhist[0, 9].amax()) <= con.map_halve
+    if kind == "equal":  # a launch's sum on one context passes 2^32
+        assert all(int(planes[1].sum()) > 1 << 32 for planes in launches)
+    if kind == "big":
+        assert int(plain.mhist[0, 7].amax()) > 1 << 26
 
 
 def test_host_replay_ties_in_the_order(lib):
