@@ -45,14 +45,21 @@ Phases, one line each; any failure exits non-zero:
      latter at 64x64 and 16x16 tiles) against the plain decoder, exact,
      <1, false> beside <1, true>.  (kernel_probe.py near-stages times a
      near encode's stages.)
- 12. profile 3 (effort 3; the decodes on K4, csrc/p3_decode_walk.cu): the card's
+ 12. profile 3 (effort 3; the modeling pass on K10 and K11,
+     csrc/p3_model_chains.cu and p3_model_solve.cu; the decodes on K4,
+     csrc/p3_decode_walk.cu): the card's
      containers equal the CPU's for a 48x64 and a 64x48 image as one batch
      at strip heights 16 and 64, and each alone at 16, under TUNE_V4,
      TUNE_MAX and TUNE_V4S; the whole corpus as one strips.encode_batch at
      strip height 64 (288 strip lanes), with its bpp, MPix/s, peak device
      memory and the time of each stage (modeling, row scan, fold, packing
      and containers; each stage function wrapped here to sync the card when
-     it returns), two of its containers held against the CPU's; one 16x32
+     it returns), two of its containers held against the CPU's; on the
+     corpus's own strips the modeling pass on K10 and K11 against the plain
+     loops on the card (time, peak memory, px0), then K10 (the statistics
+     and the mix chains) and K11 (the solve) each against its plain version
+     on the same tensors, exact, timed beside its bound and floor (and the
+     same at the th-768 image of phase 14's full encode); one 16x32
      image through api.compress_tiled(effort=3).  Decode: the pairs on the
      card equal to the images (at strip height 8), the three committed
      fixtures (near 2, legacy, static bias; tests/data_torch_p3) equal to
@@ -269,6 +276,7 @@ K5_TDIV_SHARES = ((330 / 385, 330 / 480), (45 / 385, 45 / 288), (10 / 385, 10 / 
 # update 450 (s and its reciprocal 350, the channels 100); the window to
 # the unfold 400; the system's stores and the barriers 100.
 K5_PATH_CYCLES = 780 * 9 + 350 + 90 * 9 + 260 + 450 + 400 + 100
+K11_PATH_CYCLES = K5_PATH_CYCLES - 450 - 400
 # K4 per pixel of a lane of p3_decode_kernel<10>, counted as K5's: the AVP
 # chain is K5's without the fold (14), its divisions priced by path on the
 # walk's own input; the coder's work, from the source: a pixel's fixed work
@@ -383,6 +391,37 @@ K9_BARRIER_CYCLES = 50
 K9_ADD_CYCLES = 1200
 K9_ENTRY_CYCLES = 700
 K9_MAIN = {"launches": 0, "last": 0}  # K9's launches on the entry points, and the last call's
+# K10 (p3_model_chains.cu), the arithmetic a statistics channel needs at a
+# pixel, each value once (model_chain.cuh): B's step (the decay: a 64-bit
+# product 3, the add 2, the division by the constant 3 or 5 as a
+# multiply-high with its shifts and sign fix 8; the contribution's add 2)
+# 15; the contribution (a moment: the product 1, the shift 2, the half
+# weight's add 3, the magnitude 3, the domain test 2, the quotient's
+# multiply-high 6, the sign 3) 20; F's and E's steps 15 each; E + F and the
+# segment test 4: K10_OPS a value.  Its floor, the dependent path: each
+# launch in series (the energy's, then the moments'; the mix's after K11)
+# H + W chain steps, K10_STEP_CYCLES each (the decay's dependent product,
+# multiply-high, shift and add, ~12 instructions at ~4 cycles, and the add).
+K10_OPS = 69
+K10_STEP_CYCLES = 60
+# K11 (p3_model_solve.cu), a system's operations, from K5's tally of the
+# same warp chain (K5_OTHER_OPS' parts): the system from the statistics
+# 482, the pivot search and the divisors 675, the 375 elimination and
+# back-substitution updates 7,125, the prediction 295; their 385 quotients
+# by a divisor's reciprocal (udiv64.cuh: the multiply-high 6, the shift and
+# the add-path's fix 2, the path test 3) 11 each, and the 10 reciprocals
+# (two FP64 divisions and the 128-bit fixes, ~60 each).  Under w_pred the
+# prediction becomes the 10 weights' quantization (~40 each) and a pixel's
+# int32 dot and reduction K11_WQ_PIXEL_OPS.  Its floor: the systems over
+# the resident warps (132 SMs x 64 warps, the most an SM holds), each system's
+# dependent path K11_PATH_CYCLES (K5's path without the pixel's window and
+# moment update).
+K11_OPS = {False: 482 + 675 + 7125 + 295 + 385 * 11 + 10 * 60,
+           True: 482 + 675 + 7125 + 10 * 40 + 385 * 11 + 10 * 60}
+K11_WQ_PIXEL_OPS = 20
+K11_WARPS = SMS * 16 * 4
+# K10's and K11's launches on the entry points, and the last call's
+MODEL_MAIN = {"chains": 0, "solve": 0, "last": (0, 0)}
 P3_FULL_TH = 768  # the full-depth strip height: one corpus image a lane
 P3_FULL_ROWS = 192  # rows of the th-768 walk over the corpus's 24 lanes (K4)
 NEAR = 2  # the near phase's max error
@@ -391,7 +430,8 @@ T_START = time.perf_counter()
 
 def ptxas_summary(report: str, names=("p3_near_row_kernel", "p3_decode_kernel",
                                        "avp_solve_kernel", "p3_row_scan_kernel",
-                                       "bin_fold_kernel")) -> list:
+                                       "bin_fold_kernel", "p3_model_solve_kernel",
+                                       "b_pass_kernel", "ef_pass_kernel")) -> list:
     """One line a kernel instance named in ``names`` from nvcc's ``-Xptxas
     -v`` report: its template arguments, registers, stack frame and spill
     bytes."""
@@ -972,6 +1012,7 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
     encode_fold.launches = decode_groups.launches = 0
     torch.cuda.reset_peak_memory_stats()
     with Kept(strips, "_row_scan") as scans, Kept(rans_bin, "fold") as folds, \
+            Kept(strips, "_model_planes") as models, \
             StageClock(p3_stage_targets(strips)) as clock:
         t0 = time.perf_counter()
         conts, n8, n3 = _entry_codes(lambda: strips.encode_batch(corpus, th=th, device=dev))
@@ -987,9 +1028,14 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
           f"strips.encode_batch {n_px / enc_s / 1e6:.4f} MPix/s ({enc_s:.2f} s), peak "
           f"device memory {peak:.2f} GiB; stages ms "
           + ", ".join(f"{k} {v:.1f} ({100 * v / total:.1f}%)" for k, v in stages.items())
-          + f"; launches K8 {n8} K3 {n3} K1 {encode_fold.launches} K2 "
-          f"{decode_groups.launches} ({card})", flush=True)
-    if not (n8 > 0 and n3 > 0 and len(scans.calls) == 1 and len(folds.calls) == 1):
+          + f"; launches K10 {MODEL_MAIN['last'][0]} K11 {MODEL_MAIN['last'][1]} K8 {n8} K3 "
+          f"{n3} K1 {encode_fold.launches} K2 {decode_groups.launches} ({card})", flush=True)
+    if not (n8 > 0 and n3 > 0 and min(MODEL_MAIN["last"]) > 0 and len(scans.calls) == 1
+            and len(folds.calls) == 1 and len(models.calls) == 1):
+        return None
+    # K10 and K11 against their plain versions on the corpus's own strips
+    model = _model_case(f"the corpus at th {th}", models.calls.pop(), card)
+    if model is None:
         return None
     # K8 and K3 against their plain versions on the corpus's own planes and
     # slots (the plain scan and fold run once each here)
@@ -1014,8 +1060,9 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
 
     # ---- the public route (a 16x32 image: 512 steps to decode)
     img = synth_image(np.random.default_rng(6), 16, 32)
-    via_api = api.compress_tiled(img, effort=3, device=dev)
-    routed = via_api == strips.encode(img, device=dev) and via_api[10] == 3
+    via_api = _entry_codes(lambda: api.compress_tiled(img, effort=3, device=dev))[0]
+    routed = (via_api == strips.encode(img, device=dev) and via_api[10] == 3
+              and min(MODEL_MAIN["last"]) > 0)
     print(f"[p3 api] compress_tiled(effort=3) on a 16x32 image: profile {via_api[10]}, "
           f"{len(via_api)} B, equal to strips.encode {routed}", flush=True)
     if not (same and routed):
@@ -1109,7 +1156,7 @@ def _p3_phase(api, tiled, corpus, dev, card, pool, cpu_job):
     print(f"[p3 decode] the cpu's decodes of the {len(cpu_groups)} groups (the pairs, each "
           f"fixture, corpus images {picks}) equal the card's {same} (waited {wait_s:.1f} s "
           f"for them)", flush=True)
-    return (conts, pair_conts, k4, seen[0], (n8, n3), k8, k3) if same else None
+    return (conts, pair_conts, k4, seen[0], (n8, n3), k8, k3, model) if same else None
 
 
 def _division_paths(walk, n_px: int, bins=None) -> tuple:
@@ -1358,6 +1405,107 @@ def _k8_case(what, args, near: bool, card, reps: int = 3):
     return (err if same else None), ms, pms, bound
 
 
+def _model_case(what, args, card, reps: int = 3):
+    """The modeling pass on its own input (``args`` of strips._model_planes
+    on card tensors): the whole pass on K10 and K11 against the plain
+    loops on the card (pavp.predict_plane_loops), each with its time and
+    its peak device memory above what it found; then K10 (the model's
+    statistics, and the mix chains under mix_e) and K11 against their
+    plain versions on the same tensors, exact, each timed (median of
+    ``reps``) beside its bound and floor.  The launches made here are
+    comparisons, not the main path's.  Returns None on a mismatch, else
+    K10's and K11's (max error, ms, plain ms, bound) for the kernels line."""
+    import torch
+
+    from nblic_tpu_torch.ops import model_pass as mp
+    from nblic_tpu_torch.ops import pavp
+
+    x, n, seg_w, mix, w_quant = args
+    shape = tuple(x.shape)
+    lanes, h, w = shape
+    p = x.numel()
+    m = pavp.get_m(n)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    want_px, plain_pass_ms = _timed(lambda: pavp.predict_plane_loops(x, n, seg_w, mix, w_quant))
+    plain_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    got_px, pass_ms = _timed(lambda: mp.predict_plane(x, n, seg_w, mix, w_quant))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    same_pass = torch.equal(got_px, want_px)
+    print(f"[p3 model pass] {what}: {lanes} lanes x {h} x {w}, seg_w {seg_w} mix {mix} w_quant "
+          f"{w_quant}: the pass on K10 and K11 {pass_ms:.1f} ms, peak {peak:.2f} GiB above "
+          f"what it found | the plain loops on the card {plain_pass_ms:.1f} ms "
+          f"({plain_pass_ms / pass_ms:.0f}x), peak {plain_peak:.2f} GiB | px0 equal "
+          f"{same_pass} ({card})", flush=True)
+    del want_px, got_px
+
+    def err(a, b):
+        return 0 if torch.equal(a, b) else int((a.long() - b.long()).abs().max())
+
+    fe, px_s = mp.features(x, n)
+    form, seg = mp.form_of(w, seg_w, w_quant)
+    preds = px_s.reshape(1, -1)
+    blocks = mp._moment_blocks(n, p)
+    stats = mp.chains(fe, preds, shape, n, seg_w, w_quant)
+    want, pms10 = _timed(lambda: mp.chains_plain(fe, preds, shape, n, seg_w, w_quant))
+    err10 = err(stats, want)
+    del want
+    ms10 = _cuda_ms(lambda: mp.chains(fe, preds, shape, n, seg_w, w_quant), reps)
+    rows = stats.shape[0]
+    rows_seg = seg if form == mp.HOLD else 1
+    got11 = mp.solve(stats, fe, px_s.reshape(-1), n, rows_seg, w_quant)
+    want11, pms11 = _timed(lambda: mp.solve_plain(stats, fe, px_s.reshape(-1), n, rows_seg,
+                                                  w_quant))
+    err11 = max(err(a, b) for a, b in zip(got11, want11))
+    failed = int((~want11[1]).sum())
+    del want11
+    ms11 = _cuda_ms(lambda: mp.solve(stats, fe, px_s.reshape(-1), n, rows_seg, w_quant), reps)
+    del stats
+    launches = 1 + len(blocks)
+    n_bytes = rows * m * 8 + p * (n + 2) * 4
+    n_ops = p * m * K10_OPS
+    steps = launches * (h + w)
+    ms_mix = pms_mix = 0.0
+    if mix:
+        mix_preds = torch.stack([got11[0], px_s.reshape(-1)])
+        got_m = mp.chains(fe, mix_preds, shape, n)
+        want_m, pms_mix = _timed(lambda: mp.chains_plain(fe, mix_preds, shape, n))
+        err10 = max(err10, err(got_m, want_m))
+        ms_mix = _cuda_ms(lambda: mp.chains(fe, mix_preds, shape, n), reps)
+        n_bytes += p * 2 * 8 + p * (n + 3) * 4
+        n_ops += p * 2 * K10_OPS
+        steps += h + w
+    bound10 = _bound(n_bytes, n_ops)
+    floor10 = max(bound10[0], 1e3 * steps * K10_STEP_CYCLES / CLOCK_HZ)
+    print(f"[K10 p3_model_chains] {what}: {lanes} lanes x {h} x {w}, {m} channels, form "
+          f"{('plain', 'freeze', 'hold')[form]}, {rows} statistics rows; {launches} launches "
+          f"(energy, then {len(blocks)} of moments){' + 1 mix' if mix else ''}: exact "
+          f"{err10 == 0} (max error {err10}); K10 {ms10 + ms_mix:.3f} ms (median of {reps}; "
+          f"statistics {ms10:.3f}, mix {ms_mix:.3f}) | plain {pms10 + pms_mix:.1f} ms "
+          f"({(pms10 + pms_mix) / (ms10 + ms_mix):.0f}x) | bound {bound10[0]:.4f} ms "
+          f"({bound10[1]}: {n_bytes / 1e9:.3f} GB written and read once, {K10_OPS} ops a "
+          f"channel and pixel) | floor {floor10:.4f} ms ({steps} dependent chain steps, "
+          f"{K10_STEP_CYCLES} cycles each) | launches on the entry point "
+          f"{MODEL_MAIN['last'][0]} ({card})", flush=True)
+    n_bytes11 = rows * m * 8 + p * (n + 2) * 4 + p * 5
+    n_ops11 = rows * K11_OPS[w_quant] + (p * K11_WQ_PIXEL_OPS if w_quant else 0)
+    bound11 = _bound(n_bytes11, n_ops11)
+    floor11 = max(bound11[0], 1e3 * -(-rows // K11_WARPS) * K11_PATH_CYCLES / CLOCK_HZ)
+    print(f"[K11 p3_model_solve] {what}: {rows} systems of n = {n}, {p} pixels "
+          f"({'w_pred, ' if w_quant else ''}{failed} failed pivots): exact {err11 == 0} (max "
+          f"error {err11}); K11 {ms11:.3f} ms (median of {reps}) | plain {pms11:.1f} ms "
+          f"({pms11 / ms11:.0f}x) | bound {bound11[0]:.4f} ms ({bound11[1]}: "
+          f"{K11_OPS[w_quant]} ops a system) | floor {floor11:.4f} ms (the systems over "
+          f"{K11_WARPS} resident warps, {K11_PATH_CYCLES} cycles of dependent path each) | "
+          f"launches on the entry point {MODEL_MAIN['last'][1]} ({card})", flush=True)
+    if not (same_pass and err10 == 0 and err11 == 0):
+        return None
+    return ((err10, ms10 + ms_mix, pms10 + pms_mix, bound10),
+            (err11, ms11, pms11, bound11))
+
+
 def _k3_bound_floor(args) -> tuple:
     """(bound, floor, the earlier design's floor, text, live slots, the
     longest chain's) of K3 on its arguments: the bound over the fold's
@@ -1407,12 +1555,17 @@ def _k3_case(what, args, card, reps: int = 3):
 
 
 def _entry_codes(fn):
-    """``fn()`` with K8's and K3's counts set to 0 just before and read
-    just after: (its result, K8's launches, K3's)."""
-    from nblic_tpu_torch.ops import rans_bin, row_scan
+    """``fn()`` with K8's, K3's, K10's and K11's counts set to 0 just before
+    and read just after: (its result, K8's launches, K3's); K10's and
+    K11's go to MODEL_MAIN (and its "last")."""
+    from nblic_tpu_torch.ops import model_pass, rans_bin, row_scan
 
     row_scan.scan.launches = rans_bin.fold_card.launches = 0
+    model_pass.chains.launches = model_pass.solve.launches = 0
     out = fn()
+    MODEL_MAIN["chains"] += model_pass.chains.launches
+    MODEL_MAIN["solve"] += model_pass.solve.launches
+    MODEL_MAIN["last"] = (model_pass.chains.launches, model_pass.solve.launches)
     return out, row_scan.scan.launches, rans_bin.fold_card.launches
 
 
@@ -1964,6 +2117,7 @@ def _p3_full_encode(corpus, dev, card, full_job, reps: int = 3):
     ((cont,),) = full_job.result()
     torch.cuda.synchronize()
     with Kept(strips, "_row_scan") as scans, Kept(rans_bin, "fold") as folds, \
+            Kept(strips, "_model_planes") as models, \
             StageClock(p3_stage_targets(strips)) as clock:
         t0 = time.perf_counter()
         mine, n8, n3 = _entry_codes(lambda: strips.encode(corpus[0], th=P3_FULL_TH, device=dev))
@@ -1975,7 +2129,10 @@ def _p3_full_encode(corpus, dev, card, full_job, reps: int = 3):
           f"strips.encode on the card {enc_s:.2f} s, {8.0 * len(mine) / corpus[0].size:.4f} "
           f"bpp, container equal to the cpu's byte for byte {same}; stages ms "
           + ", ".join(f"{k} {v:.1f} ({100 * v / total:.1f}%)" for k, v in stages.items())
-          + f"; launches K8 {n8} K3 {n3} ({card})", flush=True)
+          + f"; launches K10 {MODEL_MAIN['last'][0]} K11 {MODEL_MAIN['last'][1]} K8 {n8} K3 "
+          f"{n3} ({card})", flush=True)
+    if _model_case(f"that encode's pass at th {P3_FULL_TH}", models.calls.pop(), card) is None:
+        return None
     args8, args3 = scans.calls.pop(), folds.calls.pop()
     *planes, n_imgs, tune = args8
     got = strips._row_scan(*args8)
@@ -1987,7 +2144,7 @@ def _p3_full_encode(corpus, dev, card, full_job, reps: int = 3):
     text3 = _k3_bound_floor(args3)[3]
     print(f"[K3 bin_fold] that encode's fold, {tuple(args3[0].shape)}: K3 {ms3:.3f} ms "
           f"(median of {reps}) | {text3} ({card})", flush=True)
-    return (n8, n3) if same and n8 > 0 and n3 > 0 else None
+    return (n8, n3) if same and n8 > 0 and n3 > 0 and min(MODEL_MAIN["last"]) > 0 else None
 
 
 # the native runtime's corpus runs: (label, near, effort, n_threads)
@@ -2726,7 +2883,7 @@ def main() -> int:
                   "or nblic_tpu's pixels, or the route")
             return 1
         p3_conts, pair_conts, k4_launches, walk_args, (k8_launches, k3_launches), k8_stats, \
-            k3_stats = p3
+            k3_stats, (k10_stats, k11_stats) = p3
         print(f"[p3] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         p3_near = _p3_near_phase(tiled, corpus, dev, card, near_job)
@@ -2753,8 +2910,9 @@ def main() -> int:
               f"entry points {k4_launches}", flush=True)
         full = _p3_full_encode(corpus, dev, card, full_job)
         if full is None:
-            print("[p3 full] failed: the card's th-768 container differed from the CPU's, or "
-                  "K8 or K3 never launched")
+            print("[p3 full] failed: the card's th-768 container differed from the CPU's, the "
+                  "modeling pass's kernels differed from their plain versions, or K10, K11, K8 "
+                  "or K3 never launched")
             return 1
         k8_launches += full[0]
         k3_launches += full[1]
@@ -2789,6 +2947,9 @@ def main() -> int:
     if K9_MAIN["launches"] <= 0:
         print("[K9] failed: K9 never launched on the entry points")
         return 1
+    if min(MODEL_MAIN["chains"], MODEL_MAIN["solve"]) <= 0:
+        print("[K10 K11] failed: K10 or K11 never launched on the entry points")
+        return 1
     print(f"[time] the whole command {time.perf_counter() - T_START:.1f} s ({card})",
           flush=True)
     print(json.dumps({"kernels": [
@@ -2818,6 +2979,12 @@ def main() -> int:
         row("p3_table_replay", "nblic_tpu_torch/csrc/p3_table_replay.cu",
             "nblic_tpu/models/strips.py:1914", K9_MAIN["launches"], k9_stats,
             note="the tables' replay inside an XLA scan (lax.scan), no pallas_call"),
+        row("p3_model_chains", "nblic_tpu_torch/csrc/p3_model_chains.cu",
+            "nblic_tpu/ops/pavp.py:474", MODEL_MAIN["chains"], k10_stats,
+            note="an XLA scan (lax.scan), no pallas_call"),
+        row("p3_model_solve", "nblic_tpu_torch/csrc/p3_model_solve.cu",
+            "nblic_tpu/ops/pavp.py:346", MODEL_MAIN["solve"], k11_stats,
+            note="an XLA scan (lax.scan), no pallas_call"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

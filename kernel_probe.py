@@ -48,6 +48,25 @@ PROBE is one of:
              chip_smoke.py times it.  Runs on the package beside it, so a
              copy of this file beside an older checkout times that one.
              Builds no variant.
+  p3-model   the profile-3 modeling pass (ops/model_pass.py) at one
+             768x512 image at strip height 768 (one lane) and at a
+             synthetic corpus at 64 (288 lanes), TUNE_V4: the plain pass's
+             parts on the card (the energy chains, the moment chains in
+             blocks of 10 channels, the chunked solve, the mix chains and
+             the blend; host clock and a sync each), then the kernels' in
+             the same call (features; K10's energy launch, its moment
+             launches, its mix launch; K11; the blend; CUDA events, median
+             of 3), each part's output held to the plain one's, with the
+             peak device memory of each path; K10's statistics at the corpus
+             with 1, 2 and 4 GiB of scratch (8, 4 and 2 moment launches),
+             held to each other; then the plain pass at th 768 and the
+             kernels' under torch.profiler: their device launches.  Builds
+             no variant.
+  p3-model-forms  kernel K10 (csrc/p3_model_chains.cu) of the package
+             beside copies that load 1, 4, 8 or 16 chain steps ahead (the
+             package 2) and one whose B pass is held to 64 registers, each
+             the model's statistics at p3-model's two shapes, held exact to
+             the package's, two rounds in opposite orders.
   p3-decode  the profile-3 decode walk (kernel K4) on the card: a
              48x64 and a 64x48 image as one batch at strip height 16 under
              TUNE_V4, TUNE_MAX, TUNE_V4S and TUNE_V1, each round trip held
@@ -189,6 +208,13 @@ CLOCK_HZ = 1.98e9  # the boost clock (Hopper white paper): cycles to time
 K2_SRC = kernels.CSRC / "group_decode.cu"
 K1_SRC = kernels.CSRC / "rans_fold.cu"
 WALK_SRCS = {"k5": kernels.CSRC / "p3_near_walk.cu", "k4": kernels.CSRC / "p3_decode_walk.cu"}
+# K10 (p3_model_chains.cu) forms: the chain steps whose loads a thread
+# issues together (the package's 2), and its B pass held to 64 registers
+# (4 CTAs of 256 threads an SM)
+K10_SRC = kernels.CSRC / "p3_model_chains.cu"
+K10_AHEAD_LINE = "constexpr int kAhead = 2;"
+K10_AHEADS = (1, 4, 8, 16)
+K10_B_BOUNDS = "__global__ void __launch_bounds__(kThreads) b_pass_kernel(ChainArgs a) {"
 WALK_BOUNDS_LINE = "__global__ void __launch_bounds__(kMaxWarps * kWarp)"
 WALK_MIN_CTAS = (5, 9)  # CTAs of 4 warps an SM: <= 102 and <= 56 registers
 # K5 with one part of its chain cut (avp_chain.cuh / udiv64.cuh edits):
@@ -810,6 +836,223 @@ def p3_corpus(card: str) -> bool:
               + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items()) + f" ({card})",
               flush=True)
     return len(conts) == len(corpus)
+
+
+def _p3_model_inputs(dev) -> list:
+    """(label, (L, th, w) int32 strips on the card) of p3-model's shapes."""
+    from nblic_tpu_torch.models import strips
+
+    rng = np.random.default_rng(0)
+    corpus = [synth_image(rng, 512, 768) for _ in range(18)]
+    corpus += [synth_image(rng, 768, 512) for _ in range(6)]
+    out = []
+    for label, imgs, th in (("th 768, one image", corpus[:1], 768),
+                            ("th-64 corpus", corpus, 64)):
+        st, *_ = strips._prepare(imgs, th)
+        b, s, th_, w = st.shape
+        out.append((label, torch.from_numpy(st).to(dev).reshape(b * s, th_, w).to(torch.int32)))
+    return out
+
+
+def _plain_model_parts(x, n: int) -> tuple[dict, dict]:
+    """The plain modeling pass on card tensors under TUNE_V4 (mix_e, no
+    segments), part by part ({part: output}, {part: ms by host clock and
+    a sync})."""
+    from nblic_tpu_torch.ops import model_pass, pavp
+    from nblic_tpu_torch.ops.avp import BETA, FB1
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    out, ms = {}, {}
+    shape = tuple(x.shape)
+    (fe, px_s), ms["features"] = timed(lambda: model_pass.features(x, n))
+    xl = x.to(torch.int64)
+    s_curr = torch.abs(xl - px_s.to(torch.int64)) << FB1
+    out["energy"], ms["energy chains"] = timed(
+        lambda: pavp._run_chains(s_curr[None], BETA, 0, False)[0])
+    del s_curr
+    out["stats"], ms["moment chains"] = timed(
+        lambda: model_pass.chains_plain(fe, px_s.reshape(1, -1), shape, n))
+    # chains_plain runs the energy chains again before the moments
+    ms["moment chains"] -= ms["energy chains"]
+    (px_hard, ok), ms["solve"] = timed(lambda: model_pass.solve_plain(
+        out["stats"], fe, px_s.reshape(-1), n))
+    preds = torch.stack([px_hard, px_s.reshape(-1)])
+    out["mix"], ms["mix chains"] = timed(lambda: model_pass.chains_plain(fe, preds, shape, n))
+    out["px"], ms["blend"] = timed(lambda: pavp.mix_blend(
+        px_hard, px_s.reshape(-1), out["mix"][:, 0], out["mix"][:, 1], ok))
+    out["px_hard"] = px_hard
+    return out, ms
+
+
+def _kernel_model_parts(x, n: int, reps: int = 3) -> tuple[dict, dict]:
+    """The modeling pass on K10 and K11 under TUNE_V4, part by part
+    ({part: output}, {part: CUDA-event median ms of ``reps``})."""
+    from nblic_tpu_torch.ops import model_pass as mp
+    from nblic_tpu_torch.ops import pavp
+
+    out, ms = {}, {}
+    shape = tuple(x.shape)
+    p = x.numel()
+    fe, px_s = mp.features(x, n)
+    ms["features"] = _ms(lambda: mp.features(x, n), reps)
+    dev = x.device
+    blocks = mp._moment_blocks(n, p)
+    ssum = torch.empty(p, dtype=torch.int32, device=dev)
+    srecip = torch.empty(p, dtype=torch.int64, device=dev)
+    scratch = torch.empty(p * max(k for _, k in blocks), dtype=torch.int64, device=dev)
+    stats = torch.empty((p, pavp.get_m(n)), dtype=torch.int64, device=dev)
+    preds = px_s.reshape(1, -1)
+
+    def energy():
+        mp._launch_chains(mp.ENERGY, fe, preds, ssum, srecip, scratch, stats, shape, n, 0, 1,
+                          0, mp.PLAIN, 1)
+
+    def moments():
+        for q0, k in blocks:
+            mp._launch_chains(mp.MOMENTS, fe, preds, ssum, srecip, scratch, stats, shape, n, q0,
+                              k, 1 + q0, mp.PLAIN, 1)
+
+    ms["K10 energy"] = _ms(energy, reps)
+    ms[f"K10 moments ({len(blocks)} launches)"] = _ms(moments, reps)
+    out["stats"] = stats
+    out["energy"] = stats[:, 0]
+    (px_hard, ok) = mp.solve(stats, fe, px_s.reshape(-1), n)
+    ms["K11"] = _ms(lambda: mp.solve(stats, fe, px_s.reshape(-1), n), reps)
+    mix_preds = torch.stack([px_hard, px_s.reshape(-1)])
+    out["mix"] = mp.chains(fe, mix_preds, shape, n)
+    ms["K10 mix"] = _ms(lambda: mp.chains(fe, mix_preds, shape, n), reps)
+    out["px"] = pavp.mix_blend(px_hard, px_s.reshape(-1), out["mix"][:, 0], out["mix"][:, 1],
+                               ok)
+    ms["blend"] = _ms(lambda: pavp.mix_blend(px_hard, px_s.reshape(-1), out["mix"][:, 0],
+                                             out["mix"][:, 1], ok), reps)
+    out["px_hard"] = px_hard
+    ms["whole pass"] = _ms(lambda: mp.predict_plane(x, n, mix=True), reps)
+    return out, ms
+
+
+def p3_model(card: str) -> bool:
+    from nblic_tpu_torch.ops import model_pass
+
+    dev = torch.device("cuda")
+    n = 10
+    ok = True
+    inputs = _p3_model_inputs(dev)
+    model_pass.predict_plane(inputs[0][1][:, :32, :48].contiguous(), n, mix=True)  # warm-up
+    for label, x in inputs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        plain, pms = _plain_model_parts(x, n)
+        plain_peak = torch.cuda.max_memory_allocated() / 2**30
+        plain = {k: v.cpu() for k, v in plain.items()}  # the card holds one path's planes
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mine, kms = _kernel_model_parts(x, n)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        same = {k: torch.equal(mine[k].reshape(plain[k].shape).cpu(), plain[k])
+                for k in ("energy", "stats", "px_hard", "mix", "px")}
+        del mine
+        ok &= all(same.values())
+        l, th, w = x.shape
+        print(f"[p3-model] {label} ({l} lanes x {th} x {w}): plain on the card "
+              f"{sum(pms.values()):.1f} ms (" + ", ".join(f"{k} {v:.1f}" for k, v in pms.items())
+              + f"), peak {plain_peak:.2f} GiB | kernels "
+              + ", ".join(f"{k} {v:.3f}" for k, v in kms.items())
+              + f" ms, peak {peak:.2f} GiB | equal {same} ({card})", flush=True)
+    # K10's statistics at the corpus against the scratch budget (the moment
+    # launches' channels), each held to the default's
+    label, x = inputs[1]
+    fe, px_s = model_pass.features(x, n)
+    preds, shape = px_s.reshape(1, -1), tuple(x.shape)
+    default, ref = model_pass.SCRATCH_BYTES, None
+    try:
+        for budget in (1 << 30, default, 1 << 32):
+            model_pass.SCRATCH_BYTES = budget
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = model_pass.chains(fe, preds, shape, n)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            same = ref is None or torch.equal(got, ref)
+            ok &= same
+            if ref is None:
+                ref = got
+            del got
+            ms = _ms(lambda: model_pass.chains(fe, preds, shape, n), 3)
+            blocks = model_pass._moment_blocks(n, fe.shape[0])
+            print(f"[p3-model] {label}, K10's statistics with {budget / 2**30:.0f} GiB of "
+                  f"scratch: {len(blocks)} moment launches of {blocks[0][1]} channels, {ms:.3f} "
+                  f"ms (median of 3), peak {peak:.2f} GiB above what it found, equal {same} "
+                  f"({card})", flush=True)
+    finally:
+        model_pass.SCRATCH_BYTES = default
+    del ref, fe, px_s, preds
+    # device launches of each path at th 768
+    label, x = inputs[0]
+    for name, fn in (("plain", lambda: _plain_model_parts(x, n)),
+                     ("kernels", lambda: model_pass.predict_plane(x, n, mix=True))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dev_ms, count = _device_kernels(prof)
+        print(f"[p3-model] {label}, {name} pass under torch.profiler: {count} device launches "
+              f"(kernels and copies), {dev_ms:.1f} ms of device time, {wall:.1f} s with the "
+              f"profiler ({card})", flush=True)
+    return ok
+
+
+class _K10Lib:
+    """The package's kernel library with K10's C entry taken from a
+    variant build."""
+
+    def __init__(self, path: Path):
+        pkg = kernels.library()
+        fn = ctypes.CDLL(str(path)).nbt_p3_model_chains
+        fn.argtypes, fn.restype = pkg.nbt_p3_model_chains.argtypes, ctypes.c_int
+        self.nbt_p3_model_chains = fn
+        self.nbt_error_string = pkg.nbt_error_string
+
+
+def p3_model_forms(libs: dict, card: str) -> bool:
+    from nblic_tpu_torch.ops import model_pass
+
+    dev = torch.device("cuda")
+    n, ok = 10, True
+    for label, x in _p3_model_inputs(dev):
+        fe, px_s = model_pass.features(x, n)
+        preds, shape = px_s.reshape(1, -1), tuple(x.shape)
+        ref = model_pass.chains(fe, preds, shape, n)
+        runs = {"package (2 ahead)": lambda: model_pass.chains(fe, preds, shape, n)}
+        same = {}
+        for key, path in libs.items():
+            def run(lib=_K10Lib(path)):
+                orig = kernels.library
+                kernels.library = lambda: lib
+                try:
+                    return model_pass.chains(fe, preds, shape, n)
+                finally:
+                    kernels.library = orig
+
+            same[key] = torch.equal(run(), ref)
+            runs[key] = run
+        ok &= all(same.values())
+        del ref
+        times = _rounds(runs)
+        print(f"[p3-model-forms] {label} ({shape[0]} lanes x {shape[1]} x {shape[2]}), K10's "
+              f"statistics (energy and moment launches), ms (median of 20, two rounds): "
+              + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in ts)
+                          + ("" if k not in same else f" (equal {same[k]})")
+                          for k, ts in times.items()) + f" ({card})", flush=True)
+    return ok
 
 
 def p3_decode(card: str) -> bool:
@@ -1560,7 +1803,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probes", nargs="+", choices=("cut-chain", "slot-bits", "k2-width", "fold",
                                                      "build", "near-stages", "p3-stages",
-                                                     "p3-corpus", "p3-decode",
+                                                     "p3-corpus", "p3-model", "p3-model-forms",
+                                                     "p3-decode",
                                                      "p3-near", "p3-walk", "p3-walk-bounds",
                                                      "p3-decode-feat", "p3-scan-phases",
                                                      "near-scan-phases", "replay-phases",
@@ -1599,6 +1843,14 @@ def main(argv=None) -> int:
         for block in (32, 64, 128):
             specs[("fold", block)] = variant(K1_SRC, f"fold_{block}",
                                              [(BLOCK_LINE, f"constexpr int kBlock = {block};")])
+    if "p3-model-forms" in args.probes:
+        for ahead in K10_AHEADS:
+            specs[("k10", f"{ahead} ahead")] = variant(
+                K10_SRC, f"k10_ahead_{ahead}",
+                [(K10_AHEAD_LINE, K10_AHEAD_LINE.replace("= 2;", f"= {ahead};"))])
+        specs[("k10", "B pass at 64 registers")] = variant(
+            K10_SRC, "k10_b_regs_64", [(K10_B_BOUNDS, K10_B_BOUNDS.replace(
+                "(kThreads)", "(kThreads, 4)"))])
     if "p3-walk-bounds" in args.probes:
         for kernel, src in WALK_SRCS.items():
             for n in WALK_MIN_CTAS:
@@ -1718,6 +1970,10 @@ def main(argv=None) -> int:
         ok &= p3_stages(card)
     if "p3-corpus" in args.probes:
         ok &= p3_corpus(card)
+    if "p3-model" in args.probes:
+        ok &= p3_model(card)
+    if of("k10"):
+        ok &= p3_model_forms(of("k10"), card)
     if "p3-decode" in args.probes:
         ok &= p3_decode(card)
     if "p3-near" in args.probes:

@@ -13,6 +13,10 @@ solve per pixel:
 - ``avp.solve_batch``: per-pixel Gaussian elimination with partial
   pivoting, the pixel axis last.
 
+These loops are the plain versions; on the card :func:`predict_plane`
+runs kernels K10 (the chains) and K11 (the solve) through
+``ops/model_pass.py``.
+
 All arithmetic is int64 with C-truncating division (``avp.tdiv``), wrapping
 as the reference's does, so every backend computes the same bits.  Chains
 take (T, C, ...) tensors, T the scanned axis and C the channels.
@@ -253,7 +257,20 @@ def predict_plane(strips, n: int = N_FEAT, seg_w: int = 0, mix: bool = False,
     the hard-fallback prediction with the simple one by squared causal
     decayed |err| energies; incompatible with ``seg_w``.
     ``w_quant``: predict with int32 quantized weights (w_pred).
+    On a CUDA tensor the pass runs on kernels K10 and K11
+    (``ops/model_pass.py``); the loops below serve CPU tensors.
     """
+    if strips.device.type == "cuda":
+        from .model_pass import predict_plane as on_card
+
+        return on_card(strips, n, seg_w=seg_w, mix=mix, w_quant=w_quant)
+    return predict_plane_loops(strips, n, seg_w, mix, w_quant)
+
+
+def predict_plane_loops(strips, n: int = N_FEAT, seg_w: int = 0, mix: bool = False,
+                        w_quant: bool = False):
+    """:func:`predict_plane` by the torch loops on any device: the plain
+    version of the whole pass."""
     if mix and seg_w:
         raise ValueError("mix_e is incompatible with seg_stats")
     s, h, w = strips.shape

@@ -19,8 +19,8 @@ import torch
 from nblic_tpu_torch.convert import group_args, tables_from_numpy
 from nblic_tpu_torch.models import strips, tiled
 from nblic_tpu_torch.ops import (
-    avp, decode, decode_walk, fold, lsq, near_scan, near_walk, rans, rans_bin, row_scan,
-    table_replay,
+    avp, decode, decode_walk, fold, lsq, model_pass, near_scan, near_walk, pavp, rans, rans_bin,
+    row_scan, table_replay,
 )
 from nblic_tpu_torch.utils.synth import edge_images, synth_image
 
@@ -1121,3 +1121,163 @@ def test_bin_fold_reciprocal_step_on_the_card(cuda_device):
     kernels.check(rc, "bin_fold_steps")
     torch.cuda.synchronize()
     np.testing.assert_array_equal(out.cpu().numpy().view(np.uint32), want)
+
+
+# ---- K10 and K11, the profile-3 modeling pass: each held to its plain
+# version on the same card tensors, the pass to the CPU's loops.  The
+# plain chains take H + 2 W torch steps a channel block, so the strips are
+# short.
+
+# (lanes, th, w): one lane, many, odd widths (37: no segment width divides
+# it, so the segment forms fall back to plain chains; 33 under TUNE_V3S /
+# V4S: segments of 11 columns)
+MODEL_SHAPES = {"lane1": (1, 24, 48), "lanes24": (24, 6, 32), "odd37": (3, 9, 37),
+                "odd33": (2, 7, 33), "lanes288": (288, 2, 16)}
+MODEL_TUNES = ["TUNE_V4", "TUNE_V3S", "TUNE_V4S", "TUNE_MAX"]
+
+
+def _model_strips(shape, seed=0):
+    """(lanes, th, w) int32 strips: a synthetic image cut into lanes, its
+    first lane flat and its second a 0 / 255 checkerboard where there are
+    several."""
+    lanes, th, w = shape
+    x = synth_image(np.random.default_rng(seed), lanes * th, w).reshape(lanes, th, w)
+    x = x.astype(np.int32)
+    if lanes > 1:
+        x[0] = 77
+        x[1] = (np.add.outer(np.arange(th), np.arange(w)) % 2) * 255
+    return torch.from_numpy(x)
+
+
+def _model_form(tune, w):
+    """(seg_w, mix, w_quant) of a contract at width w, as strips.encode_batch
+    gives them."""
+    seg_w = w // strips._eff_seg(tune.n_seg, w) if tune.seg_stats else 0
+    return seg_w, bool(tune.mix_e), bool(tune.w_pred)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tune", MODEL_TUNES)
+@pytest.mark.parametrize("shape", list(MODEL_SHAPES))
+def test_model_chains_kernel_matches_plain(cuda_device, tune, shape):
+    dims = MODEL_SHAPES[shape]
+    seg_w, mix, w_quant = _model_form(getattr(strips, tune), dims[2])
+    fe, px_s = model_pass.features(_model_strips(dims).to(cuda_device), 10)
+    preds = px_s.reshape(1, -1)
+    before = model_pass.chains.launches
+    got = model_pass.chains(fe, preds, dims, 10, seg_w, w_quant)
+    torch.cuda.synchronize()
+    assert model_pass.chains.launches > before
+    want = model_pass.chains_plain(fe, preds, dims, 10, seg_w, w_quant)
+    assert got.shape == want.shape and torch.equal(got, want)
+    if mix:
+        hard = torch.clamp(px_s + (fe[:, 0].reshape(px_s.shape) % 7) - 3, 0, 255)
+        preds = torch.stack([hard.reshape(-1), px_s.reshape(-1)]).to(torch.int32)
+        got = model_pass.chains(fe, preds, dims, 10)
+        assert torch.equal(got, model_pass.chains_plain(fe, preds, dims, 10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [1 << 20, 1 << 14])
+def test_model_chains_kernel_in_small_launches(cuda_device, monkeypatch, budget):
+    """The moment channels cut into several K10 launches (as at the th-64
+    corpus), the scratch reused between them."""
+    monkeypatch.setattr(model_pass, "SCRATCH_BYTES", budget)
+    dims = MODEL_SHAPES["lanes24"]
+    fe, px_s = model_pass.features(_model_strips(dims, 3).to(cuda_device), 10)
+    before = model_pass.chains.launches
+    got = model_pass.chains(fe, px_s.reshape(1, -1), dims, 10)
+    n_launch = model_pass.chains.launches - before
+    assert n_launch == 1 + len(model_pass._moment_blocks(10, fe.shape[0])) > 2
+    assert torch.equal(got, model_pass.chains_plain(fe, px_s.reshape(1, -1), dims, 10))
+
+
+def _model_systems(n, rows, seed):
+    """(rows, m) int64 statistics: ridge systems at the chains'
+    magnitudes, zero ones (ok false), wrapping ones, INT64_MIN pivots and
+    int64 edges."""
+    rng = np.random.default_rng(seed)
+    m = pavp.get_m(n)
+    st = rng.integers(-(1 << 40), 1 << 40, size=(m, rows))
+    a = st[1 + n :].reshape(n, n, rows)
+    a += (np.eye(n, dtype=np.int64) << 44)[:, :, None]
+    q = rows // 8
+    a[:, :, :q] = -(np.eye(n, dtype=np.int64) * (8 * n))[:, :, None]
+    st[:, q : 2 * q] = rng.integers(-(1 << 62), 1 << 62, size=(m, q))
+    a[:, 0, 2 * q : 3 * q] = np.iinfo(np.int64).min
+    a[0, 0, 2 * q : 3 * q] = np.iinfo(np.int64).max - 8 * n + 1
+    pick = rng.random((m, q))
+    blk = st[:, 3 * q : 4 * q]
+    blk[pick < 0.2] = np.iinfo(np.int64).min
+    blk[pick > 0.9] = np.iinfo(np.int64).max
+    return torch.from_numpy(st.T.copy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [10, 6, 12])
+@pytest.mark.parametrize("w_quant,seg", [(False, 1), (True, 1), (True, 4), (True, 11)])
+def test_model_solve_kernel_matches_plain(cuda_device, n, w_quant, seg):
+    rows = 4096
+    stats = _model_systems(n, rows, n + seg).to(cuda_device)
+    rng = np.random.default_rng(seg)
+    fe = torch.from_numpy(rng.integers(-128, 128, size=(rows * seg, n + 1)).astype(np.int32))
+    px_s = torch.from_numpy(rng.integers(0, 256, size=rows * seg).astype(np.int32))
+    fe, px_s = fe.to(cuda_device), px_s.to(cuda_device)
+    before = model_pass.solve.launches
+    got = model_pass.solve(stats, fe, px_s, n, seg, w_quant)
+    torch.cuda.synchronize()
+    assert model_pass.solve.launches == before + 1
+    want = model_pass.solve_plain(stats, fe, px_s, n, seg, w_quant)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not bool(want[1][: rows // 8 * seg].any()) and bool(want[1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tune", MODEL_TUNES)
+@pytest.mark.parametrize("shape", ["lane1", "lanes24", "odd33"])
+def test_model_pass_on_the_card_matches_the_cpu(cuda_device, tune, shape):
+    """pavp.predict_plane on a card tensor (K10 and K11) against its loops
+    on the CPU."""
+    dims = MODEL_SHAPES[shape]
+    seg_w, mix, w_quant = _model_form(getattr(strips, tune), dims[2])
+    x = _model_strips(dims, 5)
+    before = (model_pass.chains.launches, model_pass.solve.launches)
+    got = pavp.predict_plane(x.to(cuda_device), 10, seg_w=seg_w, mix=mix, w_quant=w_quant)
+    assert model_pass.chains.launches - before[0] == (3 if mix else 2)
+    assert model_pass.solve.launches - before[1] == 1
+    want = pavp.predict_plane(x, 10, seg_w=seg_w, mix=mix, w_quant=w_quant)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tune", MODEL_TUNES)
+def test_model_kernels_launch_on_encode_batch(cuda_device, monkeypatch, tune):
+    """strips.encode_batch on the card runs its modeling pass on K10 and
+    K11 (their counters move), and its containers decode to the images."""
+    monkeypatch.setattr(strips, "TUNE", getattr(strips, tune))
+    imgs = [synth_image(np.random.default_rng(k), 32, 48) for k in range(2)]
+    model_pass.chains.launches = model_pass.solve.launches = 0
+    conts = strips.encode_batch(imgs, th=16, device=cuda_device)
+    assert model_pass.chains.launches >= 2 and model_pass.solve.launches == 1
+    for c, im in zip(conts, imgs):
+        assert np.array_equal(strips.decode(c, device=cuda_device), im)
+
+
+@pytest.mark.cuda
+def test_model_kernels_refuse_what_they_cannot_run(cuda_device):
+    dims = (1, 4, 8)
+    fe, px_s = model_pass.features(_model_strips(dims).to(cuda_device), 10)
+    preds = px_s.reshape(1, -1)
+    with pytest.raises(ValueError):
+        model_pass.chains(fe.to(torch.int64), preds, dims, 10)
+    with pytest.raises(ValueError):
+        model_pass.chains(fe, preds.cpu(), dims, 10)
+    with pytest.raises(ValueError):
+        model_pass.chains(fe, preds, dims, 13)
+    stats = model_pass.chains(fe, preds, dims, 10)
+    with pytest.raises(ValueError):
+        model_pass.solve(stats[:, :-1].contiguous(), fe, px_s.reshape(-1), 10)
+    with pytest.raises(ValueError):
+        model_pass.solve(stats, fe, px_s.reshape(-1), 10, seg=4)
+    with pytest.raises(ValueError):
+        model_pass.solve(stats.t(), fe, px_s.reshape(-1), 10)
