@@ -276,7 +276,6 @@ K5_TDIV_SHARES = ((330 / 385, 330 / 480), (45 / 385, 45 / 288), (10 / 385, 10 / 
 # update 450 (s and its reciprocal 350, the channels 100); the window to
 # the unfold 400; the system's stores and the barriers 100.
 K5_PATH_CYCLES = 780 * 9 + 350 + 90 * 9 + 260 + 450 + 400 + 100
-K11_PATH_CYCLES = K5_PATH_CYCLES - 450 - 400
 # K4 per pixel of a lane of p3_decode_kernel<10>, counted as K5's: the AVP
 # chain is K5's without the fold (14), its divisions priced by path on the
 # walk's own input; the coder's work, from the source: a pixel's fixed work
@@ -399,27 +398,28 @@ K9_MAIN = {"launches": 0, "last": 0}  # K9's launches on the entry points, and t
 # weight's add 3, the magnitude 3, the domain test 2, the quotient's
 # multiply-high 6, the sign 3) 20; F's and E's steps 15 each; E + F and the
 # segment test 4: K10_OPS a value.  Its floor, the dependent path: each
-# launch in series (the energy's, then the moments'; the mix's after K11)
-# H + W chain steps, K10_STEP_CYCLES each (the decay's dependent product,
-# multiply-high, shift and add, ~12 instructions at ~4 cycles, and the add).
+# launch in series (the energy's, then the moments'; the mix's after K11);
+# on the wavefront a forward and a reverse pass over each band of w + h
+# steps (and kChainChunk more at each warp boundary) a wave of its CTAs, on
+# the two passes h B steps and 2 w E/F steps a wave of threads (_k10_path);
+# K10_STEP_CYCLES a step (the decay's dependent product, multiply-high,
+# shift and add, ~12 instructions at ~4 cycles, and the add).
 K10_OPS = 69
 K10_STEP_CYCLES = 60
 # K11 (p3_model_solve.cu), a system's operations, from K5's tally of the
-# same warp chain (K5_OTHER_OPS' parts): the system from the statistics
+# same solve (K5_OTHER_OPS' parts): the system from the statistics
 # 482, the pivot search and the divisors 675, the 375 elimination and
 # back-substitution updates 7,125, the prediction 295; their 385 quotients
 # by a divisor's reciprocal (udiv64.cuh: the multiply-high 6, the shift and
 # the add-path's fix 2, the path test 3) 11 each, and the 10 reciprocals
 # (two FP64 divisions and the 128-bit fixes, ~60 each).  Under w_pred the
 # prediction becomes the 10 weights' quantization (~40 each) and a pixel's
-# int32 dot and reduction K11_WQ_PIXEL_OPS.  Its floor: the systems over
-# the resident warps (132 SMs x 64 warps, the most an SM holds), each system's
-# dependent path K11_PATH_CYCLES (K5's path without the pixel's window and
-# moment update).
+# int32 dot and reduction K11_WQ_PIXEL_OPS.  Its floor: a system a thread,
+# the systems over the threads the card holds at once (the CTAs an SM by
+# occupancy), each thread's path its system's operations at one a cycle.
 K11_OPS = {False: 482 + 675 + 7125 + 295 + 385 * 11 + 10 * 60,
            True: 482 + 675 + 7125 + 10 * 40 + 385 * 11 + 10 * 60}
 K11_WQ_PIXEL_OPS = 20
-K11_WARPS = SMS * 16 * 4
 # K10's and K11's launches on the entry points, and the last call's
 MODEL_MAIN = {"chains": 0, "solve": 0, "last": (0, 0)}
 P3_FULL_TH = 768  # the full-depth strip height: one corpus image a lane
@@ -431,7 +431,8 @@ T_START = time.perf_counter()
 def ptxas_summary(report: str, names=("p3_near_row_kernel", "p3_decode_kernel",
                                        "avp_solve_kernel", "p3_row_scan_kernel",
                                        "bin_fold_kernel", "p3_model_solve_kernel",
-                                       "b_pass_kernel", "ef_pass_kernel")) -> list:
+                                       "chains_kernel", "b_pass_kernel", "ef_pass_kernel",
+                                       "weight_kernel")) -> list:
     """One line a kernel instance named in ``names`` from nvcc's ``-Xptxas
     -v`` report: its template arguments, registers, stack frame and spill
     bytes."""
@@ -1447,7 +1448,6 @@ def _model_case(what, args, card, reps: int = 3):
     fe, px_s = mp.features(x, n)
     form, seg = mp.form_of(w, seg_w, w_quant)
     preds = px_s.reshape(1, -1)
-    blocks = mp._moment_blocks(n, p)
     stats = mp.chains(fe, preds, shape, n, seg_w, w_quant)
     want, pms10 = _timed(lambda: mp.chains_plain(fe, preds, shape, n, seg_w, w_quant))
     err10 = err(stats, want)
@@ -1463,10 +1463,11 @@ def _model_case(what, args, card, reps: int = 3):
     del want11
     ms11 = _cuda_ms(lambda: mp.solve(stats, fe, px_s.reshape(-1), n, rows_seg, w_quant), reps)
     del stats
-    launches = 1 + len(blocks)
+    design = mp.chain_design(lanes, h, m - 1, SMS)
+    blocks = [(0, m - 1)] if design == mp.WAVE else mp._moment_blocks(n, p)
+    launches = [(mp.ENERGY, mp.TWO_PASS, 1)] + [(mp.MOMENTS, design, kk) for _, kk in blocks]
     n_bytes = rows * m * 8 + p * (n + 2) * 4
     n_ops = p * m * K10_OPS
-    steps = launches * (h + w)
     ms_mix = pms_mix = 0.0
     if mix:
         mix_preds = torch.stack([got11[0], px_s.reshape(-1)])
@@ -1476,34 +1477,77 @@ def _model_case(what, args, card, reps: int = 3):
         ms_mix = _cuda_ms(lambda: mp.chains(fe, mix_preds, shape, n), reps)
         n_bytes += p * 2 * 8 + p * (n + 3) * 4
         n_ops += p * 2 * K10_OPS
-        steps += h + w
+        launches.append((mp.MIX, mp.TWO_PASS, 2))
+    steps, path = _k10_path(launches, shape)
     bound10 = _bound(n_bytes, n_ops)
     floor10 = max(bound10[0], 1e3 * steps * K10_STEP_CYCLES / CLOCK_HZ)
     print(f"[K10 p3_model_chains] {what}: {lanes} lanes x {h} x {w}, {m} channels, form "
-          f"{('plain', 'freeze', 'hold')[form]}, {rows} statistics rows; {launches} launches "
-          f"(energy, then {len(blocks)} of moments){' + 1 mix' if mix else ''}: exact "
+          f"{('plain', 'freeze', 'hold')[form]}, {rows} statistics rows; {1 + len(blocks)} "
+          f"launches (energy, then the moments "
+          f"{'on the wavefront' if design == mp.WAVE else 'in two passes'})"
+          f"{' + 1 mix' if mix else ''}: exact "
           f"{err10 == 0} (max error {err10}); K10 {ms10 + ms_mix:.3f} ms (median of {reps}; "
           f"statistics {ms10:.3f}, mix {ms_mix:.3f}) | plain {pms10 + pms_mix:.1f} ms "
           f"({(pms10 + pms_mix) / (ms10 + ms_mix):.0f}x) | bound {bound10[0]:.4f} ms "
           f"({bound10[1]}: {n_bytes / 1e9:.3f} GB written and read once, {K10_OPS} ops a "
-          f"channel and pixel) | floor {floor10:.4f} ms ({steps} dependent chain steps, "
-          f"{K10_STEP_CYCLES} cycles each) | launches on the entry point "
-          f"{MODEL_MAIN['last'][0]} ({card})", flush=True)
+          f"channel and pixel) | floor {floor10:.4f} ms (the dependent path: {steps} chain "
+          f"steps in series, {K10_STEP_CYCLES} cycles each; {path}) | launches on "
+          f"the entry point {MODEL_MAIN['last'][0]} ({card})", flush=True)
     n_bytes11 = rows * m * 8 + p * (n + 2) * 4 + p * 5
     n_ops11 = rows * K11_OPS[w_quant] + (p * K11_WQ_PIXEL_OPS if w_quant else 0)
     bound11 = _bound(n_bytes11, n_ops11)
-    floor11 = max(bound11[0], 1e3 * -(-rows // K11_WARPS) * K11_PATH_CYCLES / CLOCK_HZ)
+    from nblic_tpu_torch import kernels
+
+    per_sm = kernels.library().nbt_p3_model_solve_per_sm(n, int(w_quant))
+    resident = max(per_sm, 1) * 32 * SMS
+    floor11 = max(bound11[0], 1e3 * -(-rows // resident) * K11_OPS[w_quant] / CLOCK_HZ)
     print(f"[K11 p3_model_solve] {what}: {rows} systems of n = {n}, {p} pixels "
           f"({'w_pred, ' if w_quant else ''}{failed} failed pivots): exact {err11 == 0} (max "
           f"error {err11}); K11 {ms11:.3f} ms (median of {reps}) | plain {pms11:.1f} ms "
           f"({pms11 / ms11:.0f}x) | bound {bound11[0]:.4f} ms ({bound11[1]}: "
-          f"{K11_OPS[w_quant]} ops a system) | floor {floor11:.4f} ms (the systems over "
-          f"{K11_WARPS} resident warps, {K11_PATH_CYCLES} cycles of dependent path each) | "
-          f"launches on the entry point {MODEL_MAIN['last'][1]} ({card})", flush=True)
+          f"{K11_OPS[w_quant]} ops a system) | floor {floor11:.4f} ms (a system a thread: the "
+          f"systems over {resident} resident threads ({per_sm} one-warp CTAs an SM), "
+          f"{K11_OPS[w_quant]} cycles of path each) | launches on the entry point "
+          f"{MODEL_MAIN['last'][1]} ({card})", flush=True)
     if not (same_pass and err10 == 0 and err11 == 0):
         return None
     return ((err10, ms10 + ms_mix, pms10 + pms_mix, bound10),
             (err11, ms11, pms11, bound11))
+
+
+def _k10_path(launches, shape) -> tuple:
+    """(steps, text) of K10's dependent path over ``launches`` ((kind,
+    design, channels) each, in series) of (S, H, W) strips.  The wavefront:
+    each launch's waves of CTAs one after another, each wave a forward and
+    a reverse pass over every band (model_chain.cuh's chain_steps).  The
+    two passes: a thread a chain, the B pass h steps, the E/F
+    pass 2 w, each in waves of the 2,048 threads an SM holds."""
+    import ctypes
+
+    from nblic_tpu_torch import kernels
+
+    s, h, w = shape
+    steps, parts = 0, []
+    for kind, design, k in launches:
+        if design == 0:
+            waves = [-(-threads // (2048 * SMS)) for threads in (s * w * k, s * h * k)]
+            steps += waves[0] * h + waves[1] * 2 * w
+            parts.append(f"{('energy', 'moments', 'mix')[kind]} two passes: {waves[0]} waves x "
+                         f"{h} B steps, {waves[1]} x {2 * w} E/F steps")
+            continue
+        out = (ctypes.c_int * 5)()
+        kernels.check(kernels.library().nbt_p3_model_chains_plan(h, w, out),
+                      "p3_model_chains_plan")
+        warps, band, bands, full, per_sm = list(out)
+        ctas = s * -(-k // 32)
+        waves = -(-ctas // (max(per_sm, 1) * SMS))
+        last = h - (bands - 1) * band  # the last band's rows, their lag (chain_lag)
+        lag = last - 1 + (last - 1) // (band // warps) * 4
+        per_pass = (bands - 1) * full + -(-(w + lag) // 4) * 4
+        steps += waves * 2 * per_pass
+        parts.append(f"{('energy', 'moments', 'mix')[kind]} {ctas} CTAs of {warps} warps, "
+                     f"{per_sm} an SM, {waves} waves x 2 passes x {per_pass} steps")
+    return steps, "; ".join(parts)
 
 
 def _k3_bound_floor(args) -> tuple:

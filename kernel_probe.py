@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Probes of the port's kernels (K1-K9) and of its encodes, on one NVIDIA GPU.
+"""Probes of the port's kernels (K1-K11) and of its encodes, on one NVIDIA GPU.
 
     python3 kernel_probe.py [--parent PATH] PROBE [PROBE ...]
 
@@ -55,18 +55,37 @@ PROBE is one of:
              blocks of 10 channels, the chunked solve, the mix chains and
              the blend; host clock and a sync each), then the kernels' in
              the same call (features; K10's energy launch, its moment
-             launches, its mix launch; K11; the blend; CUDA events, median
+             launch, its mix launch; K11; the blend; CUDA events, median
              of 3), each part's output held to the plain one's, with the
-             peak device memory of each path; K10's statistics at the corpus
-             with 1, 2 and 4 GiB of scratch (8, 4 and 2 moment launches),
-             held to each other; then the plain pass at th 768 and the
-             kernels' under torch.profiler: their device launches.  Builds
-             no variant.
+             peak device memory of each path; then the plain pass at th
+             768 and the kernels' under torch.profiler: their device
+             launches.  Builds no variant.
   p3-model-forms  kernel K10 (csrc/p3_model_chains.cu) of the package
-             beside copies that load 1, 4, 8 or 16 chain steps ahead (the
-             package 2) and one whose B pass is held to 64 registers, each
-             the model's statistics at p3-model's two shapes, held exact to
+             beside copies with 2 and 8 steps between barriers (the
+             package 4) and with 4 and 16 rows a thread in the 32-lane
+             layout (the package 8), and the package with the moments'
+             layout forced to 1 and to 32 channel lanes a warp, each the
+             model's statistics at p3-model's two shapes, held exact to
              the package's, two rounds in opposite orders.
+  p3-model-phases  kernels K10 (statistics, mix launch) and K11 at
+             p3-model's two shapes: the package's, and K11's copies with
+             two batches of systems in shared memory and with the next
+             batch prefetched into L2, beside the parent design's
+             (--parent: its csrc/, e.g. from `git archive` unpacked in
+             build/: a two-pass K10 with its 2 GiB scratch and a
+             warp-a-system K11), two rounds in opposite orders, each held
+             exact to the other; then builds
+             stamped by clock64() at each phase's end, each thread's
+             cycles summed by phase: the package's K10 (hand-off,
+             contributions, chains and stores, barrier; a thread's step)
+             and K11 (staging, pivot searches, reciprocals, elimination,
+             back substitution, prediction; a system), and the parent's,
+             its stamps put in by text (K10's B pass and E/F pass by loads
+             and chains; K11's statistics and system, pivot searches,
+             reciprocals, elimination rounds, back substitution and
+             prediction on a warp's first lane), each held exact; then
+             K10's statistics in each design at the corpus's strip
+             heights 128 and 256.
   p3-decode  the profile-3 decode walk (kernel K4) on the card: a
              48x64 and a 64x48 image as one batch at strip height 16 under
              TUNE_V4, TUNE_MAX, TUNE_V4S and TUNE_V1, each round trip held
@@ -208,13 +227,133 @@ CLOCK_HZ = 1.98e9  # the boost clock (Hopper white paper): cycles to time
 K2_SRC = kernels.CSRC / "group_decode.cu"
 K1_SRC = kernels.CSRC / "rans_fold.cu"
 WALK_SRCS = {"k5": kernels.CSRC / "p3_near_walk.cu", "k4": kernels.CSRC / "p3_decode_walk.cu"}
-# K10 (p3_model_chains.cu) forms: the chain steps whose loads a thread
-# issues together (the package's 2), and its B pass held to 64 registers
-# (4 CTAs of 256 threads an SM)
+# K10 (p3_model_chains.cu) forms: the steps between barriers (with a ring
+# deep enough, model_chain.cuh: 2 chunks + 1), the rows a thread of the
+# wavefront (the package's 2)
 K10_SRC = kernels.CSRC / "p3_model_chains.cu"
-K10_AHEAD_LINE = "constexpr int kAhead = 2;"
-K10_AHEADS = (1, 4, 8, 16)
-K10_B_BOUNDS = "__global__ void __launch_bounds__(kThreads) b_pass_kernel(ChainArgs a) {"
+K11_SRC = kernels.CSRC / "p3_model_solve.cu"
+K10_CHUNK = ("constexpr int kChainChunk = 4;", "constexpr int kChainRing = 16;")
+K10_CHUNKS = {2: 16, 8: 32}
+K10_ROWS_LINE = "constexpr int kWaveRows = 2;"
+K10_ROWS = (4, 8)
+# K11 (p3_model_solve.cu) with its instance for any count (12) at n = 10
+K11_N10_LINE = "  if (n == 10)\n    return w_quant ?"
+# K11 with two batches of systems in shared memory (the next one's copies
+# in flight while this one is solved); and with the next batch's
+# statistics prefetched into L2 (one bulk prefetch, whole 16 B) before
+# this batch is solved
+K11_STAGES_LINE = "constexpr int kStages = 1;"
+K11_L2_PREFETCH = (
+    "    if (kStages > 1) stage(base + step, sys + ((b + 1) % kStages) * kWords);\n",
+    "    if (lane == 0 && base + step < rows) {\n"
+    "      const long long nxt = base + step;\n"
+    "      const unsigned bytes = static_cast<unsigned>("
+    "(rows - nxt < kSys ? rows - nxt : kSys) * m * 8) & ~15u;\n"
+    "      if (bytes > 0)\n"
+    "        asm volatile(\"cp.async.bulk.prefetch.L2.global [%0], %1;\\n\" "
+    "::\"l\"(stats + nxt * m), \"r\"(bytes) : \"memory\");\n"
+    "    }\n")
+# p3-model-phases: the parent design's K10 and K11 with clock64() stamps
+# put in by text (their phases' ends), each thread's sums added into
+# nbt_probe_phase by atomics at its end
+MODEL_STAMP_PRELUDE = r"""
+#ifndef NBT_PROBE_PHASE_DECLARED
+__device__ unsigned long long nbt_probe_phase[8];
+#endif
+extern "C" int nbt_probe_phases(unsigned long long* dst, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(dst, nbt_probe_phase, 8 * sizeof(unsigned long long));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    err = cudaMemcpyToSymbol(nbt_probe_phase, zero, sizeof(zero));
+  }
+  return static_cast<int>(err);
+}
+#define NBT_T0 long long nbt_last = clock64(); \
+  unsigned long long nbt_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#define NBT_AT(i) { const long long nbt_now = clock64(); nbt_acc[i] += nbt_now - nbt_last; \
+  nbt_last = nbt_now; }
+#define NBT_FLUSH(cond) if (cond) for (int nbt_i = 0; nbt_i < 8; ++nbt_i) \
+  atomicAdd(&nbt_probe_phase[nbt_i], nbt_acc[nbt_i]);
+"""
+# the parent's K10: the B pass's loads and contributions (0), its chain and
+# stores (1); the E/F pass's F loads (2), F chain and stores (3), E's
+# loads (B and F read back, 4), E's chain and stores (5); threads of each
+# pass (6, 7)
+K10_PARENT_STAMPS = [
+    ("namespace {\n\nconstexpr int kThreads = 256;",
+     MODEL_STAMP_PRELUDE + "namespace {\n\nconstexpr int kThreads = 256;"),
+    ("  int64_t bv = 0;\n", "  int64_t bv = 0;\n  NBT_T0\n"),
+    ("                  : 0;\n#pragma unroll\n",
+     "                  : 0;\n    NBT_AT(0)\n#pragma unroll\n"),
+    ("        a.b[(px_top + static_cast<long long>(i0 + u) * a.w) * a.k + c] = bv;\n      }\n"
+     "    }\n  }\n}\n",
+     "        a.b[(px_top + static_cast<long long>(i0 + u) * a.w) * a.k + c] = bv;\n      }\n"
+     "    }\n    NBT_AT(1)\n  }\n  nbt_acc[6] = 1;\n  NBT_FLUSH(true)\n}\n"),
+    ("  const int seg = a.seg;  // 1 where plain: every column a start\n",
+     "  const int seg = a.seg;  // 1 where plain: every column a start\n  NBT_T0\n"),
+    ("    for (int u = 0; u < kAhead; ++u) bu[u] = (i > 0 && j0 - u >= 0) ? "
+     "b_up[(j0 - u) * k] : 0;\n",
+     "    for (int u = 0; u < kAhead; ++u) bu[u] = (i > 0 && j0 - u >= 0) ? "
+     "b_up[(j0 - u) * k] : 0;\n    NBT_AT(2)\n"),
+    ("        at = at == 0 ? seg - 1 : at - 1;\n      }\n    }\n  }\n",
+     "        at = at == 0 ? seg - 1 : at - 1;\n      }\n    }\n    NBT_AT(3)\n  }\n"),
+    ("        at_u = at_u == seg - 1 ? 0 : at_u + 1;\n      }\n    }\n",
+     "        at_u = at_u == seg - 1 ? 0 : at_u + 1;\n      }\n    }\n    NBT_AT(4)\n"),
+    ("        at = at == seg - 1 ? 0 : at + 1;\n      }\n    }\n  }\n}\n",
+     "        at = at == seg - 1 ? 0 : at + 1;\n      }\n    }\n    NBT_AT(5)\n  }\n"
+     "  nbt_acc[7] = 1;\n  NBT_FLUSH(true)\n}\n"),
+]
+K10_PARENT_PHASES = ("B loads and contributions", "B chain and stores", "F loads",
+                     "F chain and stores", "E loads (B, F read back)", "E chain and stores")
+# the parent's K11 (a warp a system), on each warp's first lane: the
+# statistics' load and the system (0), the whole solve (1: 2 to 5), inside
+# it (avp_chain.cuh's warp_solve) the pivot searches and swaps (2), the
+# reciprocals (3), the elimination rounds (4), the back substitution (5);
+# the prediction (6); the systems (7)
+K11_PARENT_STAMPS = [
+    ("namespace {\n\nconstexpr int kWarps = 4;",
+     MODEL_STAMP_PRELUDE + "namespace {\n\nconstexpr int kWarps = 4;"),
+    ("  const long long step = static_cast<long long>(gridDim.x) * kWarps;\n",
+     "  const long long step = static_cast<long long>(gridDim.x) * kWarps;\n  NBT_T0\n"),
+    ("    warp_system<kN>(st, none, sl, sh, n);\n    __syncwarp();\n",
+     "    warp_system<kN>(st, none, sl, sh, n);\n    __syncwarp();\n    NBT_AT(0)\n"),
+    ("    const bool ok = warp_solve<kN>(sh, t, num, n);\n",
+     "    const bool ok = warp_solve<kN>(sh, t, num, n);\n    NBT_AT(1)\n"),
+    ("    __syncwarp();  // this row's reads of sh before the next row's system\n  }\n}\n",
+     "    NBT_AT(6)\n    nbt_acc[7] += 1;\n"
+     "    __syncwarp();  // this row's reads of sh before the next row's system\n  }\n"
+     "  NBT_FLUSH(t == 0)\n}\n"),
+]
+AVP_PARENT_STAMPS = [
+    ("namespace {\n\nconstexpr int kNTaps = 12;",
+     "__device__ unsigned long long nbt_probe_phase[8];\n#define NBT_PROBE_PHASE_DECLARED\n"
+     "#define NBT_SOLVE_AT(i) { const long long nbt_now = clock64(); nbt_p[i] += nbt_now - "
+     "nbt_s; nbt_s = nbt_now; }\nnamespace {\n\nconstexpr int kNTaps = 12;"),
+    ("  bool ok = true;\n  for (int k = 0; k < n - 1; ++k) {\n    // the pivot",
+     "  bool ok = true;\n  long long nbt_s = clock64();\n"
+     "  unsigned long long nbt_p[4] = {0, 0, 0, 0};\n"
+     "  for (int k = 0; k < n - 1; ++k) {\n    // the pivot"),
+    ("      __syncwarp();\n    }\n    const int64_t d = sh.a[k][k];\n",
+     "      __syncwarp();\n    }\n    NBT_SOLVE_AT(0)\n    const int64_t d = sh.a[k][k];\n"),
+    ("    if (t == 0) sh.dv[k] = dv;\n", "    if (t == 0) sh.dv[k] = dv;\n    NBT_SOLVE_AT(1)\n"),
+    ("      if (at[rnd] >= 0) (&sh.a[0][0])[at[rnd]] = upd[rnd];\n    __syncwarp();\n  }\n",
+     "      if (at[rnd] >= 0) (&sh.a[0][0])[at[rnd]] = upd[rnd];\n    __syncwarp();\n"
+     "    NBT_SOLVE_AT(2)\n  }\n"),
+    ("  if (t == 0) sh.dv[n - 1] = last;\n",
+     "  if (t == 0) sh.dv[n - 1] = last;\n  NBT_SOLVE_AT(1)\n"),
+    ("    if (t < k) x = wsub(x, tdiv_by(wmul(xk, sh.a[t][k]), dv));\n  }\n  __syncwarp();\n"
+     "  return ok;\n",
+     "    if (t < k) x = wsub(x, tdiv_by(wmul(xk, sh.a[t][k]), dv));\n  }\n  __syncwarp();\n"
+     "  NBT_SOLVE_AT(3)\n  if (t == 0) for (int nbt_i = 0; nbt_i < 4; ++nbt_i) "
+     "atomicAdd(&nbt_probe_phase[2 + nbt_i], nbt_p[nbt_i]);\n  return ok;\n"),
+]
+K11_PARENT_PHASES = ("statistics load and system", None, "pivot searches and swaps",
+                     "reciprocals", "elimination rounds", "back substitution", "prediction")
+K10_PHASES = ("hand-off (ring, carry) and the next loads' issue",
+              "contributions (waiting on their loads)",
+              "chains and stores", "barrier")
+K11_PHASES = ("statistics load (staging)", "pivot searches and swaps", "reciprocals",
+              "elimination", "back substitution", "prediction")
 WALK_BOUNDS_LINE = "__global__ void __launch_bounds__(kMaxWarps * kWarp)"
 WALK_MIN_CTAS = (5, 9)  # CTAs of 4 warps an SM: <= 102 and <= 56 registers
 # K5 with one part of its chain cut (avp_chain.cuh / udiv64.cuh edits):
@@ -838,17 +977,20 @@ def p3_corpus(card: str) -> bool:
     return len(conts) == len(corpus)
 
 
-def _p3_model_inputs(dev) -> list:
-    """(label, (L, th, w) int32 strips on the card) of p3-model's shapes."""
+P3_MODEL_SHAPES = (("th 768, one image", 1, 768), ("th-64 corpus", 24, 64))
+
+
+def _p3_model_inputs(dev, shapes=P3_MODEL_SHAPES) -> list:
+    """(label, (L, th, w) int32 strips on the card) of p3-model's shapes:
+    (label, images of the corpus, strip height) each."""
     from nblic_tpu_torch.models import strips
 
     rng = np.random.default_rng(0)
     corpus = [synth_image(rng, 512, 768) for _ in range(18)]
     corpus += [synth_image(rng, 768, 512) for _ in range(6)]
     out = []
-    for label, imgs, th in (("th 768, one image", corpus[:1], 768),
-                            ("th-64 corpus", corpus, 64)):
-        st, *_ = strips._prepare(imgs, th)
+    for label, count, th in shapes:
+        st, *_ = strips._prepare(corpus[:count], th)
         b, s, th_, w = st.shape
         out.append((label, torch.from_numpy(st).to(dev).reshape(b * s, th_, w).to(torch.int32)))
     return out
@@ -902,24 +1044,27 @@ def _kernel_model_parts(x, n: int, reps: int = 3) -> tuple[dict, dict]:
     fe, px_s = mp.features(x, n)
     ms["features"] = _ms(lambda: mp.features(x, n), reps)
     dev = x.device
-    blocks = mp._moment_blocks(n, p)
     ssum = torch.empty(p, dtype=torch.int32, device=dev)
     srecip = torch.empty(p, dtype=torch.int64, device=dev)
-    scratch = torch.empty(p * max(k for _, k in blocks), dtype=torch.int64, device=dev)
     stats = torch.empty((p, pavp.get_m(n)), dtype=torch.int64, device=dev)
     preds = px_s.reshape(1, -1)
+    k = n + n * n
+    design = mp.chain_design(shape[0], shape[1], k,
+                             torch.cuda.get_device_properties(dev).multi_processor_count)
+    blocks = [(0, k)] if design == mp.WAVE else mp._moment_blocks(n, p)
 
     def energy():
-        mp._launch_chains(mp.ENERGY, fe, preds, ssum, srecip, scratch, stats, shape, n, 0, 1,
-                          0, mp.PLAIN, 1)
+        mp._launch_chains(mp.ENERGY, fe, preds, ssum, srecip, stats, shape, n, 0, 1, 0,
+                          mp.PLAIN, 1)
 
     def moments():
-        for q0, k in blocks:
-            mp._launch_chains(mp.MOMENTS, fe, preds, ssum, srecip, scratch, stats, shape, n, q0,
-                              k, 1 + q0, mp.PLAIN, 1)
+        for q0, kk in blocks:
+            mp._launch_chains(mp.MOMENTS, fe, preds, ssum, srecip, stats, shape, n, q0, kk,
+                              1 + q0, mp.PLAIN, 1, design)
 
     ms["K10 energy"] = _ms(energy, reps)
-    ms[f"K10 moments ({len(blocks)} launches)"] = _ms(moments, reps)
+    name = "wavefront" if design == mp.WAVE else f"two passes, {len(blocks)} launches"
+    ms[f"K10 moments ({name})"] = _ms(moments, reps)
     out["stats"] = stats
     out["energy"] = stats[:, 0]
     (px_hard, ok) = mp.solve(stats, fe, px_s.reshape(-1), n)
@@ -964,34 +1109,6 @@ def p3_model(card: str) -> bool:
               + f"), peak {plain_peak:.2f} GiB | kernels "
               + ", ".join(f"{k} {v:.3f}" for k, v in kms.items())
               + f" ms, peak {peak:.2f} GiB | equal {same} ({card})", flush=True)
-    # K10's statistics at the corpus against the scratch budget (the moment
-    # launches' channels), each held to the default's
-    label, x = inputs[1]
-    fe, px_s = model_pass.features(x, n)
-    preds, shape = px_s.reshape(1, -1), tuple(x.shape)
-    default, ref = model_pass.SCRATCH_BYTES, None
-    try:
-        for budget in (1 << 30, default, 1 << 32):
-            model_pass.SCRATCH_BYTES = budget
-            torch.cuda.empty_cache()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            got = model_pass.chains(fe, preds, shape, n)
-            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-            same = ref is None or torch.equal(got, ref)
-            ok &= same
-            if ref is None:
-                ref = got
-            del got
-            ms = _ms(lambda: model_pass.chains(fe, preds, shape, n), 3)
-            blocks = model_pass._moment_blocks(n, fe.shape[0])
-            print(f"[p3-model] {label}, K10's statistics with {budget / 2**30:.0f} GiB of "
-                  f"scratch: {len(blocks)} moment launches of {blocks[0][1]} channels, {ms:.3f} "
-                  f"ms (median of 3), peak {peak:.2f} GiB above what it found, equal {same} "
-                  f"({card})", flush=True)
-    finally:
-        model_pass.SCRATCH_BYTES = default
-    del ref, fe, px_s, preds
     # device launches of each path at th 768
     label, x = inputs[0]
     for name, fn in (("plain", lambda: _plain_model_parts(x, n)),
@@ -1010,48 +1127,322 @@ def p3_model(card: str) -> bool:
     return ok
 
 
-class _K10Lib:
-    """The package's kernel library with K10's C entry taken from a
-    variant build."""
+def _swapped_call(entries: dict, fn):
+    """``fn()`` with the package's library's C entries ``entries`` (name:
+    function) replaced."""
+    base, saved = kernels.library(), kernels.library
+    swapped = _SwappedLib(base, **entries)
+    kernels.library = lambda: swapped
+    try:
+        return fn()
+    finally:
+        kernels.library = saved
 
-    def __init__(self, path: Path):
-        pkg = kernels.library()
-        fn = ctypes.CDLL(str(path)).nbt_p3_model_chains
-        fn.argtypes, fn.restype = pkg.nbt_p3_model_chains.argtypes, ctypes.c_int
-        self.nbt_p3_model_chains = fn
-        self.nbt_error_string = pkg.nbt_error_string
+
+def _typed(path: Path, name: str):
+    """C entry ``name`` of a variant library, typed as the package's."""
+    fn = getattr(ctypes.CDLL(str(path)), name)
+    fn.argtypes, fn.restype = getattr(kernels.library(), name).argtypes, ctypes.c_int
+    return fn
 
 
 def p3_model_forms(libs: dict, card: str) -> bool:
+    """K10's statistics (its energy and moment launches) of the package
+    beside copies with other steps between barriers and other rows a
+    thread of the 32-lane layout, and with the design forced to each of
+    the three, at p3-model's shapes, each held exact to the package's, two
+    rounds in opposite orders; then K11's instances and w_pred."""
     from nblic_tpu_torch.ops import model_pass
 
     dev = torch.device("cuda")
     n, ok = 10, True
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, x in _p3_model_inputs(dev):
         fe, px_s = model_pass.features(x, n)
         preds, shape = px_s.reshape(1, -1), tuple(x.shape)
         ref = model_pass.chains(fe, preds, shape, n)
-        runs = {"package (2 ahead)": lambda: model_pass.chains(fe, preds, shape, n)}
-        same = {}
+        runs = {"package": lambda: model_pass.chains(fe, preds, shape, n)}
         for key, path in libs.items():
-            def run(lib=_K10Lib(path)):
-                orig = kernels.library
-                kernels.library = lambda: lib
+            if key.startswith("k11"):
+                continue
+            entries = {name: _typed(path, name) for name in (
+                "nbt_p3_model_chains", "nbt_p3_model_chains_scratch")}
+            runs[key] = lambda e=entries: _swapped_call(
+                e, lambda: model_pass.chains(fe, preds, shape, n))
+        saved = model_pass.chain_design
+        for design, name in ((model_pass.TWO_PASS, "two passes"),
+                             (model_pass.WAVE, "wavefront")):
+            if design == model_pass.WAVE and shape[0] * -(-(n + n * n) // 32) < 2 * sms:
+                continue  # 4 CTAs in all at th 768
+
+            def forced(d=design):
+                model_pass.chain_design = lambda s, h, k, sms: d
                 try:
                     return model_pass.chains(fe, preds, shape, n)
                 finally:
-                    kernels.library = orig
+                    model_pass.chain_design = saved
 
-            same[key] = torch.equal(run(), ref)
-            runs[key] = run
+            runs[f"package, {name}"] = forced
+        runs = {key: run for key, run in runs.items() if not key.startswith("k11")}
+        same = {key: torch.equal(run(), ref) for key, run in runs.items()}
         ok &= all(same.values())
         del ref
         times = _rounds(runs)
         print(f"[p3-model-forms] {label} ({shape[0]} lanes x {shape[1]} x {shape[2]}), K10's "
               f"statistics (energy and moment launches), ms (median of 20, two rounds): "
-              + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in ts)
-                          + ("" if k not in same else f" (equal {same[k]})")
+              + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in ts) + f" (equal {same[k]})"
                           for k, ts in times.items()) + f" ({card})", flush=True)
+        # K11: the instance for any count at n = 10, and w_pred (a system a
+        # segment of 8), each with its CTAs an SM
+        pxs = px_s.reshape(-1)
+        runs11, same11, base11 = {}, {}, None
+        for seg_w, w_quant in ((0, False), (8, True)):
+            stats = model_pass.chains(fe, preds, shape, n, seg_w, w_quant)
+            seg = seg_w if w_quant else 1
+            want = model_pass.solve(stats, fe, pxs, n, seg, w_quant)
+            tag = f"w_pred, a system a segment of {seg}" if w_quant else "a system a pixel"
+            runs11[f"package, {tag}"] = lambda a=(stats, seg, w_quant): model_pass.solve(
+                a[0], fe, pxs, n, a[1], a[2])
+            for key, path in libs.items():
+                if not key.startswith("k11"):
+                    continue
+                entry = {"nbt_p3_model_solve": _typed(path, "nbt_p3_model_solve")}
+                run = (lambda e=entry, a=(stats, seg, w_quant): _swapped_call(
+                    e, lambda: model_pass.solve(a[0], fe, pxs, n, a[1], a[2])))
+                got = run()
+                same11[f"{key}, {tag}"] = all(torch.equal(u, v) for u, v in zip(got, want))
+                runs11[f"{key}, {tag}"] = run
+            del stats
+        ok &= all(same11.values())
+        lib = kernels.library()
+        occ = {f"<{kn}{', w_pred' if wq else ''}>": lib.nbt_p3_model_solve_per_sm(kn, int(wq))
+               for kn in (10, 12) for wq in (0, 1)}
+        times = _rounds(runs11)
+        print(f"[p3-model-forms] {label}, K11 ms (median of 20, two rounds): "
+              + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in ts)
+                          + (f" (equal {same11[k]})" if k in same11 else "")
+                          for k, ts in times.items())
+              + f"; one-warp CTAs an SM by occupancy {occ} ({card})", flush=True)
+    return ok
+
+
+def _parent_chains(fn, fe, preds, shape, n: int):
+    """The parent design's model_pass.chains (the two passes: the energy launch,
+    then the moments in launches whose B scratch stays within 2 GiB) on
+    its C entry ``fn``; the plain form."""
+    from nblic_tpu_torch.ops import model_pass as mp
+    from nblic_tpu_torch.ops import pavp
+
+    s, h, w = shape
+    p, dev = s * h * w, fe.device
+    total = n + n * n
+    k_max = max(1, (1 << 31) // (8 * p))
+    k = -(-total // -(-total // k_max))
+    blocks = [(q, min(k, total - q)) for q in range(0, total, k)]
+    ssum = torch.empty(p, dtype=torch.int32, device=dev)
+    srecip = torch.empty(p, dtype=torch.int64, device=dev)
+    out = torch.empty((p, pavp.get_m(n)), dtype=torch.int64, device=dev)
+    scratch = torch.empty(p * k, dtype=torch.int64, device=dev)
+    for kind, q0, kk, c0 in [(mp.ENERGY, 0, 1, 0)] + [(mp.MOMENTS, q, c, 1 + q)
+                                                       for q, c in blocks]:
+        _checked(fn(kind, fe.data_ptr(), preds.data_ptr(), ssum.data_ptr(), srecip.data_ptr(),
+                    scratch.data_ptr(), out.data_ptr(), s, h, w, n, q0, kk, out.shape[1], c0, 1,
+                    mp.PLAIN, *kernels.stream_of(fe)), "parent K10")
+    return out
+
+
+def _parent_mix(fn, fe, preds, shape, n: int):
+    """The parent design's mix launch (the two mix channels, two passes)
+    on its C entry ``fn``."""
+    from nblic_tpu_torch.ops import model_pass as mp
+
+    s, h, w = shape
+    p, dev = s * h * w, fe.device
+    ssum = torch.empty(p, dtype=torch.int32, device=dev)
+    srecip = torch.empty(p, dtype=torch.int64, device=dev)
+    out = torch.empty((p, 2), dtype=torch.int64, device=dev)
+    scratch = torch.empty(p * 2, dtype=torch.int64, device=dev)
+    _checked(fn(mp.MIX, fe.data_ptr(), preds.data_ptr(), ssum.data_ptr(), srecip.data_ptr(),
+                scratch.data_ptr(), out.data_ptr(), s, h, w, n, 0, 2, 2, 0, 1, mp.PLAIN,
+                *kernels.stream_of(fe)), "parent K10 mix")
+    return out
+
+
+def _parent_solve(fn, stats, fe, px_s, n: int):
+    """The parent design's model_pass.solve on its C entry ``fn``."""
+    p = stats.shape[0]
+    px = torch.empty(p, dtype=torch.int32, device=stats.device)
+    okv = torch.empty(p, dtype=torch.bool, device=stats.device)
+    _checked(fn(stats.data_ptr(), fe.data_ptr(), px_s.data_ptr(), px.data_ptr(), okv.data_ptr(),
+                p, 1, n, 0, *kernels.stream_of(stats)), "parent K11")
+    return px, okv
+
+
+def _phases(path: Path, fn) -> np.ndarray:
+    """The stamp sums of the probe library ``path`` over ``fn()`` (reset
+    first, read after a sync)."""
+    reader = ctypes.CDLL(str(path)).nbt_probe_phases
+    reader.argtypes, reader.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    acc = np.zeros(8, dtype=np.uint64)
+    _checked(reader(acc.ctypes.data, 1), "nbt_probe_phases")
+    out = fn()
+    torch.cuda.synchronize()
+    _checked(reader(acc.ctypes.data, 1), "nbt_probe_phases")
+    return acc.astype(np.float64), out
+
+
+def _split(names, values, total=None) -> str:
+    total = sum(v for name, v in zip(names, values) if name) if total is None else total
+    return ", ".join(f"{name} {v:.1f} ({100 * v / total:.1f}%)" for name, v in zip(names, values)
+                     if name)
+
+
+def p3_model_phases(libs: dict, card: str) -> bool:
+    """K10 and K11 at p3-model's two shapes (TUNE_V4's statistics, plain
+    form): the package's kernels, K10's statistics and its mix launch and
+    K11 (beside its copies with two batches of systems in shared memory
+    and with the next batch prefetched into L2), timed beside the
+    parent design's (``libs`` ("parent k10"), ("parent k11"), with
+    --parent) in two rounds of opposite orders, each held exact to the
+    other; then each design's stamped build, its cycles by phase, its
+    output held exact to the package's; then K10's statistics in each
+    design at the corpus's strip heights 128 and 256, where the package's
+    choice between them is not otherwise measured."""
+    from nblic_tpu_torch.ops import model_pass as mp
+
+    dev = torch.device("cuda")
+    n, ok = 10, True
+    for label, x in _p3_model_inputs(dev):
+        shape = tuple(x.shape)
+        s, h, w = shape
+        fe, px_s = mp.features(x, n)
+        preds, pxs = px_s.reshape(1, -1), px_s.reshape(-1)
+        stats = mp.chains(fe, preds, shape, n)
+        want = mp.solve(stats, fe, pxs, n)
+        mix_preds = torch.stack([want[0], pxs])
+        mix = mp.chains(fe, mix_preds, shape, n)
+        runs10 = {"package": lambda: mp.chains(fe, preds, shape, n)}
+        runs_mix = {"package": lambda: mp.chains(fe, mix_preds, shape, n)}
+        runs11 = {"package": lambda: mp.solve(stats, fe, pxs, n)}
+        same11v = {}
+        for key, path in libs.items():
+            if key in ("k11 two stages", "k11 next batch to L2"):
+                entry = {"nbt_p3_model_solve": _typed(path, "nbt_p3_model_solve")}
+                runs11[key[4:]] = lambda e=entry: _swapped_call(
+                    e, lambda: mp.solve(stats, fe, pxs, n))
+                got = runs11[key[4:]]()
+                same11v[key[4:]] = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ok &= all(same11v.values())
+        parent10 = parent11 = None
+        same_mix = None
+        if "parent k10" in libs:
+            parent10 = ctypes.CDLL(str(libs["parent k10"])).nbt_p3_model_chains
+            parent10.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [
+                ctypes.c_void_p]
+            parent10.restype = ctypes.c_int
+            parent11 = _typed(libs["parent k11"], "nbt_p3_model_solve")
+            runs10["parent"] = lambda: _parent_chains(parent10, fe, preds, shape, n)
+            runs_mix["parent"] = lambda: _parent_mix(parent10, fe, mix_preds, shape, n)
+            runs11["parent"] = lambda: _parent_solve(parent11, stats, fe, pxs, n)
+            same_mix = torch.equal(runs_mix["parent"](), mix)
+            ok &= same_mix
+            same10 = torch.equal(runs10["parent"](), stats)
+            got = runs11["parent"]()
+            same11 = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            ok &= same10 and same11
+            del got
+        t10, t_mix, t11 = _rounds(runs10), _rounds(runs_mix), _rounds(runs11)
+
+        def listed(times):
+            return "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in ts)
+                             for k, ts in times.items())
+
+        print(f"[p3-model-phases] {label} ({s} lanes x {h} x {w}): K10's statistics (energy and "
+              f"moment launches) ms, median of 20, two rounds: {listed(t10)}; K10's mix launch: "
+              f"{listed(t_mix)}; K11: {listed(t11)}"
+              + (f"; the parent's statistics, mix and predictions equal the package's {same10} / "
+                 f"{same_mix} / {same11}" if parent10 else "")
+              + "".join(f"; K11 {k} equals the package's {v}" for k, v in same11v.items())
+              + f" ({card})", flush=True)
+        # the package's stamped builds; K10 on the wavefront even where the
+        # package takes the two passes (they carry no stamps)
+        path = libs["k10 stamped"]
+        entries = {name: _typed(path, name) for name in ("nbt_p3_model_chains",
+                                                         "nbt_p3_model_chains_scratch")}
+        saved = mp.chain_design
+        package = saved(s, h, n + n * n, torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+        mp.chain_design = lambda *args: mp.WAVE
+        try:
+            acc, got = _phases(path, lambda: _swapped_call(entries, runs10["package"]))
+        finally:
+            mp.chain_design = saved
+        same = torch.equal(got, stats)
+        ok &= same
+        del got
+        steps = acc[4]
+        print(f"[p3-model-phases] {label}, K10 stamped (the moments on the wavefront"
+              + ("" if package == mp.WAVE else ", which the package runs in two passes here")
+              + "): cycles a thread and step: " + _split(K10_PHASES, acc[:4] / steps)
+              + f"; {steps:.0f} thread-steps; exact {same} ({card})", flush=True)
+        path = libs["k11 stamped"]
+        entries = {"nbt_p3_model_solve": _typed(path, "nbt_p3_model_solve")}
+        acc, got = _phases(path, lambda: _swapped_call(entries, runs11["package"]))
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ok &= same
+        print(f"[p3-model-phases] {label}, K11 stamped (the package's, a system a thread): "
+              f"cycles a system: " + _split(K11_PHASES, acc[:6] / acc[7])
+              + f"; {acc[7]:.0f} systems; exact {same} ({card})", flush=True)
+        if parent10 is None:
+            continue
+        path = libs["parent k10 stamped"]
+        fn = ctypes.CDLL(str(path)).nbt_p3_model_chains
+        fn.argtypes, fn.restype = parent10.argtypes, ctypes.c_int
+        acc, got = _phases(path, lambda: _parent_chains(fn, fe, preds, shape, n))
+        same = torch.equal(got, stats)
+        ok &= same
+        del got
+        per = np.concatenate([acc[0:2] / (acc[6] * h), acc[2:6] / (acc[7] * w)])
+        print(f"[p3-model-phases] {label}, K10 stamped (the parent's): the B pass, cycles a "
+              f"thread and row: " + _split(K10_PARENT_PHASES[:2], per[:2])
+              + "; the E/F pass, cycles a thread and column: "
+              + _split(K10_PARENT_PHASES[2:], per[2:])
+              + f"; {acc[6]:.0f} B and {acc[7]:.0f} E/F threads; exact {same} ({card})",
+              flush=True)
+        path = libs["parent k11 stamped"]
+        fn = _typed(path, "nbt_p3_model_solve")
+        acc, got = _phases(path, lambda: _parent_solve(fn, stats, fe, pxs, n))
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ok &= same
+        per = acc[:7] / acc[7]
+        print(f"[p3-model-phases] {label}, K11 stamped (the parent's, a warp a system, its "
+              f"first lane): cycles a system: " + _split(K11_PARENT_PHASES, per)
+              + f" (the solve whole {per[1]:.1f}); {acc[7]:.0f} systems; exact {same} ({card})",
+              flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    saved = mp.chain_design
+    for label, x in _p3_model_inputs(dev, (("th-128 corpus", 24, 128),
+                                           ("th-256 corpus", 24, 256))):
+        shape = tuple(x.shape)
+        fe, px_s = mp.features(x, n)
+        preds = px_s.reshape(1, -1)
+        runs = {}
+        for design, name in ((mp.WAVE, "wavefront"), (mp.TWO_PASS, "two passes")):
+            def forced(d=design):
+                mp.chain_design = lambda *args: d
+                try:
+                    return mp.chains(fe, preds, shape, n)
+                finally:
+                    mp.chain_design = saved
+
+            runs[name] = forced
+        same = torch.equal(runs["wavefront"](), runs["two passes"]())
+        ok &= same
+        chosen = saved(shape[0], shape[1], n + n * n, sms)
+        print(f"[p3-model-phases] {label} ({shape[0]} lanes x {shape[1]} x {shape[2]}), K10's "
+              f"statistics in each design, ms, median of 20, two rounds: {listed(_rounds(runs))}"
+              f"; the package takes {'the wavefront' if chosen == mp.WAVE else 'two passes'}; "
+              f"equal {same} ({card})", flush=True)
     return ok
 
 
@@ -1804,13 +2195,15 @@ def main(argv=None) -> int:
     ap.add_argument("probes", nargs="+", choices=("cut-chain", "slot-bits", "k2-width", "fold",
                                                      "build", "near-stages", "p3-stages",
                                                      "p3-corpus", "p3-model", "p3-model-forms",
+                                                     "p3-model-phases",
                                                      "p3-decode",
                                                      "p3-near", "p3-walk", "p3-walk-bounds",
                                                      "p3-decode-feat", "p3-scan-phases",
                                                      "near-scan-phases", "replay-phases",
                                                      "interop"))
     ap.add_argument("--parent", type=Path,
-                    help="cut-chain: also cut this group_decode.cu of the parent design")
+                    help="cut-chain: also cut this group_decode.cu of the parent design; "
+                         "p3-model-phases: the parent design's csrc/ (or a file in it)")
     ap.add_argument("--before", type=Path, action="append", default=[],
                     help="k2-width: also time this group_decode.cu (repeatable)")
     ap.add_argument("--chain-before", type=Path,
@@ -1824,6 +2217,7 @@ def main(argv=None) -> int:
         print("kernel_probe: needs a CUDA GPU", file=sys.stderr)
         return 1
     specs = {}  # (probe, key) -> (name, text)
+    cut_dirs = {}  # (probe, key) -> the directory a variant builds in
     if "cut-chain" in args.probes:
         designs = [("current", K2_SRC, CUTS_CURRENT)]
         if args.parent:
@@ -1844,13 +2238,53 @@ def main(argv=None) -> int:
             specs[("fold", block)] = variant(K1_SRC, f"fold_{block}",
                                              [(BLOCK_LINE, f"constexpr int kBlock = {block};")])
     if "p3-model-forms" in args.probes:
-        for ahead in K10_AHEADS:
-            specs[("k10", f"{ahead} ahead")] = variant(
-                K10_SRC, f"k10_ahead_{ahead}",
-                [(K10_AHEAD_LINE, K10_AHEAD_LINE.replace("= 2;", f"= {ahead};"))])
-        specs[("k10", "B pass at 64 registers")] = variant(
-            K10_SRC, "k10_b_regs_64", [(K10_B_BOUNDS, K10_B_BOUNDS.replace(
-                "(kThreads)", "(kThreads, 4)"))])
+        for chunk, ring in K10_CHUNKS.items():
+            where = PROBE_DIR / f"k10_chunk_{chunk}"
+            where.mkdir(parents=True, exist_ok=True)
+            header = (kernels.CSRC / "model_chain.cuh").read_text()
+            for old, new in zip(K10_CHUNK, (f"constexpr int kChainChunk = {chunk};",
+                                            f"constexpr int kChainRing = {ring};")):
+                if header.count(old) != 1:
+                    raise ValueError(f"{old!r} occurs {header.count(old)} times in "
+                                     "model_chain.cuh")
+                header = header.replace(old, new)
+            (where / "model_chain.cuh").write_text(header)
+            specs[("k10", f"{chunk} steps between barriers")] = (f"k10_chunk_{chunk}",
+                                                                  K10_SRC.read_text())
+            cut_dirs[("k10", f"{chunk} steps between barriers")] = where
+        for rows in K10_ROWS:
+            specs[("k10", f"{rows} rows a thread at 32 lanes")] = variant(
+                K10_SRC, f"k10_rows_{rows}",
+                [(K10_ROWS_LINE, K10_ROWS_LINE.replace("= 2;", f"= {rows};"))])
+        specs[("k10", "k11 <12> at n = 10")] = variant(
+            K11_SRC, "k11_n10_as_12", [(K11_N10_LINE, K11_N10_LINE.replace("n == 10", "false"))])
+    if "p3-model-phases" in args.probes:
+        for tag, src in (("k10", K10_SRC), ("k11", K11_SRC)):
+            specs[("model-phases", f"{tag} stamped")] = (
+                f"{tag}_stamped", "#define NBT_PROBE_STAMPS\n" + src.read_text())
+        if K11_STAGES_LINE in K11_SRC.read_text():
+            specs[("model-phases", "k11 two stages")] = variant(
+                K11_SRC, "k11_two_stages",
+                [(K11_STAGES_LINE, K11_STAGES_LINE.replace("= 1;", "= 2;"))])
+            specs[("model-phases", "k11 next batch to L2")] = variant(
+                K11_SRC, "k11_l2", [K11_L2_PREFETCH])
+        if args.parent:
+            parent = args.parent if args.parent.is_dir() else args.parent.parent
+            for tag, name, stamps, avp_stamps in (
+                    ("k10", "p3_model_chains.cu", K10_PARENT_STAMPS, None),
+                    ("k11", "p3_model_solve.cu", K11_PARENT_STAMPS, AVP_PARENT_STAMPS)):
+                for stamped in (False, True):
+                    key = f"parent {tag}" + (" stamped" if stamped else "")
+                    where = PROBE_DIR / key.replace(" ", "_")
+                    where.mkdir(parents=True, exist_ok=True)
+                    for h in parent.glob("*.cuh"):
+                        text = h.read_text()
+                        if stamped and avp_stamps and h.name == "avp_chain.cuh":
+                            text = variant(h, key, avp_stamps)[1]
+                        (where / h.name).write_text(text)
+                    specs[("model-phases", key)] = variant(parent / name, key.replace(" ", "_"),
+                                                           stamps if stamped else [])
+                    cut_dirs[("model-phases", key)] = where
     if "p3-walk-bounds" in args.probes:
         for kernel, src in WALK_SRCS.items():
             for n in WALK_MIN_CTAS:
@@ -1859,7 +2293,6 @@ def main(argv=None) -> int:
                     [(WALK_BOUNDS_LINE, f"{WALK_BOUNDS_LINE[:-1]}, {n})")])
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
     before_dir = PROBE_DIR / "chain_before"
-    cut_dirs = {}
     if "p3-decode-feat" in args.probes:
         for where in args.decode_variant:
             specs[("k4-feat", where.name)] = (f"k4_{where.name}",
@@ -1974,6 +2407,8 @@ def main(argv=None) -> int:
         ok &= p3_model(card)
     if of("k10"):
         ok &= p3_model_forms(of("k10"), card)
+    if of("model-phases"):
+        ok &= p3_model_phases(of("model-phases"), card)
     if "p3-decode" in args.probes:
         ok &= p3_decode(card)
     if "p3-near" in args.probes:

@@ -138,10 +138,16 @@ def library() -> ctypes.CDLL:
     lib.nbt_bin_fold_steps.restype = i32
     lib.nbt_p3_table_replay.argtypes = [ptr] * 11 + [i32] * 13 + [ptr]
     lib.nbt_p3_table_replay.restype = i32
-    lib.nbt_p3_model_chains.argtypes = [i32] + [ptr] * 6 + [i32] * 11 + [ptr]
+    lib.nbt_p3_model_chains.argtypes = [i32] + [ptr] * 6 + [i32] * 12 + [ptr]
     lib.nbt_p3_model_chains.restype = i32
+    lib.nbt_p3_model_chains_scratch.argtypes = [i32] * 5
+    lib.nbt_p3_model_chains_scratch.restype = i64
+    lib.nbt_p3_model_chains_plan.argtypes = [i32, i32, ptr]
+    lib.nbt_p3_model_chains_plan.restype = i32
     lib.nbt_p3_model_solve.argtypes = [ptr] * 5 + [i64, i32, i32, i32, i32, ptr]
     lib.nbt_p3_model_solve.restype = i32
+    lib.nbt_p3_model_solve_per_sm.argtypes = [i32, i32]
+    lib.nbt_p3_model_solve_per_sm.restype = i32
     lib.nbt_error_string.argtypes = [i32]
     lib.nbt_error_string.restype = ctypes.c_char_p
     return lib

@@ -10,8 +10,9 @@ pass, :func:`predict_plane`:
 1. :func:`features`: the feature planes, pixel-major (P, n + 1) int32
    ``[x - FIT_BASE, tap_0 - FIT_BASE, ...]``, and the simple prediction;
 2. :func:`chains` (K10) over the energy channel, whose E + F gives each
-   pixel's sample weight, then the n + n^2 moment channels: the (rows, m)
-   int64 statistics, a row a pixel, or a segment under w_pred;
+   pixel's sample weight, then the n + n^2 moment channels (one wavefront
+   launch, or two-pass launches within the scratch budget: ``chain_design``):
+   the (rows, m) int64 statistics, a row a pixel, or a segment under w_pred;
 3. :func:`solve` (K11): each row's ridge solve and its pixels' prediction,
    the simple prediction where a pivot was 0;
 4. under mix_e, :func:`chains` over the two mix channels, then
@@ -34,9 +35,11 @@ from .avp import BETA, FB1, FIT_BASE, tdiv
 from .neighbors import sample
 from .predict import simple_predict
 
-# K10's scratch (B after each row, P x k int64) a launch at most: the
-# moment channels go in as few launches as keep within it
-SCRATCH_BYTES = 1 << 31
+# K10's designs (csrc/p3_model_chains.cu): two passes, B through
+# an (S H W, k) int64 scratch; the skewed wavefront at 32 channel lanes a
+# warp, 2 rows a thread (moments only)
+TWO_PASS, WAVE = 0, 32
+SCRATCH_BYTES = 1 << 31  # the most B scratch a two-pass launch takes
 PLAIN, FREEZE, HOLD = 0, 1, 2  # K10's forms: E + F; E decay-extended; both held
 ENERGY, MOMENTS, MIX = 0, 1, 2  # K10's kinds of channel
 
@@ -71,9 +74,20 @@ def features(strips, n: int):
     return fe.reshape(-1, n + 1).to(torch.int32).contiguous(), px_s
 
 
+def chain_design(s: int, h: int, k: int, sms: int) -> int:
+    """K10's design for a launch of ``k`` channels over ``s`` strips of
+    ``h`` rows on a card of ``sms`` SMs: the wavefront for the moments
+    where its (strip, 32-channel block) CTAs fill twice the SMs (the th-64
+    corpus); else the two passes (th 768, where the wavefront would leave
+    4 CTAs in all)."""
+    if k > 2 and s * -(-k // 32) >= 2 * sms:
+        return WAVE
+    return TWO_PASS
+
+
 def _moment_blocks(n: int, p: int) -> list[tuple[int, int]]:
-    """(first, count) of each K10 moment launch: the n + n^2 channels in as
-    few equal launches as keep the scratch within SCRATCH_BYTES."""
+    """(first, count) of each two-pass moment launch: the n + n^2 channels
+    in as few equal launches as keep the scratch within SCRATCH_BYTES."""
     total = n + n * n
     k_max = max(1, SCRATCH_BYTES // (8 * max(p, 1)))
     k = -(-total // -(-total // k_max))
@@ -106,13 +120,16 @@ def chains_plain(fe, preds, shape, n: int, seg_w: int = 0, w_quant: bool = False
     return stats.reshape(-1, pavp.get_m(n)).contiguous()
 
 
-def _launch_chains(kind, fe, pred, ssum, srecip, scratch, out, shape, n, q0, k, c0, form,
-                   seg):
+def _launch_chains(kind, fe, pred, ssum, srecip, out, shape, n, q0, k, c0, form, seg,
+                   design=TWO_PASS):
     s, h, w = shape
-    rc = kernels.library().nbt_p3_model_chains(
+    lib = kernels.library()
+    size = lib.nbt_p3_model_chains_scratch(s, h, w, k, design)
+    scratch = torch.empty(size, dtype=torch.int64, device=fe.device) if size > 0 else None
+    rc = lib.nbt_p3_model_chains(
         kind, fe.data_ptr(), pred.data_ptr(), ssum.data_ptr(), srecip.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), s, h, w, n, q0, k, out.shape[1], c0, seg, form,
-        *kernels.stream_of(fe))
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(), s, h, w, n, q0, k,
+        out.shape[1], c0, seg, form, design, *kernels.stream_of(fe))
     kernels.check(rc, "p3_model_chains")
     chains.launches += 1
 
@@ -127,8 +144,9 @@ def chains(fe, preds, shape, n: int, seg_w: int = 0, w_quant: bool = False):
     where w_pred holds them (:func:`form_of`), a row a segment.  K = 2, the
     hard and the simple prediction: the two mix chains, (S H W, 2).  CPU
     tensors take :func:`chains_plain`; CUDA tensors launch K10 (the energy
-    channel, then the moments in :func:`_moment_blocks`; one count a
-    launch, each launch a B pass and an E/F pass) or raise."""
+    channel, then the moments in the design of :func:`chain_design`: one
+    wavefront launch, or two-pass launches in :func:`_moment_blocks`; one
+    count a launch) or raise."""
     if fe.device.type == "cpu":
         return chains_plain(fe, preds, shape, n, seg_w, w_quant)
     s, h, w = shape
@@ -137,6 +155,8 @@ def chains(fe, preds, shape, n: int, seg_w: int = 0, w_quant: bool = False):
     if len(preds) not in (1, 2) or not 1 <= n <= 12:
         raise ValueError(f"K10 takes 1 or 2 prediction planes and 1..12 features, got "
                          f"{len(preds)} and {n}")
+    if w >= 1 << 16:
+        raise ValueError(f"K10 takes strips narrower than 65536 columns, got {w}")
     dev = fe.device
     if p == 0:
         return torch.empty((0, 2 if mix else pavp.get_m(n)), dtype=torch.int64, device=dev)
@@ -146,17 +166,18 @@ def chains(fe, preds, shape, n: int, seg_w: int = 0, w_quant: bool = False):
     srecip = torch.empty(p, dtype=torch.int64, device=dev)  # uint64 bits
     if mix:  # plain chains: mix_e rules out the segment forms
         out = torch.empty((p, 2), dtype=torch.int64, device=dev)
-        scratch = torch.empty((p, 2), dtype=torch.int64, device=dev)
-        _launch_chains(MIX, fe, preds, ssum, srecip, scratch, out, shape, n, 0, 2, 0, PLAIN, 1)
+        _launch_chains(MIX, fe, preds, ssum, srecip, out, shape, n, 0, 2, 0, PLAIN, 1)
         return out
     form, seg = form_of(w, seg_w, w_quant)
-    blocks = _moment_blocks(n, p)
-    out = torch.empty((p // seg, pavp.get_m(n)), dtype=torch.int64, device=dev)
-    scratch = torch.empty(p * max(k for _, k in blocks), dtype=torch.int64, device=dev)
-    _launch_chains(ENERGY, fe, preds, ssum, srecip, scratch, out, shape, n, 0, 1, 0, form, seg)
-    for q0, k in blocks:
-        _launch_chains(MOMENTS, fe, preds, ssum, srecip, scratch, out, shape, n, q0, k, 1 + q0,
-                       form, seg)
+    k = n + n * n
+    rows = p // seg if form == HOLD else p  # w_pred: a row a segment
+    out = torch.empty((rows, pavp.get_m(n)), dtype=torch.int64, device=dev)
+    _launch_chains(ENERGY, fe, preds, ssum, srecip, out, shape, n, 0, 1, 0, form, seg)
+    design = chain_design(s, h, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+    blocks = [(0, k)] if design == WAVE else _moment_blocks(n, p)
+    for q0, kk in blocks:
+        _launch_chains(MOMENTS, fe, preds, ssum, srecip, out, shape, n, q0, kk, 1 + q0, form,
+                       seg, design)
     return out
 
 

@@ -1156,18 +1156,37 @@ def _model_form(tune, w):
     return seg_w, bool(tune.mix_e), bool(tune.w_pred)
 
 
+# K10's chains at more shapes: 512 columns (segments of 8 under TUNE_V3S
+# and V4S: the freeze and hold forms), h > w, strips past the wavefront's
+# band of 32 rows (the carry between bands): 3 bands, and 35
+CHAIN_SHAPES = {**MODEL_SHAPES, "w512": (2, 4, 512), "tall": (3, 40, 9),
+                "band32": (2, 72, 8), "rows1100": (1, 1100, 8)}
+
+
+def _force_design(monkeypatch, design):
+    """K10's moments in ``design``."""
+    monkeypatch.setattr(model_pass, "chain_design", lambda s, h, k, sms: design)
+
+
+K10_DESIGNS = [model_pass.TWO_PASS, model_pass.WAVE]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("design", K10_DESIGNS)
 @pytest.mark.parametrize("tune", MODEL_TUNES)
-@pytest.mark.parametrize("shape", list(MODEL_SHAPES))
-def test_model_chains_kernel_matches_plain(cuda_device, tune, shape):
-    dims = MODEL_SHAPES[shape]
+@pytest.mark.parametrize("shape", list(CHAIN_SHAPES))
+def test_model_chains_kernel_matches_plain(cuda_device, monkeypatch, tune, shape, design):
+    """K10 in each design of its moments (the wavefront: the last of 4
+    channel blocks 14 lanes live) against chains_plain."""
+    _force_design(monkeypatch, design)
+    dims = CHAIN_SHAPES[shape]
     seg_w, mix, w_quant = _model_form(getattr(strips, tune), dims[2])
     fe, px_s = model_pass.features(_model_strips(dims).to(cuda_device), 10)
     preds = px_s.reshape(1, -1)
     before = model_pass.chains.launches
     got = model_pass.chains(fe, preds, dims, 10, seg_w, w_quant)
     torch.cuda.synchronize()
-    assert model_pass.chains.launches > before
+    assert model_pass.chains.launches == before + 2  # a moment launch fits the budget here
     want = model_pass.chains_plain(fe, preds, dims, 10, seg_w, w_quant)
     assert got.shape == want.shape and torch.equal(got, want)
     if mix:
@@ -1178,10 +1197,23 @@ def test_model_chains_kernel_matches_plain(cuda_device, tune, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [6, 12])
+def test_model_chains_kernel_channel_blocks(cuda_device, monkeypatch, n):
+    """K10's moments at n + n^2 = 42 and 156 channels: 32-lane blocks with
+    10 and 28 lanes of the last live, and the two passes."""
+    dims = (5, 6, 24)
+    fe, px_s = model_pass.features(_model_strips(dims, n).to(cuda_device), n)
+    want = model_pass.chains_plain(fe, px_s.reshape(1, -1), dims, n)
+    for design in K10_DESIGNS:
+        _force_design(monkeypatch, design)
+        assert torch.equal(model_pass.chains(fe, px_s.reshape(1, -1), dims, n), want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("budget", [1 << 20, 1 << 14])
 def test_model_chains_kernel_in_small_launches(cuda_device, monkeypatch, budget):
-    """The moment channels cut into several K10 launches (as at the th-64
-    corpus), the scratch reused between them."""
+    """The two passes' moment channels cut into several K10 launches (as at
+    24 images at th 768), the scratch within the budget."""
     monkeypatch.setattr(model_pass, "SCRATCH_BYTES", budget)
     dims = MODEL_SHAPES["lanes24"]
     fe, px_s = model_pass.features(_model_strips(dims, 3).to(cuda_device), 10)
@@ -1189,6 +1221,20 @@ def test_model_chains_kernel_in_small_launches(cuda_device, monkeypatch, budget)
     got = model_pass.chains(fe, px_s.reshape(1, -1), dims, 10)
     n_launch = model_pass.chains.launches - before
     assert n_launch == 1 + len(model_pass._moment_blocks(10, fe.shape[0])) > 2
+    assert torch.equal(got, model_pass.chains_plain(fe, px_s.reshape(1, -1), dims, 10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", K10_DESIGNS)
+def test_model_chains_kernel_many_strips_in_one_launch(cuda_device, monkeypatch, design):
+    """All the moment channels of 4,608 strips (the th-4 corpus's count) in
+    one K10 launch, beside the energy's."""
+    _force_design(monkeypatch, design)
+    dims = (4608, 2, 16)
+    fe, px_s = model_pass.features(_model_strips(dims, 3).to(cuda_device), 10)
+    before = model_pass.chains.launches
+    got = model_pass.chains(fe, px_s.reshape(1, -1), dims, 10)
+    assert model_pass.chains.launches - before == 2
     assert torch.equal(got, model_pass.chains_plain(fe, px_s.reshape(1, -1), dims, 10))
 
 
@@ -1214,10 +1260,12 @@ def _model_systems(n, rows, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4096, 4099])
 @pytest.mark.parametrize("n", [10, 6, 12])
 @pytest.mark.parametrize("w_quant,seg", [(False, 1), (True, 1), (True, 4), (True, 11)])
-def test_model_solve_kernel_matches_plain(cuda_device, n, w_quant, seg):
-    rows = 4096
+def test_model_solve_kernel_matches_plain(cuda_device, n, w_quant, seg, rows):
+    """K11, a system a thread, against solve_plain: its warps' batches of
+    32 rows whole and (4099) the last one 3 rows."""
     stats = _model_systems(n, rows, n + seg).to(cuda_device)
     rng = np.random.default_rng(seg)
     fe = torch.from_numpy(rng.integers(-128, 128, size=(rows * seg, n + 1)).astype(np.int32))

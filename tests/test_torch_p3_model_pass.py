@@ -207,8 +207,19 @@ def test_pass_as_the_card_runs_it(kw):
 
 
 def test_moment_blocks_and_refusals(monkeypatch):
+    """The moments run in one K10 wavefront launch where the strips are short
+    and many (the th-64 corpus), else in two-pass launches within
+    the scratch budget; the pass refuses what it cannot model."""
+    k, design = N + N * N, model_pass.chain_design
+    assert design(288, 64, k, 132) == model_pass.WAVE  # the th-64 corpus
+    assert design(288, 64, 1, 132) == model_pass.TWO_PASS  # its energy channel
+    assert design(288, 64, 2, 132) == model_pass.TWO_PASS  # its mix channels
+    assert design(1, 768, k, 132) == model_pass.TWO_PASS  # th 768: 4 CTAs a wavefront
+    assert design(24, 64, k, 132) == model_pass.TWO_PASS  # 96 CTAs
+    assert design(72, 256, k, 132) == model_pass.WAVE  # the corpus at th 256: 288 CTAs
+    assert design(48, 384, k, 132) == model_pass.TWO_PASS  # at th 384: 192
     assert len(model_pass._moment_blocks(N, 768 * 512)) == 1  # th 768: one moment launch
-    assert len(model_pass._moment_blocks(N, 24 * 768 * 512)) == 4  # the corpus: four
+    assert len(model_pass._moment_blocks(N, 24 * 768 * 512)) == 4  # 24 images: four
     for p, budget in ((393216, 1 << 31), (9437184, 1 << 31), (10, 80), (5, 1)):
         monkeypatch.setattr(model_pass, "SCRATCH_BYTES", budget)
         blocks = model_pass._moment_blocks(N, p)
@@ -224,7 +235,12 @@ def test_moment_blocks_and_refusals(monkeypatch):
 # ---- model_chain.cuh's host branch
 
 SHIM = r"""
+#include <algorithm>
+#include <array>
+#include <vector>
+
 #include "model_chain.cuh"
+#include "model_solve.cuh"
 extern "C" {
 void decay_many(const int64_t* v, int ab, int64_t* out, long long count) {
   for (long long k = 0; k < count; ++k) out[k] = ab == 3 ? mc_decay<3>(v[k]) : mc_decay<5>(v[k]);
@@ -233,6 +249,15 @@ void moment_many(const int64_t* l, const int64_t* r, const int* shift, const int
                  int64_t* out, long long count) {
   for (long long k = 0; k < count; ++k)
     out[k] = moment(l[k], r[k], shift[k], s[k], moment_recip(s[k]));
+}
+// moment_fast, falling back to moment() where it flags its input
+void moment_fast_many(const int64_t* l, const int64_t* r, const int* shift, const int64_t* s,
+                      int64_t* out, long long count) {
+  for (long long k = 0; k < count; ++k) {
+    bool slow = false;
+    out[k] = moment_fast(l[k], r[k], shift[k], s[k], moment_recip(s[k]), slow);
+    if (slow) out[k] = moment(l[k], r[k], shift[k], s[k], moment_recip(s[k]));
+  }
 }
 void quot_many(const int64_t* a, const int64_t* s, int64_t* out, long long count) {
   for (long long k = 0; k < count; ++k)
@@ -246,6 +271,172 @@ void weight_many(const int64_t* stats0, const int* x, const int* p, int64_t* out
   for (long long k = 0; k < count; ++k) out[k] = sample_weight(stats0[k], err_energy(x[k], p[k]));
 }
 }
+
+// K10's schedule on virtual threads: each chunk of kChainChunk steps runs
+// warp after warp (in `order` 0 ascending, 1 descending), each step lane
+// after lane; the end of a chunk is the CTA's barrier.  A consumer warp run
+// before its producer (descending) reads what the producer left in an
+// earlier chunk only; a producer run first (ascending) overwrites only
+// slots already read.
+// One step of a thread: its rows' inputs, contributions and chains.
+template <int kKind, int kForm, int kRows, bool kFwd>
+void emu_step(const ChainArgs& a, const ChainThread& th, int t0, int64_t up,
+              int64_t (&hand)[kRows], int64_t (&acc)[kRows], int64_t (&ef)[kRows]) {
+  ChainIn in[kRows];
+  chain_rows_load<kKind, kForm, kRows, kFwd>(a, th, t0, in);
+  int64_t cv[kRows];
+  chain_rows_contrib<kKind, kRows>(in, th.mo, cv);
+  chain_rows_apply<kKind, kForm, kRows, kFwd>(a, th, t0, up, in, cv, hand, acc, ef);
+}
+
+template <int kKind, int kForm, int kRows, bool kFwd>
+void emu_pass(const ChainArgs& a, const ChainPlan& pl, int64_t* ring, int strip, int cblock,
+              int band, int nrows, int order) {
+  const int threads = pl.warps * kChainWarp;
+  std::vector<ChainThread> th;
+  for (int x = 0; x < threads; ++x)
+    th.push_back(chain_thread(a, pl, kKind, kFwd, ring, strip, cblock, band, nrows,
+                              x / kChainWarp, x % kChainWarp));
+  std::vector<std::array<int64_t, kRows>> hand(threads), acc(threads), ef(threads);
+  for (int x = 0; x < threads; ++x) hand[x].fill(0), acc[x].fill(0), ef[x].fill(0);
+  const int steps = chain_steps(pl, a.w, nrows);
+  for (int s0 = 0; s0 < steps; s0 += kChainChunk) {
+    for (int wi = 0; wi < pl.warps; ++wi) {
+      const int warp = order ? pl.warps - 1 - wi : wi;
+      for (int u = 0; u < kChainChunk; ++u) {
+        for (int l = 0; l < kChainWarp; ++l) {
+          const int x = warp * kChainWarp + l;
+          const int t0 = s0 + u - th[x].lag0;
+          const int64_t up = chain_receive(a, th[x], kFwd, t0);
+          int64_t(&h)[kRows] = *reinterpret_cast<int64_t(*)[kRows]>(hand[x].data());
+          int64_t(&c)[kRows] = *reinterpret_cast<int64_t(*)[kRows]>(acc[x].data());
+          int64_t(&e)[kRows] = *reinterpret_cast<int64_t(*)[kRows]>(ef[x].data());
+          emu_step<kKind, kForm, kRows, kFwd>(a, th[x], t0, up, h, c, e);
+        }
+      }
+    }
+  }
+}
+
+template <int kKind, int kForm, int kRows>
+void emu_launch(const ChainArgs& a, const ChainPlan& pl, int order) {
+  std::vector<int64_t> ring(static_cast<size_t>(pl.warps) * kChainRing * kChainWarp, 0);
+  const int cblocks = (a.k + kChainWarp - 1) / kChainWarp;
+  for (int strip = 0; strip < a.s; ++strip)
+    for (int cb = 0; cb < cblocks; ++cb)
+      for (int band = 0; band < pl.bands; ++band) {
+        const int nrows = std::min(pl.band, a.h - band * pl.band);
+        emu_pass<kKind, kForm, kRows, true>(a, pl, ring.data(), strip, cb, band, nrows, order);
+        emu_pass<kKind, kForm, kRows, false>(a, pl, ring.data(), strip, cb, band, nrows, order);
+      }
+  if (kKind == kEnergy)
+    for (long long px = 0; px < a.p; ++px) chain_weight(a, px);
+}
+
+template <int kKind, int kForm>
+int emu_rows(const ChainArgs& a, const ChainPlan& pl, int order) {
+  switch (pl.rows) {
+    case 1: emu_launch<kKind, kForm, 1>(a, pl, order); return 0;
+    case 2: emu_launch<kKind, kForm, 2>(a, pl, order); return 0;
+    case 3: emu_launch<kKind, kForm, 3>(a, pl, order); return 0;
+    case 4: emu_launch<kKind, kForm, 4>(a, pl, order); return 0;
+  }
+  return -1;
+}
+
+template <int kKind>
+int emu_rows(const ChainArgs& a, const ChainPlan& pl, int order) {
+  if (a.form == kFreeze) return emu_rows<kKind, kFreeze>(a, pl, order);
+  if (a.form == kHold) return emu_rows<kKind, kHold>(a, pl, order);
+  return emu_rows<kKind, kPlain>(a, pl, order);
+}
+
+extern "C" int emulate_chains(int kind, const int32_t* fe, const int32_t* pred, int32_t* ssum,
+                              uint64_t* srecip, int64_t* out, int s, int h, int w, int n, int q0,
+                              int k, int stride, int c0, int seg, int form, int rows,
+                              int max_warps, int order) {
+  const ChainPlan pl = chain_plan(h, rows, max_warps);
+  std::vector<int64_t> carry(pl.bands > 1 ? 2ull * s * k * w : 0);
+  const int sg = form == kPlain ? 1 : seg;
+  const ChainArgs a{fe, pred, ssum, srecip, carry.empty() ? nullptr : carry.data(), out,
+                    static_cast<long long>(s) * h * w, s, h, w, n, q0, k, stride, c0, sg,
+                    form, seg_inverse(sg)};
+  if (kind == kEnergy) return emu_rows<kEnergy>(a, pl, order);
+  if (kind == kMix) return emu_rows<kMix>(a, pl, order);
+  return emu_rows<kMoments>(a, pl, order);
+}
+
+extern "C" int chain_bands(int h, int rows, int max_warps) {
+  return chain_plan(h, rows, max_warps).bands;
+}
+
+// K11's thread on each statistics row, as the kernel's instance for n
+// (10, else 12) runs it: the system staged with the ridge, solved, then
+// the prediction of the row's pixels (seg of them under w_pred).
+template <int kN>
+void solve_rows_n(const int64_t* stats, const int32_t* fe, const int32_t* px_s, int32_t* px,
+                  uint8_t* ok_out, long long rows, int seg, int n, int wq) {
+  const int m = 1 + n + n * n;
+  for (long long r = 0; r < rows; ++r) {
+    int64_t a[kN * (kN + 1)] = {};
+    uint64_t magic[kN];
+    uint32_t meta[kN];
+    for (int ch = 0; ch < m; ++ch) {
+      int64_t add;
+      const int at = solve_entry<kN>(ch, n, add);
+      if (at >= 0) a[at] = sv_add(stats[r * m + ch], add);
+    }
+    const SolveRef<kN, 1> s{a, magic, meta};
+    const bool ok = thread_solve<kN, 1>(s, n);
+    if (wq) {
+      int w[kN];
+      for (int t = 0; t < kN; ++t) w[t] = t < n ? solve_quantize(s.at(t, t), s.at(t, n)) : 0;
+      for (int q = 0; q < seg; ++q) {
+        const long long p = r * seg + q;
+        px[p] = ok ? solve_predict_wq<kN>(w, n, fe + p * (n + 1) + 1) : px_s[p];
+        ok_out[p] = ok;
+      }
+    } else {
+      px[r] = ok ? solve_round_px(thread_predict<kN, 1>(s, n, fe + r * (n + 1) + 1)) : px_s[r];
+      ok_out[r] = ok;
+    }
+  }
+}
+
+// Each row's solved system: its diagonal and numerators (n each) and ok.
+template <int kN>
+void solve_systems_n(const int64_t* stats, long long rows, int n, int64_t* diag, int64_t* num,
+                     uint8_t* ok) {
+  const int m = 1 + n + n * n;
+  for (long long r = 0; r < rows; ++r) {
+    int64_t a[kN * (kN + 1)] = {};
+    uint64_t magic[kN];
+    uint32_t meta[kN];
+    for (int ch = 0; ch < m; ++ch) {
+      int64_t add;
+      const int at = solve_entry<kN>(ch, n, add);
+      if (at >= 0) a[at] = sv_add(stats[r * m + ch], add);
+    }
+    const SolveRef<kN, 1> s{a, magic, meta};
+    ok[r] = thread_solve<kN, 1>(s, n);
+    for (int t = 0; t < n; ++t) {
+      diag[r * n + t] = s.at(t, t);
+      num[r * n + t] = s.at(t, n);
+    }
+  }
+}
+
+extern "C" void solve_systems(const int64_t* stats, long long rows, int n, int64_t* diag,
+                              int64_t* num, uint8_t* ok) {
+  if (n == 10) solve_systems_n<10>(stats, rows, n, diag, num, ok);
+  else solve_systems_n<kSolveMaxN>(stats, rows, n, diag, num, ok);
+}
+
+extern "C" void solve_rows(const int64_t* stats, const int32_t* fe, const int32_t* px_s,
+                           int32_t* px, uint8_t* ok, long long rows, int seg, int n, int wq) {
+  if (n == 10) solve_rows_n<10>(stats, fe, px_s, px, ok, rows, seg, n, wq);
+  else solve_rows_n<kSolveMaxN>(stats, fe, px_s, px, ok, rows, seg, n, wq);
+}
 """
 
 
@@ -254,7 +445,8 @@ def lib():
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.fail("g++ is needed to compile model_chain.cuh's host path")
-    text = HEADER.read_bytes() + (HEADER.parent / "udiv64.cuh").read_bytes() + SHIM.encode()
+    text = b"".join((HEADER.parent / h).read_bytes()
+                    for h in ("model_chain.cuh", "model_solve.cuh", "udiv64.cuh")) + SHIM.encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     out_dir = ROOT / "build" / "test_p3_model_pass"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -271,9 +463,16 @@ def lib():
     ptr, cnt = ctypes.c_void_p, ctypes.c_longlong
     lib.decay_many.argtypes = [ptr, ctypes.c_int, ptr, cnt]
     lib.moment_many.argtypes = [ptr, ptr, ptr, ptr, ptr, cnt]
+    lib.moment_fast_many.argtypes = [ptr, ptr, ptr, ptr, ptr, cnt]
     lib.quot_many.argtypes = [ptr, ptr, ptr, cnt]
     lib.clip_many.argtypes = [ptr, ptr, cnt]
     lib.weight_many.argtypes = [ptr, ptr, ptr, ptr, cnt]
+    lib.emulate_chains.argtypes = [ctypes.c_int] + [ptr] * 5 + [ctypes.c_int] * 13
+    lib.emulate_chains.restype = ctypes.c_int
+    lib.chain_bands.argtypes = [ctypes.c_int] * 3
+    lib.chain_bands.restype = ctypes.c_int
+    lib.solve_rows.argtypes = [ptr] * 5 + [cnt] + [ctypes.c_int] * 3
+    lib.solve_systems.argtypes = [ptr, cnt, ctypes.c_int, ptr, ptr, ptr]
     return lib
 
 
@@ -318,7 +517,8 @@ def _moments_ref(l, r, shift, s):
 def test_host_moments_every_divisor(lib):
     """Every sample weight s in [2^12, 2^16] against the pixels' edge
     factors at both shifts; then factors past the pixels' range, whose
-    numerators leave the reciprocal's domain (2^47) or wrap."""
+    numerators leave the reciprocal's domain (2^47) or wrap: moment(), and
+    K10's moment_fast with its fallback."""
     s_all = np.arange(1 << 12, (16 << 12) + 1, dtype=np.int64)
     vals = np.array([-128, -127, -1, 0, 1, 127])
     pairs = [(a, b, sh) for a in vals for b in vals if a <= b for sh in (18, 28)]
@@ -334,10 +534,12 @@ def test_host_moments_every_divisor(lib):
     r = np.concatenate([r, wide[1]])
     shift = np.concatenate([shift, rng.choice([18, 28], size=k).astype(np.int32)])
     s = np.concatenate([s, rng.integers(1 << 12, (16 << 12) + 1, size=k)])
-    out = np.empty_like(l)
-    lib.moment_many(l.ctypes.data, r.ctypes.data, shift.ctypes.data, s.ctypes.data,
-                    out.ctypes.data, l.size)
-    np.testing.assert_array_equal(out, _moments_ref(l, r, shift, s))
+    want = _moments_ref(l, r, shift, s)
+    for fn in (lib.moment_many, lib.moment_fast_many):  # K10 takes the second
+        out = np.empty_like(l)
+        fn(l.ctypes.data, r.ctypes.data, shift.ctypes.data, s.ctypes.data, out.ctypes.data,
+           l.size)
+        np.testing.assert_array_equal(out, want)
 
 
 def test_host_reciprocal_quotient_at_its_edges(lib):
@@ -351,3 +553,117 @@ def test_host_reciprocal_quotient_at_its_edges(lib):
     out = np.empty_like(a)
     lib.quot_many(a.ctypes.data, s.ctypes.data, out.ctypes.data, a.size)
     np.testing.assert_array_equal(out, a // s)
+
+
+# ---- K10's skewed wavefront, run lane by lane and warp by warp
+
+# (rows a thread, most warps a CTA): K10's wavefront, then smaller CTAs
+# whose warp boundaries and bands the small strips below cross (one warp
+# of 4 rows; bands of 6 rows in two warps, of 3 in three)
+WAVE_LAYOUTS = [(2, 16), (4, 1), (3, 2), (1, 3)]
+# (S, H, W): h < w, h > w, 44 columns (segments of 4 and 11), 33 (of 11;
+# of 4 the plain chains) and 37 (no segment divides it), one row, one column
+WAVE_SHAPES = {"h<w": (2, 5, 44), "h>w": (1, 40, 33), "row": (3, 1, 37), "col": (2, 9, 1),
+               "w37": (1, 7, 37)}
+# (shape, seg_w, w_quant, n)
+WAVE_CASES = [("h<w", 0, False, N), ("h<w", 4, False, N), ("h<w", 11, False, N),
+              ("h<w", 4, True, N), ("h<w", 11, True, N), ("h>w", 0, False, N),
+              ("h>w", 11, False, N), ("h>w", 11, True, N), ("h>w", 4, True, N),
+              ("row", 0, False, N), ("col", 0, False, N), ("w37", 4, True, N),
+              ("h<w", 0, False, 6), ("h>w", 4, False, 12)]
+
+
+def _wave_inputs(shape, n, seed):
+    """(fe, px_s (1, P)) of seeded strips: noise over a ramp, one strip's
+    first row flat and a checkerboard below it."""
+    s, h, w = shape
+    rng = np.random.default_rng(seed)
+    x = (np.add.outer(np.arange(h), 3 * np.arange(w))[None] + rng.integers(0, 64, (s, h, w)))
+    x[0, 0] = 200
+    x[0, 1:] = np.where(np.add.outer(np.arange(h - 1), np.arange(w)) % 2, 255, x[0, 1:])
+    fe, px_s = model_pass.features(torch.from_numpy(np.clip(x, 0, 255).astype(np.int32)), n)
+    return fe, px_s.reshape(1, -1)
+
+
+def _emulated(lib, fe, preds, shape, n, seg_w, w_quant, layout, order):
+    """The statistics of ``chains`` (the energy's launch, whose sample
+    weights the moments read, and the moments') on the wavefront's
+    schedule emulated in ``layout``."""
+    s, h, w = shape
+    p = s * h * w
+    fe_np = np.ascontiguousarray(fe.numpy())
+    pr = np.ascontiguousarray(preds.numpy().astype(np.int32))
+    ssum, srecip = np.zeros(p, np.int32), np.zeros(p, np.uint64)
+
+    def run(kind, out, q0, k, c0, form, seg, lay):
+        rc = lib.emulate_chains(kind, fe_np.ctypes.data, pr.ctypes.data, ssum.ctypes.data,
+                                srecip.ctypes.data, out.ctypes.data, s, h, w, n, q0, k,
+                                out.shape[1], c0, seg, form, *lay, order)
+        assert rc == 0
+
+    form, seg = model_pass.form_of(w, seg_w, w_quant)
+    rows = p // seg if form == model_pass.HOLD else p
+    out = np.full((rows, pavp.get_m(n)), 0x5A5A5A5A5A5A5A5A, np.int64)
+    run(model_pass.ENERGY, out, 0, 1, 0, form, seg, layout)
+    run(model_pass.MOMENTS, out, 0, n + n * n, 1, form, seg, layout)
+    return out
+
+
+@pytest.mark.parametrize("case", WAVE_CASES,
+                         ids=[f"{c[0]}-seg{c[1]}-{'hold' if c[2] else 'e'}-n{c[3]}"
+                              for c in WAVE_CASES])
+def test_wavefront_emulated_against_chains_plain(lib, case):
+    """model_chain.cuh's schedule and steps, run lane by lane, warp by warp
+    in both orders between barriers, equal chains_plain: every statistic
+    written, the warp boundaries, bands and the channel blocks' idle lanes
+    included."""
+    name, seg_w, w_quant, n = case
+    shape = WAVE_SHAPES[name]
+    fe, preds = _wave_inputs(shape, n, len(name) + seg_w + n)
+    want = model_pass.chains_plain(fe, preds, shape, n, seg_w, w_quant).numpy()
+    crossed = set()
+    for layout in WAVE_LAYOUTS:
+        if lib.chain_bands(shape[1], *layout) > 1:
+            crossed.add("bands")
+        for order in (0, 1):
+            got = _emulated(lib, fe, preds, shape, n, seg_w, w_quant, layout, order)
+            np.testing.assert_array_equal(got, want, err_msg=f"{layout} order {order}")
+    assert shape[1] < 9 or "bands" in crossed
+
+
+# ---- K11's system a thread (model_solve.cuh's host path)
+
+
+@pytest.mark.parametrize("n", [6, 10, 12])
+@pytest.mark.parametrize("w_quant,seg", SOLVES)
+def test_host_thread_solve_against_solve_plain(lib, n, w_quant, seg):
+    """K11's per-thread elimination, prediction and w_pred dot on random
+    ridge systems, singular ones, wrapping ones and INT64_MIN pivots, at
+    tolerance 0 against solve_plain (pavp.predict_chunked)."""
+    st = _systems(n=n, seed=20 + n)
+    rows = st.shape[1]
+    a = st[1 + n :].reshape(n, n, rows)  # a view: the matrix's channels
+    a[:, :, 48:56] = ((1 - 8 * n) * np.eye(n, dtype=np.int64))[:, :, None]
+    a[n - 1, n - 1, 48:56] = -8 * n  # with the ridge diag(1, ..., 1, 0): the last pivot 0
+    rng = np.random.default_rng(n + seg)
+    fe = rng.integers(-128, 128, size=(rows * seg, n + 1)).astype(np.int32)
+    px_s = rng.integers(0, 256, size=rows * seg).astype(np.int32)
+    stats = np.ascontiguousarray(st.T)
+    px = np.empty(rows * seg, np.int32)
+    ok = np.empty(rows * seg, np.uint8)
+    lib.solve_rows(stats.ctypes.data, fe.ctypes.data, px_s.ctypes.data, px.ctypes.data,
+                   ok.ctypes.data, rows, seg, n, int(w_quant))
+    want, want_ok = model_pass.solve_plain(torch.from_numpy(stats), torch.from_numpy(fe),
+                                           torch.from_numpy(px_s), n, seg, w_quant)
+    np.testing.assert_array_equal(px, want.numpy())
+    np.testing.assert_array_equal(ok.astype(bool), want_ok.numpy())
+    assert not want_ok[8 * seg : 16 * seg].any() and not want_ok[48 * seg : 56 * seg].any()
+    assert want_ok.any()
+    # the solve itself, before the rounding hides a small error
+    diag, num = np.empty((rows, n), np.int64), np.empty((rows, n), np.int64)
+    lib.solve_systems(stats.ctypes.data, rows, n, diag.ctypes.data, num.ctypes.data,
+                      ok.ctypes.data)
+    want_diag, want_num, want_ok = pavp.solve_stats(torch.from_numpy(st), n)
+    np.testing.assert_array_equal(diag, want_diag.t().numpy())
+    np.testing.assert_array_equal(num, want_num.t().numpy())
+    np.testing.assert_array_equal(ok[:rows].astype(bool), want_ok.numpy())
