@@ -2196,6 +2196,48 @@ NATIVE_MODES = (("e0 t1", 0, 0, 1), ("e0 t4", 0, 0, 4), ("e1", 0, 1, 0), ("e2", 
                 ("e3", 0, 3, 0), (f"e1 near {NEAR}", NEAR, 1, 0))
 # the device engines' runs on the fixture crop: (fixture mode, near, effort)
 INTEROP_WALKS = (("q0", 0, 0), ("e1", 0, 1), ("e1n2", NEAR, 1), ("e3", 0, 3))
+# K6's whole-image runs on corpus image 0, both ways: (mode, near, effort)
+K6_IMAGE_MODES = INTEROP_WALKS[:3] + (("e2", 0, 2), ("e3", 0, 3))
+# K6's integer operations, counted from csrc/interop_chain.cuh (a division,
+# a load, a store, a compare or a select counts as one, an int64 operation
+# as one): a pixel's fixed work at effort 1 (template 22, blend 120,
+# activity 15, quantizer 25, address 20, bias 6, fold and unfold 22,
+# mapper 18, context update 7, the symbol's set-up 10); each binary
+# decision (two probabilities 10, the mix 7, the split 7, the
+# renormalization's test 3, two bumps 18, the unary index 8); at efforts
+# 2-3 the two systems' build (4 a channel), the two solves (per system at
+# n = 10: 330 updated entries at 8, pivot searches 162, ten reciprocals at
+# 40, back substitution 270, prediction 100; at n = 6: 70 entries, 60, six
+# reciprocals, 90, 60), the sample weight 70, the update (21 a channel)
+# and the F chain's step (6 a channel).  The serial part is what one
+# thread issues: the fixed work, one system's solve, the weight and its
+# share of the update and the F chain over the warp's 32 threads.  The
+# Q0.2 decode's pixel: slide 12, blend 120, quantizer 15, address 20, bias
+# 6, the rANS step and its loads 16, unfold 10, update 7.  The chain's
+# step: two loads, the multiply-add, the shift, the store.
+K6_PIXEL_OPS = {1: 265, 2: 265 + 4 * 43 + 2 * 1010 + 70 + 21 * 43 + 6 * 43,
+                3: 265 + 4 * 111 + 2 * 3570 + 70 + 21 * 111 + 6 * 111}
+K6_SERIAL_OPS = {1: 265, 2: 265 + 1010 + 70 + (21 + 6 + 4) * 43 // 32,
+                 3: 265 + 3570 + 70 + (21 + 6 + 4) * 111 // 32}
+K6_BIN_OPS = 53
+K6_Q_PIXEL_OPS = 206
+K6_CHAIN_OPS = 6
+
+
+@contextlib.contextmanager
+def _plain_walks():
+    """The interop entry points on their plain walks for the block (any
+    device): the comparisons' runs, which launch no K6."""
+    from nblic_tpu_torch.models import nblic, qnblic
+
+    saved = nblic._walk, qnblic._decode_walk, qnblic._context_chain
+    nblic._walk = nblic._walk_plain
+    qnblic._decode_walk = qnblic._decode_walk_plain
+    qnblic._context_chain = qnblic._context_chain_plain
+    try:
+        yield
+    finally:
+        nblic._walk, qnblic._decode_walk, qnblic._context_chain = saved
 
 
 def _native_run(imgs, near, effort, n_threads):
@@ -2250,6 +2292,7 @@ def _interop_phase(api, corpus, dev, card):
 
     from nblic_tpu_torch import runtime
     from nblic_tpu_torch.models import qnblic
+    from nblic_tpu_torch.ops import interop_walk as k6
     from nblic_tpu_torch.ops import rans
     from nblic_tpu_torch.ops.fold import encode_fold
 
@@ -2294,8 +2337,12 @@ def _interop_phase(api, corpus, dev, card):
         # ---- the native corpus runs, all collected before the card's walks
         # are timed
         n_px = sum(im.size for im in corpus)
+        native_img = {}  # the image's native containers, by K6's modes
         for m, futs in jobs.items():
             res = [r for fut in futs for r in fut.result()]
+            for mode, near, effort in K6_IMAGE_MODES:
+                if (near, effort) == m[1:3] and m[3] in (0, 1):
+                    native_img[mode] = res[0][0]
             enc_s, dec_s = sum(r[1] for r in res), sum(r[2] for r in res)
             err = max(r[3] for r in res)
             ok = err <= m[1] and (m[1] > 0 or err == 0)
@@ -2313,34 +2360,63 @@ def _interop_phase(api, corpus, dev, card):
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
-    # ---- the device engines on the card: the crop (full width, a depth cut
-    # of the rows: a walk takes 3-10 ms a pixel here)
+    # ---- the device engines on the card, each walk on K6 (the main path's
+    # run: K6's counts from here to the image's Q0.2 encode): the crop (full
+    # width, a depth cut of the rows), one whole corpus image a mode both
+    # ways, a flat image's Q0.2 encode
     crop = imgs["crop"]
     encode_fold.launches = 0
+    k6.nblic_walk.launches = k6.q_decode_walk.launches = k6.context_before.launches = 0
+    card_crop = {}
     for mode, near, effort in INTEROP_WALKS:
-        t0 = time.perf_counter()
         c = api.compress(crop, near=near, effort=effort, device=dev)
-        enc_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
         back = api.decompress(c, device=dev)
-        dec_s = time.perf_counter() - t0
         native = api.compress(crop, near=near, effort=effort, backend="native")
         err = _max_err(back, crop)
         ok = c == fixtures["crop", mode] == native and np.array_equal(
             back, api.decompress(native, backend="native")) and err <= near
-        walk_s = dec_s if effort == 0 else enc_s + dec_s
-        print(f"[interop walk] {mode} {crop.shape} on the card: container equal to the "
+        card_crop[mode] = (c, back)
+        print(f"[interop walk] {mode} {crop.shape} on the card (K6): container equal to the "
               f"fixture's and the native copy's, decode equal to the native's {ok} (max "
-              f"error {err}); encode {1e3 * enc_s / crop.size:.3f} ms a pixel, decode "
-              f"{1e3 * dec_s / crop.size:.3f} ms a pixel; one 768x512 image would take "
-              f"{768 * 512 * walk_s / crop.size / 60:.1f} min both ways at these times "
-              f"({card})", flush=True)
+              f"error {err})", flush=True)
         if not ok:
             return None
+    image_runs = {}
+    for mode, near, effort in K6_IMAGE_MODES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = api.compress(img, near=near, effort=effort, device=dev)
+        t1 = time.perf_counter()
+        back = api.decompress(c, device=dev)
+        t2 = time.perf_counter()
+        bins = int(k6.nblic_walk.bins) if effort else 0
+        err = _max_err(back, img)
+        ok = c == native_img[mode] and err <= near
+        image_runs[mode] = (t1 - t0, t2 - t1, bins, len(c))
+        print(f"[K6 image] {mode} {img.shape} both ways on the card: container equal to the "
+              f"native copy's {c == native_img[mode]}, max error {err} (near {near}); encode "
+              f"{1e6 * (t1 - t0) / img.size:.3f} us a pixel ({t1 - t0:.3f} s), decode "
+              f"{1e6 * (t2 - t1) / img.size:.3f} us a pixel ({t2 - t1:.3f} s)"
+              + (f"; {bins / img.size:.3f} bins a pixel" if effort else "") + f" ({card})",
+              flush=True)
+        if not ok:
+            return None
+    flat = np.full(img.shape, 77, np.uint8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c = api.compress(flat, effort=0, device=dev)
+    flat_s = time.perf_counter() - t0
+    ok = c == api.compress(flat, effort=0, backend="native", n_threads=1)
+    print(f"[K6 flat q0.2] {flat.shape} of one value encoded on the card in {flat_s:.4f} s "
+          f"(one context of {flat.size} pixels: the chain's one thread), equal to the native "
+          f"copy's {ok} ({card})", flush=True)
+    if not ok:
+        return None
 
-    # ---- Q0.2 encode of a whole image on the card: the context chain's
-    # lanes and K1 at S = 1 over all 393,216 symbols
-    with StageClock([(qnblic, "_context_chain", "stage 1 and chain"),
+    # ---- Q0.2 encode of a whole image on the card: the context chain (K6)
+    # and K1 at S = 1 over all 393,216 symbols
+    with StageClock([(qnblic, "model_stage1", "stage 1"),
+                     (qnblic, "_context_chain", "chain (K6)"),
                      (qnblic, "encode_fold", "fold (K1)"),
                      (qnblic.rans, "finalize_streams", "stream")]) as clock:
         t0 = time.perf_counter()
@@ -2348,12 +2424,91 @@ def _interop_phase(api, corpus, dev, card):
         enc_s = time.perf_counter() - t0
     ok = c == api.compress(img, effort=0, backend="native", n_threads=1)
     launches = encode_fold.launches
+    k6_main = {"nblic": k6.nblic_walk.launches, "q_decode": k6.q_decode_walk.launches,
+               "chain": k6.context_before.launches}
     print(f"[interop q0.2 image] {img.shape} encoded on the card in {enc_s:.3f} s, "
           f"stages ms " + ", ".join(f"{k} {v:.1f}" for k, v in clock.stages().items())
-          + f", equal to the native copy's {ok}; K1 launches in the phase {launches} "
-          f"({card})", flush=True)
-    if not ok or launches <= 0:
+          + f", equal to the native copy's {ok}; K1 launches in the phase {launches}, K6's "
+          f"{k6_main} ({card})", flush=True)
+    if not ok or launches <= 0 or min(k6_main.values()) <= 0:
         return None
+
+    # ---- K6 against the plain walks on the card, on the same inputs: the
+    # crop's walks both ways (each timed, K6 by CUDA events over 3 calls,
+    # the plain walk one call), the image's and the flat image's chains
+    k6_ms = {}
+    for mode, near, effort in INTEROP_WALKS:
+        c_k6 = card_crop[mode][0]
+        k6_ms[mode] = (_cuda_ms(lambda: api.compress(crop, near=near, effort=effort,
+                                                     device=dev), 3),
+                       _cuda_ms(lambda: api.decompress(c_k6, device=dev), 3))
+        if mode == "e3":
+            e3_bins = int(k6.nblic_walk.bins)  # the last call's: the crop's e3 decode
+    k6_err, plain_ms = 0, {}
+    with _plain_walks():
+        for mode, near, effort in INTEROP_WALKS:
+            c_k6, back_k6 = card_crop[mode]
+            pc, p_enc = _timed(lambda: api.compress(crop, near=near, effort=effort, device=dev))
+            pback, p_dec = _timed(lambda: api.decompress(c_k6, device=dev))
+            same = pc == c_k6 and np.array_equal(pback, back_k6)
+            k6_err = max(k6_err, _max_err(pback, back_k6), 0 if pc == c_k6 else 256)
+            plain_ms[mode] = (p_enc, p_dec)
+            print(f"[K6 vs plain] {mode} {crop.shape}: K6's container and decode equal to the "
+                  f"plain walk's on the card {same}; encode K6 {k6_ms[mode][0]:.3f} ms | plain "
+                  f"{p_enc:.1f} ms, decode K6 {k6_ms[mode][1]:.3f} ms | plain {p_dec:.1f} ms "
+                  f"(plain {p_dec / crop.size:.3f} ms a pixel; {card})", flush=True)
+            if not same:
+                return None
+    for mode, near, effort in K6_IMAGE_MODES:
+        enc, dec, _, _ = image_runs[mode]
+        plain = plain_ms.get(mode)
+        print(f"[K6 image vs plain] {mode}: K6 {1e6 * enc / img.size:.3f} / "
+              f"{1e6 * dec / img.size:.3f} us a pixel on the image (encode / decode) | plain "
+              + (f"{plain[0] / crop.size:.3f} / {plain[1] / crop.size:.3f} ms a pixel on the crop"
+                 if plain else "not run (the crop's modes are q0, e1, e1n2, e3)")
+              + f" ({card})", flush=True)
+    chain = {}
+    for what, im in (("image", img), ("flat", flat)):
+        x = torch.from_numpy(im).to(dev).to(torch.int32)
+        px0, err_, _, adr = qnblic.model_stage1(x)
+        y_k6 = qnblic._context_chain_card(x, px0, err_, adr)
+        y_plain, p_ms = _timed(lambda: qnblic._context_chain_plain(x, px0, err_, adr))
+        ms = _cuda_ms(lambda: qnblic._context_chain_card(x, px0, err_, adr), 5)
+        steps = int(torch.bincount(adr.reshape(-1).long()).max())
+        chain[what] = (int((y_k6 - y_plain).abs().max()), ms, p_ms, x.numel(), steps)
+        print(f"[K6 chain] the {what}'s {im.shape} context chain: K6 equal to the plain chain "
+              f"{torch.equal(y_k6, y_plain)}; K6 (with its sort and the fold) {ms:.3f} ms | "
+              f"plain {p_ms:.1f} ms (the fullest context {steps} steps) ({card})", flush=True)
+        if not torch.equal(y_k6, y_plain):
+            return None
+
+    # ---- K6's numbers: bound (bytes over the memory rate against the
+    # operations the run's data needs over the int32 rate) and floor (one
+    # thread issuing the dependent part, an operation a cycle)
+    n = crop.size
+    e3_bytes = 2 * n + len(card_crop["e3"][0])
+    nblic_bound = _bound(e3_bytes, n * K6_PIXEL_OPS[3] + e3_bins * K6_BIN_OPS)
+    nblic_floor = 1e3 * (n * K6_SERIAL_OPS[3] + e3_bins * K6_BIN_OPS) / CLOCK_HZ
+    q_bytes = len(card_crop["q0"][0]) + 2 * 12 * 256 * 4 + 12 * 2 ** 15 + n
+    q_bound = _bound(q_bytes, n * K6_Q_PIXEL_OPS)
+    q_floor = 1e3 * n * K6_Q_PIXEL_OPS / CLOCK_HZ
+    c_err, c_ms, c_plain, c_n, c_steps = chain["image"]
+    chain_bound = _bound(c_n * (4 + 8 + 4) + 3073 * 8, c_n * K6_CHAIN_OPS)
+    chain_floor = 1e3 * c_steps * K6_CHAIN_OPS / CLOCK_HZ
+    e3_enc, e3_dec, e3_img_bins, _ = image_runs["e3"]
+    print(f"[K6 interop_walk] the crop's e3 encode: kernel {k6_ms['e3'][0]:.3f} ms | plain "
+          f"{plain_ms['e3'][0]:.1f} ms | bound {nblic_bound[0]:.5f} ms ({nblic_bound[1]}) | "
+          f"floor {nblic_floor:.3f} ms (one thread's issue, {e3_bins / n:.2f} bins a pixel); "
+          f"the image's e3 walk {1e6 * e3_enc / img.size:.2f} / {1e6 * e3_dec / img.size:.2f} "
+          f"us a pixel (floor {1e6 * (K6_SERIAL_OPS[3] + e3_img_bins / img.size * K6_BIN_OPS) / CLOCK_HZ:.2f}) "
+          f"| the q0 decode: kernel {k6_ms['q0'][1]:.3f} ms | plain {plain_ms['q0'][1]:.1f} ms | "
+          f"bound {q_bound[0]:.5f} ms ({q_bound[1]}) | floor {q_floor:.4f} ms | the image's "
+          f"chain: {c_ms:.3f} ms | plain {c_plain:.1f} ms | bound {chain_bound[0]:.5f} ms "
+          f"({chain_bound[1]}) | floor {chain_floor:.4f} ms; the flat's: {chain['flat'][1]:.3f} "
+          f"ms | plain {chain['flat'][2]:.1f} ms ({card})", flush=True)
+    k6_stats = {"nblic": (k6_err, k6_ms["e3"][0], plain_ms["e3"][0], nblic_bound),
+                "q_decode": (k6_err, k6_ms["q0"][1], plain_ms["q0"][1], q_bound),
+                "chain": (max(c_err, chain["flat"][0]), c_ms, c_plain, chain_bound)}
 
     # ---- K1 at S = 1: held to its plain version on the crop's tables (on
     # the card) and on the image's (the CPU's plain fold above), timed on
@@ -2374,7 +2529,7 @@ def _interop_phase(api, corpus, dev, card):
           f"step {1e3 * l_ * 182 / CLOCK_HZ:.1f} ms ({card})", flush=True)
     if not (exact and exact_img):
         return None
-    return launches
+    return launches, k6_main, k6_stats
 
 
 # ---- the mesh phase: ranks spawned on the one card.  Ranks that share a
@@ -2966,11 +3121,13 @@ def main() -> int:
     # ---- the interop containers (Q0.2, NBLIC0.3): the native runtime copy,
     # the device engines, K1 at S = 1
     t0 = time.perf_counter()
-    interop_k1 = _interop_phase(api, corpus, dev, card)
-    if interop_k1 is None:
+    interop = _interop_phase(api, corpus, dev, card)
+    if interop is None:
         print("[interop] failed: a container differed from the fixture's or the native "
-              "copy's, a decode differed, or K1 never launched")
+              "copy's, a decode differed, K6 differed from the plain walks, or K1 or K6 "
+              "never launched")
         return 1
+    interop_k1, k6_main, k6_stats = interop
     print(f"[interop] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- the mesh: gloo ranks sharing the card, then one NCCL rank
@@ -3028,6 +3185,15 @@ def main() -> int:
             note="an XLA scan (lax.scan), no pallas_call"),
         row("p3_model_solve", "nblic_tpu_torch/csrc/p3_model_solve.cu",
             "nblic_tpu/ops/pavp.py:346", MODEL_MAIN["solve"], k11_stats,
+            note="an XLA scan (lax.scan), no pallas_call"),
+        row("interop_nblic_walk", "nblic_tpu_torch/csrc/interop_walk.cu",
+            "nblic_tpu/models/nblic.py:40", k6_main["nblic"], k6_stats["nblic"],
+            note="an XLA scan (lax.scan), no pallas_call"),
+        row("interop_q_decode", "nblic_tpu_torch/csrc/interop_walk.cu",
+            "nblic_tpu/models/qnblic.py:103", k6_main["q_decode"], k6_stats["q_decode"],
+            note="an XLA scan (lax.scan), no pallas_call"),
+        row("interop_q_chain", "nblic_tpu_torch/csrc/interop_walk.cu",
+            "nblic_tpu/models/qnblic.py:46", k6_main["chain"], k6_stats["chain"],
             note="an XLA scan (lax.scan), no pallas_call"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,12 @@ Two families of entry points, the same as ``nblic_tpu``'s:
 - ``compress`` / ``decompress``: the interop containers of the reference
   codec, ``Q0.2`` at effort 0 and ``NBLIC0.3`` at efforts 1-3, byte for
   byte the reference's.  ``backend="torch"`` (the default) runs the device
-  engines (``models/qnblic.py``, ``models/nblic.py``) on ``device``;
-  ``backend="native"`` runs the port's copy of the C++ host runtime
-  (``runtime/``), the fast path.  ``nblic_tpu`` defaults to its native
-  runtime; the port defaults to the card, as every one of its entry points
-  does.
+  engines (``models/qnblic.py``, ``models/nblic.py``) on ``device``: on a
+  card their serial walks are kernel K6, one launch an image (PERF.md
+  gives their times); ``backend="native"`` runs the port's copy of the
+  C++ host runtime (``runtime/``), the fast path.  ``nblic_tpu`` defaults
+  to its native runtime; the port defaults to the card, as every one of
+  its entry points does.
 - ``compress_tiled`` / ``decompress_tiled``: the ``NBTC`` container, the
   same format as ``nblic_tpu`` (see ``models/tiled.py`` for where the bytes
   may differ at effort 2): profile 1 at effort 0-1, profile 2 at effort 2

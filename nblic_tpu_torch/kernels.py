@@ -148,6 +148,14 @@ def library() -> ctypes.CDLL:
     lib.nbt_p3_model_solve.restype = i32
     lib.nbt_p3_model_solve_per_sm.argtypes = [i32, i32]
     lib.nbt_p3_model_solve_per_sm.restype = i32
+    lib.nbt_interop_nblic_walk.argtypes = [ptr] * 7 + [i64, ptr, ptr, ptr] + [i32] * 7 + [ptr]
+    lib.nbt_interop_nblic_walk.restype = i32
+    lib.nbt_interop_walk_smem.argtypes = [i32]
+    lib.nbt_interop_walk_smem.restype = i64
+    lib.nbt_interop_q_decode.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.nbt_interop_q_decode.restype = i32
+    lib.nbt_interop_q_chain.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr]
+    lib.nbt_interop_q_chain.restype = i32
     lib.nbt_error_string.argtypes = [i32]
     lib.nbt_error_string.restype = ctypes.c_char_p
     return lib

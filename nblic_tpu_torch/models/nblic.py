@@ -12,8 +12,11 @@ adaptive bias (``ops/context.py``), re-ranks small residuals
 (``ops/automapper.py``) and codes the symbol with the adaptive binary range
 coder (``ops/range_coder.py``).  Encode folds each pixel against its own
 reconstruction, so near-lossless coding predicts from what the decoder
-sees.  Every state lives on the walk's device; the host reads only the
-range coder's unary stop flag, once a bin.
+sees.  On a CUDA tensor the walk is kernel K6 (``ops/interop_walk.py``),
+one launch an image, every state on the card and no host read inside;
+on a CPU tensor it is the plain walk :func:`_walk_plain`, whose states
+live on its device and whose host reads the range coder's unary stop
+flag once a bin.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 
 from ..constants import MAX_NEAR, MAX_PX_INC, MIN_K_STEP, N_CONTEXT
 from ..convert import resolve_device
-from ..ops import automapper, avp
+from ..ops import automapper, avp, interop_walk
 from ..ops import context as ctx_ops
 from ..ops import range_coder as rc
 from ..ops.predict import activity, n_context_address, n_quantize_activity, n_simple_predict
@@ -37,8 +40,19 @@ def capacity(h: int, w: int) -> int:
 
 
 def _walk(st, h: int, w: int, near: int, k_step: int, effort: int, img=None):
-    """The codec walk; ``img`` (h, w) int64 on the device encodes, None
-    decodes.  Returns (reconstruction (h, w) int64, coder state)."""
+    """The codec walk on the coder's device: kernel K6 on a CUDA tensor,
+    :func:`_walk_plain` on a CPU tensor.  ``img`` (h, w) integer pixels on
+    that device encodes, None decodes.  Returns (reconstruction (h, w),
+    coder state)."""
+    if st.buf.device.type == "cuda":
+        return interop_walk.nblic_walk(st, h, w, near, k_step, effort, img)
+    return _walk_plain(st, h, w, near, k_step, effort, img)
+
+
+def _walk_plain(st, h: int, w: int, near: int, k_step: int, effort: int, img=None):
+    """The plain codec walk, a pixel a step on any device; ``img`` (h, w)
+    int64 encodes, None decodes.  Returns (reconstruction (h, w) int64,
+    coder state)."""
     decode = img is None
     dev = st.buf.device
     n_feat = avp.N_LIST[effort]
@@ -135,8 +149,8 @@ def decode(stream: bytes, device="cuda") -> np.ndarray:
     hdr = NblicHeader.from_bytes(stream)
     if hdr.effort not in (1, 2, 3):
         raise ValueError(f"bad effort {hdr.effort}")
-    if hdr.k_step == 0:  # the walk divides by it (the JAX engine raises too)
-        raise ValueError("bad k_step 0")
+    if hdr.k_step < 2:  # the walk divides by it, and at 1 indexes past the counter tree
+        raise ValueError(f"bad k_step {hdr.k_step}")
     check_size(hdr.height, hdr.width)
     payload = np.frombuffer(stream, dtype=np.uint8, offset=NblicHeader.SIZE)
     st = rc.coder_init_decode(torch.from_numpy(payload.copy()).to(dev))

@@ -6,8 +6,10 @@ bytes as the reference codec and the JAX engine.
 Encode: the modeling pass runs over the whole plane (``ops/predict.py``).
 Its one serial piece, each context's EWMA bias chain, couples only the
 pixels of one context address and reads only their prediction errors, which
-the whole-plane pass already gives.  So it runs as lanes over the 3072
-contexts, each walking its own pixels in raster order: one step of two
+the whole-plane pass already gives.  So it runs over the 3072 contexts,
+each walking its own pixels in raster order: on a CUDA tensor kernel K6
+(``ops/interop_walk.py::context_before``), one thread a context; on a CPU
+tensor the plain version, lanes over the contexts, where one step of two
 tensor operations advances every context whose pixels are not done, and the
 steps number the most pixels any context holds (h * w for a flat image,
 where every pixel shares one context).  The histograms are normalized on
@@ -16,7 +18,8 @@ stream of h * w symbols through ``ops/fold.encode_fold``: kernel K1 on a
 CUDA tensor, its plain version on the CPU.
 
 Decode is one sequential walk over the raster, a pixel a step, with the
-sliding window of ``ops/window.py``.
+sliding window of ``ops/window.py``: kernel K6 on a CUDA tensor
+(``interop_walk.q_decode_walk``), the plain walk on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from ..constants import Q_N_CONTEXT, Q_N_QD
 from ..convert import resolve_device
 from ..ops import context as ctx_ops
 from ..ops import histogram as hist_ops
-from ..ops import rans
+from ..ops import interop_walk, rans
 from ..ops.fold import encode_fold
 from ..ops.predict import model_stage1
 from ..ops.window import pixel_model, row_start_window, slide_window
@@ -40,7 +43,24 @@ N_SYM = hist_ops.N_SYM
 
 def _context_chain(x, px0, err, adr):
     """Residual plane y of the per-context EWMA chain, in raster order
-    within each context.  Planes (h, w) int32 on one device."""
+    within each context.  Planes (h, w) int32 on one device: kernel K6's
+    chain on a CUDA tensor, :func:`_context_chain_plain` on a CPU tensor."""
+    if x.device.type == "cuda":
+        return _context_chain_card(x, px0, err, adr)
+    return _context_chain_plain(x, px0, err, adr)
+
+
+def _context_chain_card(x, px0, err, adr):
+    """The chain by kernel K6: each pixel's state before its step, then the
+    bias correction and the fold over the plane."""
+    before = interop_walk.context_before(err, adr)
+    px, sign = ctx_ops.q_correct_px(before, px0)
+    return ctx_ops.residual_fold(x, px, sign, 0)
+
+
+def _context_chain_plain(x, px0, err, adr):
+    """The plain chain, lanes over the contexts, a step of two tensor
+    operations for each pixel of the fullest context; any device."""
     dev = x.device
     adr_f = adr.reshape(-1).to(torch.int64)
     n = adr_f.numel()
@@ -102,9 +122,18 @@ def encode(img: np.ndarray, device="cuda") -> bytes:
 
 
 def _decode_walk(words, hist_n, acc, lut, h: int, w: int):
-    """The sequential decode, a pixel a step: window, model, bias, the rANS
-    symbol, unfold, bias update.  Tables on the walk's device; returns the
-    (h, w) int32 plane."""
+    """The sequential decode on the tables' device: kernel K6 on a CUDA
+    tensor, :func:`_decode_walk_plain` on a CPU tensor.  Returns the (h, w)
+    integer plane."""
+    if words.device.type == "cuda":
+        return interop_walk.q_decode_walk(words, hist_n, acc, lut, h, w)
+    return _decode_walk_plain(words, hist_n, acc, lut, h, w)
+
+
+def _decode_walk_plain(words, hist_n, acc, lut, h: int, w: int):
+    """The plain sequential decode, a pixel a step on any device: window,
+    model, bias, the rANS symbol, unfold, bias update.  Returns the (h, w)
+    int32 plane."""
     dev = words.device
     state, ptr = rans.dec_start(words)
     ctx = torch.zeros(Q_N_CONTEXT, dtype=torch.int32, device=dev)

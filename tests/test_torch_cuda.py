@@ -436,6 +436,156 @@ def test_interop_engines_on_card_match_cpu(cuda_device, near, effort):
                                   api.decompress(on_card, backend="native"))
 
 
+# K6 (the interop walks) against the plain walks and the native runtime
+# copy: the CPU test's images (make_test_images's small ones), the 6x10
+# synth image, a width of 33 (not a multiple of the warp) and a 64x64 flat
+# image.  The plain walks run on the card where an image has at most 64
+# pixels (a plain step takes 3-15 ms there), on the CPU beside them.
+def _k6_images():
+    rng = np.random.default_rng(1234)
+    imgs = {f"{h}x{w}": rng.integers(0, 256, size=(h, w), dtype=np.uint8)
+            for h, w in ((1, 1), (1, 7), (5, 1), (8, 8), (23, 17))}
+    imgs["flat0"] = np.zeros((16, 16), np.uint8)
+    imgs["flat255"] = np.full((16, 16), 255, np.uint8)
+    imgs["synth6x10"] = synth_image(np.random.default_rng(8), 6, 10)
+    imgs["w33"] = synth_image(np.random.default_rng(9), 7, 33)
+    imgs["flat64"] = np.full((64, 64), 131, np.uint8)
+    return imgs
+
+
+K6_MODES = [(1, 0), (2, 0), (3, 0), (1, 2), (1, 9), (2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("effort,near", K6_MODES)
+@pytest.mark.parametrize("name", list(_k6_images()))
+def test_interop_walk_nblic_matches_plain(cuda_device, effort, near, name):
+    from nblic_tpu_torch import runtime
+    from nblic_tpu_torch.models import nblic
+    from nblic_tpu_torch.ops import interop_walk
+
+    img = _k6_images()[name]
+    launches = interop_walk.nblic_walk.launches
+    on_card = nblic.encode(img, near=near, effort=effort, device=cuda_device)
+    back = nblic.decode(on_card, device=cuda_device)
+    assert interop_walk.nblic_walk.launches == launches + 2  # one launch a walk
+    assert on_card == runtime.n_encode(img, near=near, effort=effort)
+    np.testing.assert_array_equal(back, runtime.n_decode(on_card)[0])
+    assert int(np.abs(back.astype(int) - img.astype(int)).max()) <= near
+    if img.size > 400:  # the native copy alone, which the CPU tests hold to the plain walk
+        return
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(nblic, "_walk", nblic._walk_plain)
+        where = cuda_device if img.size <= 64 else "cpu"
+        assert on_card == nblic.encode(img, near=near, effort=effort, device=where)
+        np.testing.assert_array_equal(back, nblic.decode(on_card, device=where))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_k6_images()))
+def test_interop_walk_q_decode_matches_plain(cuda_device, name):
+    from nblic_tpu_torch import runtime
+    from nblic_tpu_torch.models import qnblic
+    from nblic_tpu_torch.ops import interop_walk
+
+    img = _k6_images()[name]
+    stream = runtime.q_encode(img, n_threads=1)
+    launches = interop_walk.q_decode_walk.launches
+    got = qnblic.decode(stream, device=cuda_device)
+    assert interop_walk.q_decode_walk.launches == launches + 1
+    np.testing.assert_array_equal(got, img)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(qnblic, "_decode_walk", qnblic._decode_walk_plain)
+        where = cuda_device if img.size <= 256 else "cpu"
+        np.testing.assert_array_equal(got, qnblic.decode(stream, device=where))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random", "flat64", "w33", "synth6x10", "1x1"])
+def test_interop_walk_context_chain_matches_plain(cuda_device, name):
+    from nblic_tpu_torch import runtime
+    from nblic_tpu_torch.models import qnblic
+    from nblic_tpu_torch.ops import interop_walk, predict
+
+    imgs = _k6_images()
+    imgs["random"] = np.random.default_rng(7).integers(0, 256, (37, 29), dtype=np.uint8)
+    img = imgs[name]
+    x = torch.from_numpy(img).to(cuda_device).to(torch.int32)
+    px0, err, _, adr = predict.model_stage1(x)
+    launches = interop_walk.context_before.launches
+    got = qnblic._context_chain_card(x, px0, err, adr)
+    assert interop_walk.context_before.launches == launches + 1
+    assert torch.equal(got, qnblic._context_chain_plain(x, px0, err, adr))
+    assert qnblic.encode(img, device=cuda_device) == runtime.q_encode(img, n_threads=1)
+
+
+def _k6_hostile():
+    """The hostile streams of test_torch_interop_api.py, built by the
+    native runtime copy: (kind, stream)."""
+    from nblic_tpu_torch import runtime
+    from nblic_tpu_torch.ops import histogram
+    from nblic_tpu_torch.utils.container import QnblicHeader
+
+    img = np.random.default_rng(0).integers(0, 256, (4, 5), dtype=np.uint8)
+    stream = runtime.n_encode(img, near=0, effort=1)
+    rng = np.random.default_rng(1)
+    bad = [stream[:-1], stream[:-3]]
+    bad += [stream[:16] + rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in (1, 3, 40)]
+    bad.append(runtime.n_encode(np.array([[9, 200]], np.uint8), near=0, effort=1)[:17])
+    for effort, near in ((2, 0), (3, 0), (1, 5)):
+        b = bytearray(bad[4])
+        b[13], b[15] = near, effort
+        bad.append(bytes(b))
+    out = [("nblic", b) for b in bad]
+    img = np.random.default_rng(2).integers(0, 256, (6, 7), dtype=np.uint8)
+    stream = runtime.q_encode(img, n_threads=1)
+    body = len(stream) // 2 * 2
+    words = np.frombuffer(stream[:body], dtype=np.uint16)
+    pos = QnblicHeader.SIZE // 2
+    for _ in range(12):
+        _, pos = histogram.deserialize(words, pos)
+    rng = np.random.default_rng(3)
+    out += [("q", stream[:body - 20]),
+            ("q", stream[:-2] + rng.integers(0, 256, 2, dtype=np.uint8).tobytes()),
+            ("q", stream[:2 * pos + 2])]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(12))
+def test_interop_walk_hostile_streams_match_plain(cuda_device, case):
+    from nblic_tpu_torch.models import nblic, qnblic
+
+    kind, b = _k6_hostile()[case]
+    model = nblic if kind == "nblic" else qnblic
+    got = model.decode(b, device=cuda_device)
+    np.testing.assert_array_equal(got, model.decode(b, device="cpu"))  # the plain walk
+
+
+@pytest.mark.cuda
+def test_interop_walk_refusals_on_card(cuda_device, monkeypatch):
+    from nblic_tpu_torch import kernels, runtime
+    from nblic_tpu_torch.models import nblic, qnblic
+
+    img = np.random.default_rng(4).integers(0, 256, (6, 6), dtype=np.uint8)
+    with monkeypatch.context() as m:
+        m.setattr(nblic, "capacity", lambda h, w: 8)
+        for effort in (1, 3):
+            with pytest.raises(ValueError, match="capacity"):
+                nblic.encode(img, effort=effort, device=cuda_device)
+    stream = bytearray(runtime.n_encode(img, near=0, effort=1))
+    stream[14] = 1  # k_step 1
+    with pytest.raises(ValueError, match="k_step"):
+        nblic.decode(bytes(stream), device=cuda_device)
+    with pytest.raises(ValueError, match="empty"):
+        qnblic._decode_walk(torch.zeros(0, dtype=torch.int64, device=cuda_device), None, None,
+                            None, 2, 2)
+    lib = kernels.library()
+    assert lib.nbt_interop_nblic_walk(None, None, None, None, None, None, None, 0, None, None,
+                                      None, 1, 1, 0, 3, 4, 1, 0, None) != 0  # effort 4
+    assert lib.nbt_interop_walk_smem(3) <= kernels.SMEM_LIMIT
+
+
 # K7 against its plain version: the CPU cases of test_torch_near_scan.py
 # (three images, (tile side or (th, tw), tiles an image, profile, near)),
 # then lane counts that are not a multiple of the CTA's 32 lanes (1, 31,
